@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""Drive the port's frame planner (``repro_torch``) end to end on one card.
+
+Run from the root of a checkout on a machine with an NVIDIA H100::
+
+    python3 chip_smoke.py
+
+Phases, each raising on failure: build the CUDA kernels from the sources
+in the checkout; make T=64 frames of 512x512 (refinement bursts and the
+paper's PIC series); hold every kernel against its plain PyTorch version
+on the card; drive the main path (``planner.plan_stream``, heuristic and
+``exact=True``, then plan pricing and executed migration) with the
+kernels' launch counts set to zero just before it and read just after;
+time the path and the kernels.  The last two lines before the final one
+are the kernels' JSON record and the card's name and power limit; the
+final line is ``{"ok": true, "device": {...}}``.
+
+Dtype contract checked here: int32 results are bit-identical between the
+kernels and the plain versions, and to the CPU path; so are float32
+results where every frame total is below 2**24.  Above it (the PIC
+series reaches 5.2e8) float32 sums may be taken in another order: Gamma
+is held to 1e-6 of the frame total against the exact int64 prefix, Lmax
+to a relative 1e-2 against the CPU path, and the cuts may differ.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+T, N1, N2, M, P = 64, 512, 512, 1024, 32
+Q = M // P
+F32_EXACT = 2 ** 24
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+SEED = 0
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
+
+
+_T0 = time.perf_counter()
+
+
+def log(tag: str, msg: str) -> None:
+    print(f"[{tag} +{time.perf_counter() - _T0:.0f}s] {msg}", flush=True)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` (ms): the card is held by a sleep
+    kernel while ``reps`` calls are enqueued behind it, so the CUDA events
+    time the device work and not the host's enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (2 * enqueue_s + 1e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on the "
+              "card only", file=sys.stderr)
+        return 1
+    from repro_torch.core import device, prefix
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.probe import ops as probe_ops
+    from repro_torch.kernels.probe import ref as probe_ref
+    from repro_torch.kernels.rectload import ops as rl_ops
+    from repro_torch.kernels.rectload import ref as rl_ref
+    from repro_torch.kernels.sat import ops as sat_ops
+    from repro_torch.kernels.sat import ref as sat_ref
+    from repro_torch.rebalance import (batch_device, execute, migrate,
+                                       planner, stream)
+
+    cuda = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    log("env", f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} on {kind}")
+
+    # -- 1. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    log("build", f"kernels built in {time.perf_counter() - t0:.1f} s into "
+        f"{_build.BUILD_DIR}")
+
+    # -- 2. data -----------------------------------------------------------
+    t0 = time.perf_counter()
+    streams = {"refinement-bursts": stream.refinement_bursts(T, N1, N2,
+                                                             seed=SEED),
+               "pic": stream.pic_series(T, N1, N2, seed=SEED)}
+    host_gamma = {k: [prefix.prefix_sum_2d(f) for f in v]
+                  for k, v in streams.items()}
+    totals = {k: np.array([g[-1, -1] for g in v])
+              for k, v in host_gamma.items()}
+    log("data", f"T={T} {N1}x{N2} frames made in "
+        f"{time.perf_counter() - t0:.1f} s; largest frame totals: "
+        + ", ".join(f"{k} {int(v.max())}" for k, v in totals.items()))
+    exact_f32 = {k: bool(v.max() < F32_EXACT) for k, v in totals.items()}
+
+    # -- 3. kernels against their plain versions on the card ---------------
+    err = {"sat": 0.0, "probe": 0.0, "rectload": 0.0}
+    for name, fr in streams.items():
+        a64 = torch.as_tensor(fr, device=cuda)
+        g_exact = torch.as_tensor(np.stack(host_gamma[name]), device=cuda)
+        for dt in (torch.int32, torch.float32):
+            a = a64.to(dt)
+            gk, gp = sat_ops.gamma(a), sat_ref.gamma_ref(a)
+            d = float((gk.double() - gp.double()).abs().max())
+            err["sat"] = max(err["sat"], d)
+            if dt == torch.int32 or exact_f32[name]:
+                check(d == 0, f"sat {name} {dt}: kernel differs from the "
+                      f"plain version by {d}")
+                log("sat", f"{name} {dt}: bit-identical to the plain version")
+                continue
+            tot = torch.as_tensor(totals[name], device=cuda,
+                                  dtype=torch.float64)[:, None, None]
+            rk = float(((gk.double() - g_exact.double()).abs() / tot).max())
+            rp = float(((gp.double() - g_exact.double()).abs() / tot).max())
+            check(rk <= 1e-6, f"sat {name} float32: kernel is {rk:.3g} x "
+                  f"the frame total off the exact prefix (limit 1e-6)")
+            log("sat", f"{name} float32 (frame totals up to "
+                f"{totals[name].max():.3e}, float32 is exact below 2**24): "
+                f"kernel vs plain max|d| {d}; kernel vs the exact int64 "
+                f"prefix {rk:.3g} x frame total (limit 1e-6); plain cumsum "
+                f"vs exact {rp:.3g}")
+
+    rng = np.random.default_rng(SEED)
+    rows = torch.arange(0, N1 + 1, N1 // P, device=cuda)   # P equal stripes
+    for name in streams:
+        g = torch.as_tensor(np.stack(host_gamma[name]), device=cuda)
+        sm = (g[:, rows[1:]] - g[:, rows[:-1]]).reshape(T * P, N2 + 1)
+        sm = torch.cat([sm, torch.zeros_like(sm[:1])])      # a zero-load row
+        S = sm.shape[0]
+        hi = (2 * sm[:, -1] // Q + 2).cpu().numpy()
+        Ls = rng.integers(0, hi[:, None], (S, 8))
+        Ls[:, 0] = 0                                        # L = 0
+        maxel = torch.diff(sm, dim=1).amax(dim=1).cpu().numpy()
+        Ls[:, 1] = np.maximum(maxel - 1, 0)                 # L < max element
+        for dt in (torch.int32, torch.float32):
+            p, L = sm.to(dt), torch.as_tensor(Ls, device=cuda).to(dt)
+            ck = probe_ops.probe_counts(p, L, Q)
+            cp = probe_ref.probe_counts_ref(p, L, Q)
+            check(torch.equal(ck, cp), f"probe {name} {dt}: kernel differs "
+                  f"from the plain version")
+            if dt == torch.int32:
+                check(bool((ck[:-1, 1] == Q + 1).all()), f"probe {name}: "
+                      f"L < max element must report cap+1")
+                check(bool((ck[-1] == 1).all()), f"probe {name}: a "
+                      f"zero-load row must count 1")
+    empty = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+    ce = probe_ops.probe_counts(empty, torch.zeros((4, 3), dtype=torch.int32,
+                                                   device=cuda), Q)
+    check(torch.equal(ce, probe_ref.probe_counts_ref(
+        empty, torch.zeros((4, 3), dtype=torch.int32, device=cuda), Q))
+        and bool((ce == 1).all()), "probe: an empty row must count 1")
+    log("probe", f"{T * P + 1} stripe rows of each stream x 8 candidates "
+        f"(L=0, L < max element, random) and a zero-load row, int32 and "
+        f"float32, plus empty rows: bit-identical to the plain version")
+
+    heur_out = {}
+    for name, fr in streams.items():
+        heur_out[name] = planner.plan_stream(fr, P=P, m=M)
+        rc, _, cc, _ = heur_out[name]
+        g32 = torch.as_tensor(np.stack(host_gamma[name]), device=cuda)
+        for gd in (torch.float32, torch.int32):
+            g = g32.to(gd)
+            lk = rl_ops.jagged_loads(g, rc, cc)
+            lp = rl_ref.jagged_loads_ref(g, rc, cc).to(torch.float32)
+            check(torch.equal(lk, lp), f"rectload {name} {gd}: kernel "
+                  f"differs from the plain version")
+    log("rectload", f"{T} plans of each stream in one launch ({T}, {P}, "
+        f"{M - P + 1}) on float32 and int32 Gammas: bit-identical to the "
+        f"plain version")
+
+    # -- 4-6. main path ----------------------------------------------------
+    _build.launches.clear()
+    plans = {}
+    for name, frames in streams.items():
+        for exact in (False, True):
+            tag = f"{name} {'exact' if exact else 'heuristic'}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = planner.plan_stream(frames, P=P, m=M, exact=exact)
+            ps = batch_device.unstack_plans(out, (N1, N2))
+            dt_s = time.perf_counter() - t0
+            for t, pl in enumerate(ps):
+                pl.validate(host_gamma[name][t], m=M)
+            lm = np.array([pl.max_load(host_gamma[name][t])
+                           for t, pl in enumerate(ps)])
+            check(np.array_equal(lm, out[3].cpu().numpy().astype(np.float64))
+                  or not (exact or exact_f32[name]),
+                  f"{tag}: Lmax differs from the plans' own max load")
+            ratio = lm / (totals[name][:len(ps)] / M)
+            log("plan", f"{tag}: T={len(ps)} planned in {dt_s:.2f} s (host "
+                f"clock, first call); all plans valid (Plan.validate on the "
+                f"int64 Gamma, m={M}); Lmax / (total/m) from "
+                f"{ratio.min():.4f} to {ratio.max():.4f}")
+            cpu = planner.plan_stream(frames[:4], P=P, m=M, exact=exact,
+                                      device="cpu")
+            same = [torch.equal(a[:4].cpu(), b) for a, b in zip(out, cpu)]
+            if exact or exact_f32[name]:
+                check(all(same), f"{tag}: card and CPU differ on 4 frames "
+                      f"(row_cuts, counts, col_cuts, Lmax: {same})")
+                log("plan", f"{tag}: 4 frames at full width, card = CPU bit "
+                    f"for bit (row_cuts, counts, col_cuts, Lmax)")
+            else:
+                rel = float(((out[3][:4].cpu().double() - cpu[3].double())
+                             .abs() / cpu[3].double()).max())
+                check(rel <= 1e-2, f"{tag}: Lmax {rel:.3g} off the CPU "
+                      f"path (limit 1e-2)")
+                log("plan", f"{tag}: 4 frames at full width, max |dLmax|/"
+                    f"Lmax {rel:.3g} against the CPU path (limit 1e-2); "
+                    f"cuts {'equal' if all(same[:3]) else 'differ'} "
+                    f"(frame totals above 2**24: float32 sums may be taken "
+                    f"in another order)")
+            plans[(name, exact)] = ps
+
+    for name, fr in streams.items():
+        worst = 0.0
+        for t, pl in enumerate(plans[(name, False)]):
+            got = execute.plan_rect_loads(pl, fr[t])
+            want = pl.loads(host_gamma[name][t])
+            if exact_f32[name]:
+                check(np.array_equal(got, want), f"price {name} frame {t}: "
+                      f"rectload loads differ from Plan.loads")
+            worst = max(worst, float(np.abs(got - want).max() / want.max()))
+        log("price", f"{name}: execute.plan_rect_loads on {T} plans, max "
+            f"|d|/max load {worst:.3g} against Plan.loads on the int64 "
+            f"Gamma ({'exact, as required below 2**24' if exact_f32[name] else 'float32 Gamma above 2**24'})")
+
+    t0 = time.perf_counter()
+    rb_plans = plans[("refinement-bursts", False)]
+    rb = streams["refinement-bursts"]
+    moved = 0.0
+    for t in range(T - 1):
+        rec = execute.execute_migration(rb_plans[t], rb_plans[t + 1], rb[t + 1])
+        execute.verify_receipt(rb_plans[t], rb_plans[t + 1], rb[t + 1],
+                               receipt=rec)
+        moved += rec.executed_bytes
+    vol = sum(migrate.migration_volume(rb_plans[t], rb_plans[t + 1],
+                                       rb[t + 1]) for t in range(T - 1))
+    log("migrate", f"refinement-bursts: {T - 1} executed migrations, "
+        f"receipts verified at zero tolerance; moved {moved:.0f} = ledger "
+        f"{vol:.0f} in {time.perf_counter() - t0:.1f} s")
+    launches = dict(_build.launches)
+    log("main", f"kernel launches on the main path: {launches}")
+    for k in ("sat", "probe", "rectload"):
+        check(launches.get(k, 0) > 0, f"kernel {k} never ran on the main path")
+
+    # -- 7. times ----------------------------------------------------------
+    def timed_plan_host(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planner.plan_host(rb, P=P, m=M, **kw)
+        return (time.perf_counter() - t0) * 1e3
+
+    timed_plan_host()
+    runs = [timed_plan_host() for _ in range(5)]
+    log("e2e", f"plan_host refinement-bursts T={T} heuristic: median "
+        f"{statistics.median(runs):.1f} ms over 5 runs (min {min(runs):.1f}, "
+        f"max {max(runs):.1f}); {T / statistics.median(runs) * 1e3:.1f} "
+        f"frames/s")
+    ex = timed_plan_host(exact=True)
+    log("e2e", f"plan_host refinement-bursts T={T} exact: {ex:.1f} ms "
+        f"(one run)")
+    for size in (T, T // 4):
+        firsts, alls = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            it = planner.plan_iter(rb, P=P, m=M, slice_size=size)
+            next(it)
+            firsts.append((time.perf_counter() - t0) * 1e3)
+            for _ in it:
+                pass
+            alls.append((time.perf_counter() - t0) * 1e3)
+        log("e2e", f"plan_iter refinement-bursts T={T} slice_size={size}: "
+            f"first plan median {statistics.median(firsts):.1f} ms, all {T} "
+            f"median {statistics.median(alls):.1f} ms over 3 runs")
+    _, tim = planner.profile_stages(rb, P=P, m=M)
+    log("e2e", "profile_stages heuristic: " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in tim.items()))
+    _, tim = planner.profile_stages(rb, P=P, m=M, exact=True)
+    log("e2e", "profile_stages exact: " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in tim.items()))
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = timed_plan_host()
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    n_launch = sum(e.count for e in dev_ev)
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:4]
+    log("e2e", f"profiler, plan_host heuristic: {n_launch} device "
+        f"operations, device busy {busy:.1f} ms of {wall:.1f} ms wall, "
+        f"idle share {1 - busy / wall:.3f}; most time: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
+            f"({e.count}x)" for e in top))
+
+    kernels = []
+    # K1 at the heuristic path's shape: (T, 512, 512) float32
+    a = torch.as_tensor(rb, device=cuda).to(torch.float32)
+    nbytes = a.numel() * 4 + T * (N1 + 1) * (N2 + 1) * 4
+    b_ms, b_by = bound(nbytes, 2 * a.numel())
+    kernels.append({
+        "name": "sat", "route": "cuda",
+        "source": "src/repro_torch/kernels/sat/sat.cu",
+        "replaces": "src/repro/kernels/sat/sat.py:64",
+        "launches": launches.get("sat", 0), "max_abs_err": err["sat"],
+        "ms": device_ms(lambda: sat_ops.gamma(a)),
+        "plain_ms": device_ms(lambda: sat_ref.gamma_ref(a)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
+            a, dim=-2), dim=-1))})
+    # K2 at the exact path's first column round: (T*P, 513) int32 stripe
+    # rows, 8 interior candidates each, cap = Q
+    g = torch.as_tensor(np.stack(host_gamma["refinement-bursts"]),
+                        device=cuda).to(torch.int32)
+    rc = torch.as_tensor(np.stack([pl.row_cuts for pl in plans[
+        ("refinement-bursts", True)]]), device=cuda).long()
+    tt = torch.arange(rc.shape[0], device=cuda)[:, None]
+    sm = (g[tt, rc[:, 1:]] - g[tt, rc[:, :-1]]).reshape(-1, N2 + 1)
+    los, his = device._exact_1d_bounds_int(sm, Q)
+    j = torch.arange(1, 9, dtype=torch.int32, device=cuda)
+    cand = device._interior_candidates(los[:, None], his[:, None], j[None],
+                                       8).contiguous()
+    counts = probe_ops.probe_counts(sm, cand, Q)
+    err["probe"] = float((counts - probe_ref.probe_counts_ref(sm, cand, Q))
+                         .abs().max())
+    steps = int(torch.clamp(counts, max=Q).sum())   # greedy steps this run
+    nbytes = sm.numel() * 4 + cand.numel() * 4 * 2
+    b_ms, b_by = bound(nbytes, steps * (math.ceil(math.log2(N2 + 1)) + 2))
+    kernels.append({
+        "name": "probe", "route": "cuda",
+        "source": "src/repro_torch/kernels/probe/probe.cu",
+        "replaces": "src/repro/kernels/probe/probe.py:65",
+        "launches": launches.get("probe", 0), "max_abs_err": err["probe"],
+        "ms": device_ms(lambda: probe_ops.probe_counts(sm, cand, Q)),
+        "plain_ms": device_ms(lambda: probe_ref.probe_counts_ref(
+            sm, cand, Q)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    log("kernels", "probe: no single PyTorch call computes greedy interval "
+        "counts (the plain version is a cap-step loop of gather + "
+        "searchsorted), so library_ms is null")
+    # K3 at the pricing shape: one plan, (P, m - P + 1) intervals
+    pl = rb_plans[0]
+    g1 = torch.from_numpy(host_gamma["refinement-bursts"][0].astype(
+        np.float32)).to(cuda)
+    rc1 = torch.as_tensor(pl.row_cuts, device=cuda).int()
+    cc1 = torch.as_tensor(pl._live_col_cuts(), device=cuda).int()
+    err["rectload"] = float((rl_ops.jagged_loads(g1, rc1, cc1)
+                             - rl_ref.jagged_loads_ref(g1, rc1, cc1))
+                            .abs().max())
+    r = pl.row_cuts.astype(np.int64)
+    cc_np = pl._live_col_cuts().astype(np.int64)
+    touched = np.unique(np.concatenate([
+        (r[:-1, None] * (N2 + 1) + cc_np).ravel(),
+        (r[1:, None] * (N2 + 1) + cc_np).ravel()])).size
+    n_rect = cc_np.shape[0] * (cc_np.shape[1] - 1)
+    nbytes = touched * 4 + rc1.numel() * 4 + cc1.numel() * 4 + n_rect * 4
+    b_ms, b_by = bound(nbytes, 3 * n_rect)
+    kernels.append({
+        "name": "rectload", "route": "cuda",
+        "source": "src/repro_torch/kernels/rectload/rectload.cu",
+        "replaces": "src/repro/kernels/rectload/rectload.py:55",
+        "launches": launches.get("rectload", 0),
+        "max_abs_err": err["rectload"],
+        "ms": device_ms(lambda: rl_ops.jagged_loads(g1, rc1, cc1)),
+        "plain_ms": device_ms(lambda: rl_ref.jagged_loads_ref(
+            g1, rc1, cc1).to(torch.float32)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    log("kernels", "rectload: no single PyTorch call computes jagged "
+        "rectangle loads (the plain version is two row gathers, one "
+        "column gather and three differences), so library_ms is null")
+    log("kernels", f"shapes: sat ({T}, {N1}, {N2}) float32; probe "
+        f"{tuple(sm.shape)} int32 rows x 8 candidates, cap {Q}, {steps} "
+        f"greedy steps; rectload one plan of {n_rect} intervals on a "
+        f"({N1 + 1}, {N2 + 1}) float32 Gamma, {touched} distinct entries "
+        f"touched; max_abs_err for sat is the largest over every "
+        f"comparison above (float32 PIC frames lie above 2**24)")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,11 @@
+"""repro_torch.rebalance — the frame planner and its consumers on the card.
+
+- :mod:`.planner` — ingest -> SAT -> partition -> collect on one device,
+  with lazy per-slice iteration and per-stage profiling.
+- :mod:`.batch_device` — standalone batched entry points and the host
+  ``Plan`` view.
+- :mod:`.stream` — time-evolving workload generators (NumPy).
+- :mod:`.migrate` — plan diffing: migration volume / flow / churn (NumPy).
+- :mod:`.execute` — executed migrations and per-rectangle pricing on the
+  card (kernel K3).
+"""

@@ -1,0 +1,306 @@
+"""The single-device stream planner as composable stages.
+
+The port of ``repro.rebalance.planner`` for one card: a ``(T, n1, n2)``
+frame stream goes through
+
+    frame ingest -> SAT build (kernel K1) -> partition -> cut collect
+
+with every intermediate (frames, Gammas) on the card and only the
+O(T * m) cut vectors coming back to the host.  The partition stage is the
+JAG-M-HEUR heuristic by default, or the exact JAG-PQ-OPT with
+``exact=True`` (its column probes on kernel K2).
+
+Entry points take ``device=None``, which means ``"cuda"``: they raise
+``RuntimeError`` where CUDA is absent and run on the CPU only when the
+caller passes ``device="cpu"``, as the tests do.  The mesh-sharded path
+(``mesh=``) and rank-3 frames are not ported yet and raise
+``NotImplementedError``.
+
+``iter_plan_slices`` / ``plan_iter`` expose the stream lazily: every slice
+is enqueued up front (CUDA launches are asynchronous, and the heuristic
+path never waits on the card), so a policy loop consuming slice ``i``
+overlaps with the card still planning slices ``i+1..``.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import device
+from repro_torch.kernels.sat import ops as sat_ops
+from repro_torch.obs import trace as _trace
+
+__all__ = ["resolve_device", "resolve_gamma_dtype", "ingest_stage",
+           "sat_stage", "partition_stage", "plan_frames", "plan_stream",
+           "iter_plan_slices", "plan_iter", "plan_host", "profile_stages"]
+
+# How many slices the lazy iterator aims for when none is requested: deep
+# enough that the policy loop starts after ~1/4 of the stream is planned,
+# shallow enough that per-slice dispatch overhead stays negligible.
+_DEFAULT_SLICES = 4
+
+# exact (int32) planning keeps every frame total below this, so greedy
+# targets p + L cannot wrap
+_EXACT_LIMIT = 2 ** 30
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means ``"cuda"``, and
+    asking for CUDA where it is absent raises ``RuntimeError`` — the port
+    never carries on on the CPU unless the caller says so."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("repro_torch runs on the card: CUDA is not "
+                           "available (pass device='cpu' to run the plain "
+                           "versions on the CPU)")
+    return dev
+
+
+def _to_device(frames, dev: torch.device) -> torch.Tensor:
+    if isinstance(frames, torch.Tensor):
+        return frames.to(dev)
+    return torch.as_tensor(np.asarray(frames), device=dev)
+
+
+def _check_finite(frames, t0: int, t1: int, *, what: str) -> None:
+    """Refuse NaN/inf frames *before* they reach the device pipeline.
+
+    A poisoned frame does not crash the partitioner — NaNs propagate
+    through the SAT scan and the bisection silently produces garbage cuts
+    for every frame sharing the slice — so ingest is the one place the
+    corruption is still attributable.  Names the offending absolute
+    time-steps and the slice they were batched into.
+    """
+    if isinstance(frames, torch.Tensor):
+        if not frames.dtype.is_floating_point:
+            return  # integer loads cannot encode NaN/inf
+        bad = (~torch.isfinite(frames.reshape(frames.shape[0], -1))
+               .all(dim=1)).cpu().numpy()
+    else:
+        arr = np.asarray(frames)
+        if not np.issubdtype(arr.dtype, np.floating):
+            return
+        bad = ~np.isfinite(arr.reshape(arr.shape[0], -1)).all(axis=1)
+    if bad.any():
+        steps = (t0 + np.flatnonzero(bad)).tolist()
+        shown = ", ".join(map(str, steps[:8]))
+        more = f" (+{len(steps) - 8} more)" if len(steps) > 8 else ""
+        raise ValueError(
+            f"{what}: non-finite load frame(s) at step(s) {shown}{more} "
+            f"in [{t0}, {t1}) — NaN/inf would silently corrupt every cut "
+            f"in this slice; clean or drop the frames before planning")
+
+
+def _check_rank(frames, what: str) -> None:
+    if frames.ndim == 4:
+        raise NotImplementedError(f"{what}: rank-3 frames (the SGORP path) "
+                                  f"are not ported yet")
+    if frames.ndim != 3:
+        raise ValueError(f"{what} takes (T, n1, n2) frames, got rank "
+                         f"{frames.ndim}")
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("the mesh-sharded planner is not ported "
+                                  "yet; pass mesh=None")
+
+
+# ---------------------------------------------------------------------------
+# stages
+
+
+def resolve_gamma_dtype(gamma_dtype, *, exact: bool) -> torch.dtype:
+    """Accumulator dtype: explicit wins; else int32 (exact) / f32 (heur).
+
+    The exact path bisects on *integers* — int32 accumulation is lossless
+    up to 2**31 total load, where f32 already lies above 2**24 — while the
+    heuristic path keeps its float32 default.
+    """
+    if gamma_dtype is not None:
+        return gamma_dtype
+    return torch.int32 if exact else torch.float32
+
+
+def ingest_stage(frames: torch.Tensor, *,
+                 gamma_dtype=torch.float32) -> torch.Tensor:
+    """Frame ingest: cast to the accumulator dtype *before* the SAT scan.
+
+    An int32 accumulator (the exact path) needs every frame total below
+    2**30; larger frames raise here, before the cast could wrap them.
+    """
+    if gamma_dtype == torch.int32:
+        totals = frames.reshape(frames.shape[0], -1).sum(dim=1,
+                                                         dtype=torch.int64)
+        if totals.numel() and int(totals.max()) >= _EXACT_LIMIT:
+            raise ValueError(f"exact planning needs every frame total below "
+                             f"2**30, got {int(totals.max())}")
+    return frames.to(gamma_dtype)
+
+
+def sat_stage(frames: torch.Tensor) -> torch.Tensor:
+    """SAT build: (T, n1, n2) frames -> (T, n1+1, n2+1) Gammas, on the
+    frames' device (kernel K1 on the card)."""
+    return sat_ops.gamma(frames)
+
+
+def partition_stage(gammas: torch.Tensor, *, P: int, m: int, k: int = 8,
+                    rounds: int = 8, gamma_dtype=None, exact: bool = False):
+    """Partition every Gamma of the (T, n1+1, n2+1) batch.
+
+    ``exact=False`` (default) runs JAG-M-HEUR; ``exact=True`` runs the
+    exact JAG-PQ-OPT (``Q = m // P`` intervals per stripe), its column
+    probes on the probe kernel.  Returns (row_cuts (T, P+1), counts
+    (T, P), col_cuts (T, P, *), Lmax (T,)).
+    """
+    if exact:
+        if m % P != 0:
+            raise ValueError(
+                f"exact planning needs m divisible by P (m={m}, P={P}): "
+                f"the exact device solver is the P x Q form")
+        return device.jag_pq_opt_device_impl(gammas, P=P, Q=m // P,
+                                             k=max(k, 2))
+    return device.jag_m_heur_device_impl(gammas, P=P, m=m, k=k,
+                                         rounds=rounds,
+                                         gamma_dtype=gamma_dtype)
+
+
+def plan_frames(frames: torch.Tensor, *, P: int, m: int, k: int = 8,
+                rounds: int = 8, gamma_dtype=None, exact: bool = False):
+    """The full chain on the frames' device: ingest -> SAT -> partition.
+
+    ``exact=True`` swaps the partition stage for the exact JAG-PQ-OPT and
+    defaults the accumulator to int32 (see :func:`resolve_gamma_dtype`).
+    """
+    gamma_dtype = resolve_gamma_dtype(gamma_dtype, exact=exact)
+    g = sat_stage(ingest_stage(frames, gamma_dtype=gamma_dtype))
+    return partition_stage(g, P=P, m=m, k=k, rounds=rounds,
+                           gamma_dtype=gamma_dtype, exact=exact)
+
+
+def plan_stream(frames, *, P: int, m: int, mesh=None, k: int = 8,
+                rounds: int = 8, gamma_dtype=None, exact: bool = False,
+                device=None):
+    """SAT + partitioner for a whole (T, n1, n2) stream on one device.
+
+    ``frames`` is a numpy array or a tensor; it is moved to ``device``
+    (``None``: the card).  Returns the batched (row_cuts, counts,
+    col_cuts, Lmax) tensors on that device.  ``exact=True`` plans every
+    frame with the exact JAG-PQ-OPT (``Q = m // P``).
+    """
+    _check_mesh(mesh)
+    _check_rank(frames, "plan_stream")
+    dev = resolve_device(device)
+    _check_finite(frames, 0, frames.shape[0], what="plan_stream")
+    return plan_frames(_to_device(frames, dev), P=P, m=m, k=k,
+                       rounds=rounds, gamma_dtype=gamma_dtype, exact=exact)
+
+
+# ---------------------------------------------------------------------------
+# lazy per-slice consumption
+
+
+def iter_plan_slices(frames, *, P: int, m: int, mesh=None,
+                     slice_size: int | None = None, k: int = 8,
+                     rounds: int = 8, gamma_dtype=None, exact: bool = False,
+                     device=None):
+    """Yield ``(t0, t1, batched_slice)`` over the stream, planned lazily.
+
+    All slices are enqueued before the first yield, so a consumer working
+    through slice ``i``'s cuts overlaps with the card still planning
+    slices ``i+1..`` (the exact path reads one flag per bisection round,
+    so there the enqueue itself waits on the card).
+    """
+    _check_mesh(mesh)
+    _check_rank(frames, "iter_plan_slices")
+    dev = resolve_device(device)
+    T = frames.shape[0]
+    if slice_size is None:
+        slice_size = max(1, -(-T // _DEFAULT_SLICES))
+    pending = []
+    for i, t0 in enumerate(range(0, T, slice_size)):
+        t1 = min(t0 + slice_size, T)
+        _check_finite(frames[t0:t1], t0, t1, what=f"planner slice {i}")
+        # host-side span: measures the enqueue only, so instrumentation
+        # never serializes the slice overlap
+        with _trace.span("planner.dispatch", slice=i, t0=t0, t1=t1):
+            pending.append((t0, t1, plan_frames(
+                _to_device(frames[t0:t1], dev), P=P, m=m, k=k,
+                rounds=rounds, gamma_dtype=gamma_dtype, exact=exact)))
+    yield from pending
+
+
+def plan_iter(frames, *, P: int, m: int, mesh=None,
+              slice_size: int | None = None, k: int = 8, rounds: int = 8,
+              gamma_dtype=None, exact: bool = False, device=None):
+    """Per-frame :class:`~repro_torch.rebalance.batch_device.Plan` iterator.
+
+    The lazy flattening of :func:`iter_plan_slices` — what a policy loop
+    consumes in lockstep with the frames.
+    """
+    from repro_torch.rebalance import batch_device
+    shape = tuple(frames.shape[1:])
+    for t0, t1, batched in iter_plan_slices(
+            frames, P=P, m=m, mesh=mesh, slice_size=slice_size, k=k,
+            rounds=rounds, gamma_dtype=gamma_dtype, exact=exact,
+            device=device):
+        # collect blocks on the slice's results (the first host read) —
+        # its span width is the wait the policy loop actually saw
+        with _trace.span("planner.collect", t0=t0, t1=t1):
+            plans = batch_device.unstack_plans(batched, shape)
+        yield from plans
+
+
+def plan_host(frames, *, P: int, m: int, mesh=None, k: int = 8,
+              rounds: int = 8, gamma_dtype=None, exact: bool = False,
+              device=None):
+    """Whole-stream planning to host Plans (one dispatch, no slicing)."""
+    from repro_torch.rebalance import batch_device
+    batched = plan_stream(frames, P=P, m=m, mesh=mesh, k=k, rounds=rounds,
+                          gamma_dtype=gamma_dtype, exact=exact,
+                          device=device)
+    return batch_device.unstack_plans(batched, tuple(frames.shape[1:]))
+
+
+def profile_stages(frames, *, P: int, m: int, k: int = 8, rounds: int = 8,
+                   gamma_dtype=None, exact: bool = False, mesh=None,
+                   device=None) -> tuple[list, dict[str, float]]:
+    """Blocking per-stage timing of the planning chain (opt-in profiler).
+
+    Runs the stages one by one and waits for the device after each
+    (``torch.cuda.synchronize`` on the card) to attribute wall time to the
+    named stages.  Returns ``(plans, timings)``: the same per-frame Plans
+    as :func:`plan_host` and a ``{"ingest", "sat", "partition",
+    "collect"} -> seconds`` dict.  ``ingest`` includes the upload of the
+    frames to the device.
+    """
+    from repro_torch.rebalance import batch_device
+    _check_mesh(mesh)
+    _check_rank(frames, "profile_stages")
+    dev = resolve_device(device)
+    _check_finite(frames, 0, frames.shape[0], what="profile_stages")
+    shape = tuple(frames.shape[1:])
+    timings: dict[str, float] = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        with _trace.span(f"planner.stage.{name}"):
+            out = fn(*a)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        timings[name] = time.perf_counter() - t0
+        return out
+
+    gd = resolve_gamma_dtype(gamma_dtype, exact=exact)
+    ing = timed("ingest", lambda f: ingest_stage(_to_device(f, dev),
+                                                 gamma_dtype=gd), frames)
+    g = timed("sat", sat_stage, ing)
+    out = timed("partition", lambda x: partition_stage(
+        x, P=P, m=m, k=k, rounds=rounds, gamma_dtype=gd, exact=exact), g)
+    t0 = time.perf_counter()
+    with _trace.span("planner.stage.collect"):
+        plans = batch_device.unstack_plans(out, shape)
+    timings["collect"] = time.perf_counter() - t0
+    return plans, timings

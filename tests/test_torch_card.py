@@ -1,0 +1,89 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+A CUDA kernel has no interpret mode, so these tests carry the ``cuda``
+marker and skip where there is no card.  They import no JAX (the machine
+with the card has none); run them there with::
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
+
+Tolerance: none.  int32 inputs, and float32 inputs whose sums stay below
+2**24, give bit-identical results; the probe and rectload kernels are
+bit-identical for any input.
+"""
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import int_loads, need_card, probe_case, rectload_case
+from repro_torch.kernels import _build
+from repro_torch.kernels.probe import ops as probe_ops
+from repro_torch.kernels.probe import ref as probe_ref
+from repro_torch.kernels.rectload import ops as rl_ops
+from repro_torch.kernels.rectload import ref as rl_ref
+from repro_torch.kernels.sat import ops as sat_ops
+from repro_torch.kernels.sat import ref as sat_ref
+from repro_torch.rebalance import planner, stream
+
+pytestmark = pytest.mark.cuda
+DTYPES = {"int32": torch.int32, "float32": torch.float32}
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 9), (33, 65), (3, 17, 130),
+                                   (2, 40, 29), (4, 0, 5), (3, 512, 512)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sat_kernel_matches_plain(shape, dtype):
+    dev = need_card()
+    a = torch.from_numpy(int_loads(shape, np.int64)).to(DTYPES[dtype]).to(dev)
+    n = _build.launches["sat"]
+    got = sat_ops.gamma(a)
+    assert _build.launches["sat"] == n + 1
+    assert torch.equal(got, sat_ref.gamma_ref(a))
+
+
+@pytest.mark.parametrize("S,n,K,cap", [
+    (1, 0, 3, 2), (5, 17, 7, 4), (64, 512, 8, 32), (3, 13000, 5, 20),
+    (6, 33, 300, 3), (2, 9, 5, 0)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_probe_kernel_matches_plain(S, n, K, cap, dtype):
+    dev = need_card()
+    p, Ls = (torch.from_numpy(x).to(DTYPES[dtype]).to(dev)
+             for x in probe_case(S, n, K))
+    c = _build.launches["probe"]
+    got = probe_ops.probe_counts(p, Ls, cap)
+    assert _build.launches["probe"] == c + 1
+    assert torch.equal(got, probe_ref.probe_counts_ref(p, Ls, cap))
+
+
+@pytest.mark.parametrize("B,n1,n2,P,Q", [
+    (1, 16, 16, 2, 2), (3, 33, 40, 4, 3), (64, 512, 512, 32, 993)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("batched", [True, False])
+def test_rectload_kernel_matches_plain(B, n1, n2, P, Q, dtype, batched):
+    dev = need_card()
+    g, rc, cc, _ = (torch.from_numpy(x).to(dev)
+                    for x in rectload_case(B, n1, n2, P, Q))
+    g = g.to(DTYPES[dtype])
+    if not batched:
+        g, rc, cc = g[0], rc[0], cc[0]
+    c = _build.launches["rectload"]
+    got = rl_ops.jagged_loads(g, rc, cc)
+    assert _build.launches["rectload"] == c + 1
+    assert torch.equal(got, rl_ref.jagged_loads_ref(g, rc, cc).float())
+
+
+@pytest.mark.parametrize("name", sorted(stream.STREAMS))
+@pytest.mark.parametrize("exact", [False, True])
+def test_planner_on_card_matches_cpu(name, exact):
+    """The whole path through the kernels equals the CPU path through the
+    plain versions (frame totals below 2**24)."""
+    dev = need_card()
+    fr = stream.STREAMS[name](3, 48, 64, seed=5)
+    before = dict(_build.launches)
+    got = planner.plan_stream(fr, P=4, m=16, exact=exact, device=dev)
+    want = planner.plan_stream(fr, P=4, m=16, exact=exact, device="cpu")
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
+    assert _build.launches["sat"] == before.get("sat", 0) + 1
+    if exact:
+        assert _build.launches["probe"] > before.get("probe", 0)

@@ -1,0 +1,115 @@
+"""The port stands alone and never falls back.
+
+- ``repro_torch`` and ``chip_smoke.py`` import without ``jax`` and without
+  ``repro`` (a subprocess where importing either fails), and the planner
+  runs there on the CPU;
+- an entry point with no ``device=`` raises where CUDA is absent instead
+  of running on the CPU;
+- no ``except`` clause and no environment read in the port or the smoke
+  script can route a CUDA tensor to a plain version, and only a kernel's
+  own wrapper (and the smoke script's comparisons) import its plain
+  version.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.probe import ops as probe_ops
+from repro_torch.kernels.rectload import ops as rl_ops
+from repro_torch.kernels.sat import ops as sat_ops
+from repro_torch.rebalance import batch_device, execute, planner, stream
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+_ISOLATED = f"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from repro_torch.rebalance import planner, stream
+fr = stream.drifting_hotspot(2, 24, 32, seed=0)
+for exact in (False, True):
+    plans = planner.plan_host(fr, P=2, m=4, exact=exact, device="cpu")
+    assert len(plans) == 2
+leaked = [m for m, mod in sys.modules.items() if mod is not None and (
+    m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not leaked, leaked
+print("imported", len(names))
+"""
+
+
+def test_port_imports_and_plans_without_jax_or_repro():
+    r = subprocess.run([sys.executable, "-c", _ISOLATED], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 15
+
+
+def _entry_points():
+    fr = stream.static(2, 16, 16)
+    plan = planner.plan_host(fr, P=2, m=4, device="cpu")[0]
+    return [
+        lambda: planner.plan_stream(fr, P=4, m=16),
+        lambda: planner.plan_host(fr, P=4, m=16),
+        lambda: list(planner.plan_iter(fr, P=4, m=16)),
+        lambda: planner.profile_stages(fr, P=4, m=16),
+        lambda: batch_device.plan_stream(fr, P=4, m=16, exact=True),
+        lambda: batch_device.gamma_batch(fr),
+        lambda: batch_device.jag_m_heur_batch(np.zeros((1, 5, 5)), P=2, m=4),
+        lambda: execute.plan_rect_loads(plan, fr[0]),
+        lambda: execute.execute_migration(plan, plan, fr[0]),
+    ]
+
+
+@pytest.mark.parametrize("i", range(9))
+def test_entry_points_raise_without_cuda(i, monkeypatch):
+    call = _entry_points()[i]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: sat_ops.gamma(t((3, 4), torch.int32)),
+    lambda t: probe_ops.probe_counts(t((2, 5), torch.int32),
+                                     t((2, 3), torch.int32), 2),
+    lambda t: rl_ops.jagged_loads(t((5, 5), torch.float32),
+                                  t((3,), torch.int32), t((2, 3), torch.int32)),
+])
+def test_wrappers_take_only_cpu_or_cuda(call):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        call(lambda shape, dt: torch.zeros(shape, dtype=dt, device="meta"))
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_fallback_routes(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        assert not (isinstance(node, ast.Try) and node.handlers), \
+            f"{path}:{node.lineno}: an except clause could hide a kernel"
+        if isinstance(node, ast.Attribute) and node.attr in ("environ",
+                                                             "getenv"):
+            raise AssertionError(f"{path}:{node.lineno}: environment read")
+        if isinstance(node, ast.ImportFrom) and node.module and (
+                node.module == "ref" or node.module.endswith(".ref")):
+            assert path.name in ("ops.py", "chip_smoke.py"), \
+                f"{path}:{node.lineno}: imports a plain version"
+        if isinstance(node, ast.Import):
+            assert not any(a.name.split(".")[0] in ("jax", "repro")
+                           for a in node.names), f"{path}: imports JAX"
+        if isinstance(node, ast.ImportFrom) and node.module:
+            assert node.module.split(".")[0] not in ("jax", "repro"), \
+                f"{path}:{node.lineno}: imports {node.module}"

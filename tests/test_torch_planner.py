@@ -1,0 +1,169 @@
+"""Parity of the port's frame planner (``repro_torch.rebalance.planner``
+and ``batch_device``) with the JAX package's, end to end on the CPU.
+
+Both packages get the same ``STREAMS`` frames (T=3, 48x64, P=4, m=16,
+made from a seed with NumPy).  The JAX planner runs with its Pallas
+kernels in interpret mode and on its plain versions.  Tolerance: none —
+frame totals stay below 2**24, so the float32 heuristic is bit-identical
+too.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import (assert_same, assert_same_plans, jax_plans_from_torch,
+                           torch_plans_from_jax)
+from repro.rebalance import batch_device as jax_bd
+from repro.rebalance import planner as jax_planner
+from repro.rebalance import stream as jax_stream
+from repro_torch import obs
+from repro_torch.core import prefix
+from repro_torch.rebalance import batch_device, planner, stream
+
+T, N1, N2, P, M = 3, 48, 64, 4, 16
+CPU = "cpu"
+STREAMS = sorted(stream.STREAMS)
+
+
+@functools.lru_cache(maxsize=None)
+def _frames(name: str) -> np.ndarray:
+    return stream.STREAMS[name](T, N1, N2, seed=5)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_plan(name: str, exact: bool, use_pallas: bool):
+    out = jax_planner.plan_stream(_frames(name), P=P, m=M, exact=exact,
+                                  use_pallas=use_pallas, interpret=True)
+    return tuple(np.asarray(x) for x in out)
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_streams_match_jax_generators(name):
+    np.testing.assert_array_equal(
+        _frames(name), jax_stream.STREAMS[name](T, N1, N2, seed=5))
+
+
+@pytest.mark.parametrize("name", STREAMS)
+@pytest.mark.parametrize("exact", [False, True])
+def test_plan_stream_matches_jax(name, exact):
+    got = planner.plan_stream(_frames(name), P=P, m=M, exact=exact,
+                              device=CPU)
+    for use_pallas in (True, False):
+        assert_same(_jax_plan(name, exact, use_pallas), got)
+    assert_same(got, batch_device.plan_stream(_frames(name), P=P, m=M,
+                                              exact=exact, device=CPU))
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_plan_host_iter_and_profile_give_the_same_valid_plans(exact):
+    fr = _frames("drifting-hotspot")
+    plans = planner.plan_host(fr, P=P, m=M, exact=exact, device=CPU)
+    want = torch_plans_from_jax(_jax_plan("drifting-hotspot", exact, True),
+                                (N1, N2))
+    assert_same_plans(plans, want)
+    for t, pl in enumerate(plans):
+        pl.validate(prefix.prefix_sum_2d(fr[t]), m=M)
+    assert_same_plans(planner.plan_host(fr, P=P, m=M, exact=exact,
+                                        device=torch.device(CPU)), plans)
+    for size in (1, 2, None):
+        assert_same_plans(list(planner.plan_iter(
+            fr, P=P, m=M, exact=exact, slice_size=size, device=CPU)), plans)
+    prof, timings = planner.profile_stages(fr, P=P, m=M, exact=exact,
+                                           device=CPU)
+    assert_same_plans(prof, plans)
+    assert set(timings) == {"ingest", "sat", "partition", "collect"}
+    assert all(v >= 0 for v in timings.values())
+
+
+def test_plans_validate_across_packages():
+    """A plan made by one package is a valid plan of the other, with the
+    same per-rectangle loads."""
+    fr = _frames("particle-advection")
+    jax_plans = jax_planner.plan_host(fr, P=P, m=M)
+    ours = planner.plan_host(fr, P=P, m=M, device=CPU)
+    for t, (a, b) in enumerate(zip(torch_plans_from_jax(
+            _jax_plan("particle-advection", False, True), (N1, N2)), ours)):
+        g = prefix.prefix_sum_2d(fr[t])
+        a.validate(g, m=M)
+        np.testing.assert_array_equal(a.loads(g), jax_plans[t].loads(g))
+        np.testing.assert_array_equal(a.owner_map(), jax_plans[t].owner_map())
+    for jp in jax_plans_from_torch(ours):
+        jp.validate(m=M)
+    assert_same_plans(jax_plans_from_torch(ours), jax_plans)
+
+
+def test_gamma_batch_and_jag_m_heur_batch_match_jax():
+    fr = _frames("refinement-bursts")
+    gj = jax_bd.gamma_batch(fr)
+    g = batch_device.gamma_batch(fr, device=CPU)
+    assert_same(gj, g)
+    assert_same(jax_bd.jag_m_heur_batch(gj, P=P, m=M),
+                batch_device.jag_m_heur_batch(g, P=P, m=M, device=CPU))
+
+
+def test_plan_validate_reports_problems():
+    pl = planner.plan_host(_frames("static"), P=P, m=M, device=CPU)[0]
+    g = prefix.prefix_sum_2d(_frames("static")[0])
+    with pytest.raises(ValueError, match="rectangles"):
+        pl.validate(g, m=M + 1)
+    bad = batch_device.Plan(pl.row_cuts[::-1].copy(), pl.counts, pl.col_cuts,
+                            pl.shape)
+    with pytest.raises(ValueError, match="row cuts"):
+        bad.validate()
+
+
+@pytest.mark.parametrize("kwargs,exc", [
+    ({"mesh": object()}, NotImplementedError),
+    ({"exact": True, "m": 15}, ValueError),
+])
+def test_plan_stream_refuses(kwargs, exc):
+    args = {"P": P, "m": M, "device": CPU}
+    args.update(kwargs)
+    with pytest.raises(exc):
+        planner.plan_stream(_frames("static"), **args)
+
+
+def test_rank3_frames_are_not_ported_yet():
+    with pytest.raises(NotImplementedError):
+        planner.plan_stream(np.ones((2, 4, 4, 4)), P=2, m=4, device=CPU)
+
+
+def test_poisoned_frames_are_named():
+    fr = _frames("static").astype(np.float64)
+    fr[2, 3, 4] = np.nan
+    with pytest.raises(ValueError, match="step\\(s\\) 2"):
+        planner.plan_stream(fr, P=P, m=M, device=CPU)
+    with pytest.raises(ValueError, match="step\\(s\\) 2"):
+        planner.plan_stream(torch.from_numpy(fr), P=P, m=M, device=CPU)
+    with pytest.raises(ValueError, match="planner slice 1"):
+        list(planner.plan_iter(fr, P=P, m=M, slice_size=2, device=CPU))
+
+
+def test_exact_planning_refuses_totals_above_2_30():
+    fr = np.full((1, 4, 4), 2 ** 26, dtype=np.int64)
+    with pytest.raises(ValueError, match="2\\*\\*30"):
+        planner.plan_stream(fr, P=2, m=4, exact=True, device=CPU)
+
+
+def test_planner_spans_reach_the_tracer():
+    """The planner's spans land in the tracer (and, with the bridge on,
+    in a ``torch.profiler`` trace); the export is valid Chrome JSON."""
+    from torch.profiler import ProfilerActivity, profile
+    fr = _frames("static")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.tracing(torch_annotations=True) as tracer:
+            list(planner.plan_iter(fr, P=P, m=M, slice_size=2, device=CPU))
+            planner.profile_stages(fr, P=P, m=M, device=CPU)
+    names = {ev["name"] for ev in obs.validate_chrome_trace(
+        tracer.chrome_trace())}
+    want = {"planner.dispatch", "planner.collect", "planner.stage.ingest",
+            "planner.stage.sat", "planner.stage.partition",
+            "planner.stage.collect"}
+    assert want <= names
+    assert want <= {e.key for e in prof.key_averages()}
+    assert not obs.enabled()
+    with pytest.raises(ValueError, match="bad ph"):
+        obs.validate_chrome_trace([{"name": "x", "ph": "?", "pid": 0,
+                                    "tid": 0, "ts": 0}])
