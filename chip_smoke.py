@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's frame planner (``repro_torch``) end to end on one card.
+"""Drive the port's frame planners (``repro_torch``) end to end on one card.
 
 Run from the root of a checkout on a machine with an NVIDIA H100::
 
@@ -8,12 +8,16 @@ Run from the root of a checkout on a machine with an NVIDIA H100::
 Phases, each raising on failure: build the CUDA kernels from the sources
 in the checkout; make T=64 frames of 512x512 (refinement bursts and the
 paper's PIC series); hold every kernel against its plain PyTorch version
-on the card; drive the main path (``planner.plan_stream``, heuristic and
-``exact=True``, then plan pricing and executed migration) with the
+on the card; drive the 2D main path (``planner.plan_stream``, heuristic
+and ``exact=True``, then plan pricing and executed migration) with the
 kernels' launch counts set to zero just before it and read just after;
-time the path and the kernels.  The last two lines before the final one
-are the kernels' JSON record and the card's name and power limit; the
-final line is ``{"ok": true, "device": {...}}``.
+time the path and the kernels.  Then the same for the 3D path: T=16
+volumes of 128^3 (the 3D PIC series and AMR refinement), kernel K4
+against its plain version, ``planner.plan_stream`` on rank-4 frames at
+m=1024 (a 16 x 8 x 8 processor grid) with its own launch counts, its
+checks and times.  The last two lines before the final one are the
+kernels' JSON record and the card's name and power limit; the final
+line is ``{"ok": true, "device": {...}}``.
 
 Dtype contract checked here: int32 results are bit-identical between the
 kernels and the plain versions, and to the CPU path; so are float32
@@ -39,6 +43,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 T, N1, N2, M, P = 64, 512, 512, 1024, 32
+T3, N3, M3 = 16, 128, 1024           # the 3D path: 16 volumes of 128^3
 Q = M // P
 F32_EXACT = 2 ** 24
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
@@ -88,6 +93,223 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def run_3d(cuda: torch.device) -> dict:
+    """The 3D path: K4 against its plain version, the main path through
+    ``planner.plan_stream`` on rank-4 frames with its own launch counts,
+    its checks and times.  Returns K4's entry of the kernels' record."""
+    from repro_torch.core import prefix, sgorp, threed
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sat import ops as sat_ops
+    from repro_torch.kernels.sat import ref as sat_ref
+    from repro_torch.rebalance import planner, stream
+
+    # -- 8. data -----------------------------------------------------------
+    t0 = time.perf_counter()
+    vols = {name: stream.STREAMS_3D[name](T3, N3, N3, N3, seed=SEED)
+            for name in ("pic3d", "amr3d")}
+    g3 = {k: [prefix.prefix_sum_3d(f) for f in v] for k, v in vols.items()}
+    tot3 = {k: np.array([g[-1, -1, -1] for g in v]) for k, v in g3.items()}
+    log("data3", f"T={T3} {N3}^3 volumes made in "
+        f"{time.perf_counter() - t0:.1f} s; frame totals: " + ", ".join(
+            f"{k} {int(v.min())}..{int(v.max())}" for k, v in tot3.items()))
+    grid = sgorp.default_grid(M3, (N3, N3, N3))
+
+    # -- 9. K4 against its plain version on the card ----------------------
+    rng = np.random.default_rng(SEED)
+    for shape in ((1, 1, 1), (5, 7, 9), (3, 17, 33, 130), (2, 0, 4, 5),
+                  (T3, N3, N3, N3)):
+        high = 8 if shape == (T3, N3, N3, N3) else 100   # totals < 2**24
+        a64 = torch.as_tensor(rng.integers(0, high, shape), device=cuda)
+        for dt in (torch.int32, torch.float32):
+            a = a64.to(dt)
+            check(torch.equal(sat_ops.gamma3(a), sat_ref.gamma3_ref(a)),
+                  f"sat3 {shape} {dt}: kernel differs from the plain "
+                  f"version")
+    log("sat3", "odd shapes (1,1,1), (5,7,9), (3,17,33,130), (2,0,4,5) and "
+        f"the path's ({T3},{N3},{N3},{N3}), random integer loads with frame "
+        f"totals below 2**24, int32 and float32: bit-identical to the plain "
+        f"version")
+    err = 0.0
+    for name, fr in vols.items():
+        a64 = torch.as_tensor(fr, device=cuda)
+        g_exact = torch.as_tensor(np.stack(g3[name]), device=cuda)
+        ai = a64.to(torch.int32)
+        check(torch.equal(sat_ops.gamma3(ai), sat_ref.gamma3_ref(ai)),
+              f"sat3 {name} int32: kernel differs from the plain version")
+        af = a64.to(torch.float32)
+        gk, gp = sat_ops.gamma3(af), sat_ref.gamma3_ref(af)
+        err = max(err, float((gk.double() - gp.double()).abs().max()))
+        tot = torch.as_tensor(tot3[name], device=cuda,
+                              dtype=torch.float64)[:, None, None, None]
+        rk = float(((gk.double() - g_exact.double()).abs() / tot).max())
+        rp = float(((gp.double() - g_exact.double()).abs() / tot).max())
+        check(rk <= 1e-6, f"sat3 {name} float32: kernel is {rk:.3g} x the "
+              f"frame total off the exact prefix (limit 1e-6)")
+        log("sat3", f"{name}: int32 bit-identical to the plain version; "
+            f"float32 (frame totals up to {tot3[name].max():.3e}; float32 "
+            f"is exact below 2**24) kernel vs the exact int64 prefix "
+            f"{rk:.3g} x frame total (limit 1e-6), plain cumsum vs exact "
+            f"{rp:.3g}")
+        del a64, g_exact, gk, gp, ai, af
+
+    # -- 10. the 3D main path ---------------------------------------------
+    _build.launches.clear()
+    out3 = {}
+    for name, fr in vols.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = planner.plan_stream(fr, P=0, m=M3)
+        out3[name] = tuple(x.cpu() for x in out)
+        log("plan3", f"{name}: T={T3} planned in "
+            f"{time.perf_counter() - t0:.2f} s (host clock, first call)")
+    launches = dict(_build.launches)
+    log("main3", f"kernel launches on the 3D path: {launches}")
+    check(launches.get("sat3", 0) >= 1, "kernel sat3 never ran on the 3D "
+          "path")
+
+    for name, fr in vols.items():
+        c1, c2, c3, L, it, pr = out3[name]
+        ratios = []
+        for t in range(T3):
+            part = threed.partition3d_from_grid(c1[t], c2[t], c3[t],
+                                                shape=(N3, N3, N3))
+            check(part.is_valid() and len(part.boxes) == M3,
+                  f"{name} frame {t}: cuts are not a valid {M3}-box "
+                  f"partition")
+            ratios.append(part.max_load(fr[t], gamma3=g3[name][t])
+                          / (tot3[name][t] / M3))
+        ratios = np.array(ratios)
+        g = sat_ops.gamma3(torch.as_tensor(fr, device=cuda).float())
+        warm = sgorp.warm_start_impl(g, grid=grid)
+        _, warm_L, _, _ = sgorp.sgorp_refine_impl(g, warm, grid=grid,
+                                                  max_iters=1)
+        warm_L = warm_L.cpu()
+        check(bool((L <= warm_L).all()), f"{name}: refined Lmax above the "
+              f"warm start's")
+        log("plan3", f"{name}: all {T3} plans valid Partition3D of {M3} "
+            f"boxes, grid {grid}; Lmax / (total/m) on the exact int64 "
+            f"prefix from {ratios.min():.4f} to {ratios.max():.4f} (mean "
+            f"{ratios.mean():.4f}); refined Lmax <= warm start on every "
+            f"frame (mean gain {float((1 - L / warm_L).mean()):.4f}); SGORP "
+            f"iterations {it.tolist()}, projections {pr.tolist()}")
+        out3[name] = out3[name] + (ratios,)
+
+    # card = CPU: int32 Gamma3 on 4 frames of each stream
+    for name, fr in vols.items():
+        got = planner.plan_stream(fr[:4], P=0, m=M3, gamma_dtype=torch.int32)
+        want = planner.plan_stream(fr[:4], P=0, m=M3,
+                                   gamma_dtype=torch.int32, device="cpu")
+        same = [torch.equal(a.cpu(), b) for a, b in zip(got, want)]
+        check(all(same), f"{name} int32: card and CPU differ on 4 frames "
+              f"(cuts1-3, Lmax, iters, projections: {same})")
+    log("plan3", f"int32 Gamma3, 4 frames of each stream at {N3}^3: card "
+        f"= CPU bit for bit (cuts, Lmax, iterations, projections)")
+    # card = CPU: float32 default, amr3d at 64^3 (totals below 2**24)
+    small = stream.amr_series_3d(T3, 64, 64, 64, seed=SEED)
+    check(int(small.reshape(T3, -1).sum(1).max()) < F32_EXACT,
+          "amr3d 64^3 frame totals must stay below 2**24")
+    got = planner.plan_stream(small, P=0, m=M3)
+    want = planner.plan_stream(small, P=0, m=M3, device="cpu")
+    same = [torch.equal(a.cpu(), b) for a, b in zip(got, want)]
+    check(all(same), f"amr3d 64^3 float32: card and CPU differ ({same})")
+    log("plan3", f"float32 Gamma3, amr3d T={T3} at 64^3 (frame totals up "
+        f"to {int(small.reshape(T3, -1).sum(1).max())}, below 2**24): card "
+        f"= CPU bit for bit")
+    # float32 at the path's size (totals above 2**24): Lmax within 1e-2
+    # of the CPU path
+    for name, fr in vols.items():
+        cpu = planner.plan_stream(fr, P=0, m=M3, device="cpu")
+        dl = float(((out3[name][3].double() - cpu[3].double()).abs()
+                    / cpu[3].double()).max())
+        cpu_ratio = np.mean([threed.partition3d_from_grid(
+            cpu[0][t], cpu[1][t], cpu[2][t], shape=(N3, N3, N3)).max_load(
+                fr[t], gamma3=g3[name][t]) / (tot3[name][t] / M3)
+            for t in range(T3)])
+        card_ratio = float(out3[name][6].mean())
+        check(abs(card_ratio - cpu_ratio) <= 1e-2, f"{name} float32: mean "
+              f"Lmax/(total/m) {card_ratio:.4f} on the card vs "
+              f"{cpu_ratio:.4f} on the CPU (limit 1e-2)")
+        same = all(torch.equal(a, b) for a, b in zip(out3[name][:3],
+                                                     cpu[:3]))
+        log("plan3", f"{name} float32 at {N3}^3 vs the CPU path: largest "
+            f"per-frame |dLmax|/Lmax {dl:.3g}; mean Lmax/(total/m) card "
+            f"{card_ratio:.6f}, CPU {cpu_ratio:.6f} (limit 1e-2); cuts "
+            f"{'equal' if same else 'differ'} (frame totals up to "
+            f"{tot3[name].max():.3e})")
+
+    # -- 11. times ---------------------------------------------------------
+    for name, fr in vols.items():
+        runs = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            [c.cpu() for c in planner.plan_stream(fr, P=0, m=M3)]
+            runs.append((time.perf_counter() - t0) * 1e3)
+        runs = runs[1:]
+        med = statistics.median(runs)
+        log("e2e3", f"plan_stream {name} T={T3} {N3}^3 m={M3}, cuts copied "
+            f"to the host: median {med:.1f} ms over 5 runs (min "
+            f"{min(runs):.1f}, max {max(runs):.1f}); {T3 / med * 1e3:.1f} "
+            f"frames/s; {int(out3[name][4].max())} loop iterations (one "
+            f"flag read each)")
+    fr = vols["pic3d"]
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    up = stage("upload", lambda: torch.as_tensor(fr, device=cuda))
+    ing = stage("ingest", lambda: planner.ingest_stage(up))
+    g = stage("sat3", lambda: sat_ops.gamma3(ing))
+    warm = stage("warm", lambda: sgorp.warm_start_impl(g, grid=grid))
+    res = stage("refine", lambda: sgorp.sgorp_refine_impl(g, warm,
+                                                          grid=grid))
+    stage("collect", lambda: [c.cpu() for c in res[0]])
+    log("e2e3", "stages, pic3d: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in stages.items()))
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        [c.cpu() for c in planner.plan_stream(fr, P=0, m=M3)]
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:4]
+    log("e2e3", f"profiler, plan_stream pic3d: "
+        f"{sum(e.count for e in dev_ev)} device operations, device busy "
+        f"{busy:.1f} ms of {wall:.1f} ms wall, idle share "
+        f"{1 - busy / wall:.3f}; most time: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms "
+            f"({e.count}x)" for e in top))
+
+    # K4 at the path's shape: (16, 128, 128, 128) float32
+    a = torch.as_tensor(fr, device=cuda).to(torch.float32)
+    nbytes = a.numel() * 4 + T3 * (N3 + 1) ** 3 * 4
+    b_ms, b_by = bound(nbytes, 3 * a.numel())
+    log("kernels", f"sat3: shape {tuple(a.shape)} float32, {nbytes} bytes "
+        f"in and out; library_ms is torch.cumsum three times")
+    return {
+        "name": "sat3", "route": "cuda",
+        "source": "src/repro_torch/kernels/sat/sat3d.cu",
+        "replaces": "src/repro/kernels/sat/sat3d.py:83",
+        "launches": launches.get("sat3", 0), "max_abs_err": err,
+        "ms": device_ms(lambda: sat_ops.gamma3(a)),
+        "plain_ms": device_ms(lambda: sat_ref.gamma3_ref(a)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
+            torch.cumsum(a, dim=-3), dim=-2), dim=-1))}
 
 
 def main() -> int:
@@ -415,6 +637,7 @@ def main() -> int:
         f"({N1 + 1}, {N2 + 1}) float32 Gamma, {touched} distinct entries "
         f"touched; max_abs_err for sat is the largest over every "
         f"comparison above (float32 PIC frames lie above 2**24)")
+    kernels.append(run_3d(cuda))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

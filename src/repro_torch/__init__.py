@@ -9,5 +9,7 @@ built at first launch (see ``kernels/_build.py``).
 
 Ported so far: the single-device frame planner, frames -> Gamma (K1) ->
 JAG-M-HEUR or exact JAG-PQ-OPT (K2) -> host Plans, plus plan pricing
-and executed migration (K3); see ``rebalance.planner``.
+and executed migration (K3); and the single-device 3D planner, volumes
+-> Gamma3 (K4) -> SGORP rectilinear cuts (``core.sgorp``); see
+``rebalance.planner``.
 """

@@ -1,2 +1,3 @@
-"""Core of the port: the Gamma helpers (:mod:`.prefix`) and the device
-partitioners (:mod:`.device`)."""
+"""Core of the port: the Gamma helpers (:mod:`.prefix`), the partition
+types (:mod:`.types`, :mod:`.threed`), the 2D device partitioners
+(:mod:`.device`) and the d-dimensional SGORP planner (:mod:`.sgorp`)."""

@@ -1,8 +1,9 @@
-"""Prefix sums (the paper's Gamma) and the PIC-MAG-like instance generator.
+"""Prefix sums (the paper's Gamma) and the PIC-like instance generators.
 
-The port's NumPy copy of the 2D part of ``repro.core.prefix`` that the
-frame planner needs: the host Gamma every plan is validated and priced
-against, and the generator behind ``rebalance.stream.pic_series``.
+The port's NumPy copy of the parts of ``repro.core.prefix`` that the 2D
+and 3D frame planners need: the host Gamma (and Gamma3) every plan is
+validated and priced against, and the generators behind
+``rebalance.stream.pic_series``, ``pic_series_3d`` and ``amr_series_3d``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,30 @@ def prefix_sum_2d(a: np.ndarray) -> np.ndarray:
     g = np.zeros((a.shape[0] + 1, a.shape[1] + 1), dtype=dtype)
     np.cumsum(np.cumsum(a, axis=0, dtype=dtype), axis=1, out=g[1:, 1:])
     return g
+
+
+def prefix_sum_3d(a: np.ndarray) -> np.ndarray:
+    """Exclusive 3D prefix sum, shape (n1+1, n2+1, n3+1);
+    Gamma[i,j,k] = A[:i,:j,:k].sum().  Integer inputs accumulate in int64
+    (exact); floats in float64.  One of these serves every slab of the 3D
+    partitioners: the 2D Gamma of slab [x0,x1) is ``g[x1] - g[x0]``.
+    """
+    a = np.asarray(a)
+    dtype = np.int64 if np.issubdtype(a.dtype, np.integer) else np.float64
+    g = np.zeros((a.shape[0] + 1, a.shape[1] + 1, a.shape[2] + 1), dtype=dtype)
+    np.cumsum(np.cumsum(np.cumsum(a, axis=0, dtype=dtype), axis=1), axis=2,
+              out=g[1:, 1:, 1:])
+    return g
+
+
+def rect_load_3d(gamma3: np.ndarray, x0: int, x1: int, r0: int, r1: int,
+                 c0: int, c1: int):
+    """Load of half-open box [x0,x1) x [r0,r1) x [c0,c1) by 3D
+    inclusion–exclusion over the eight corners, O(1)."""
+    return (gamma3[x1, r1, c1] - gamma3[x0, r1, c1]
+            - gamma3[x1, r0, c1] - gamma3[x1, r1, c0]
+            + gamma3[x0, r0, c1] + gamma3[x0, r1, c0] + gamma3[x1, r0, c0]
+            - gamma3[x0, r0, c0])
 
 
 def pic_like_instance(n1: int, n2: int, iteration: int = 0,
@@ -42,3 +67,45 @@ def pic_like_instance(n1: int, n2: int, iteration: int = 0,
     dens = 1.0 + (0.25 + 0.1 * np.sin(8 * t)) * ring + 0.12 * lobe
     dens = dens / dens.mean() * mean_particles_per_cell
     return rng.poisson(dens).astype(np.int64) + 1  # no zeros, like PIC-MAG
+
+
+def pic_like_instance_3d(n1: int, n2: int, n3: int, iteration: int = 0,
+                         mean_particles_per_cell: float = 200.0,
+                         seed: int = 0) -> np.ndarray:
+    """3D PIC-like volume: a drifting shell of particle density plus
+    background — the rank-3 analogue of :func:`pic_like_instance`, feeding
+    the Section-6-style 3D partitioners.  Positive everywhere (like PIC)."""
+    rng = np.random.default_rng(seed + iteration)
+    t = iteration / 40_000.0
+    cx, cy, cz = n1 * (0.45 + 0.1 * t), n2 * 0.5, n3 * 0.5
+    ii, jj, kk = np.meshgrid(np.arange(n1), np.arange(n2), np.arange(n3),
+                             indexing="ij")
+    r = np.sqrt((ii - cx) ** 2 + (jj - cy) ** 2 + (kk - cz) ** 2)
+    shell = np.exp(-((r - n1 * 0.25) ** 2)
+                   / (2 * (n1 * (0.06 + 0.02 * t)) ** 2))
+    lobe = np.exp(-(((ii - cx * 1.2) ** 2) / (2 * (n1 * 0.3) ** 2)
+                    + ((jj - cy) ** 2) / (2 * (n2 * 0.2) ** 2)
+                    + ((kk - cz) ** 2) / (2 * (n3 * 0.2) ** 2)))
+    dens = 1.0 + (0.3 + 0.1 * np.sin(8 * t)) * shell + 0.15 * lobe
+    dens = dens / dens.mean() * mean_particles_per_cell
+    return rng.poisson(dens).astype(np.int64) + 1
+
+
+def amr_like_instance_3d(n1: int, n2: int, n3: int, levels: int = 3,
+                         seed: int = 0) -> np.ndarray:
+    """AMR-like volume: nested refinement boxes multiply the cell cost by
+    4x per level inside shrinking random sub-boxes — sharp load cliffs,
+    the case where uniform grids lose badly."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(1, 4, size=(n1, n2, n3)).astype(np.int64)
+    lo = np.zeros(3, dtype=np.int64)
+    hi = np.array([n1, n2, n3], dtype=np.int64)
+    for _ in range(levels):
+        span = hi - lo
+        if (span < 4).any():
+            break
+        lo = lo + rng.integers(0, np.maximum(span // 3, 1), size=3)
+        hi = hi - rng.integers(0, np.maximum(span // 3, 1), size=3)
+        lo, hi = np.minimum(lo, hi - 2), np.maximum(hi, lo + 2)
+        a[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] *= 4
+    return a

@@ -23,11 +23,15 @@ import pathlib
 import torch
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SOURCES = {name: _HERE / name / f"{name}.cu"
-           for name in ("sat", "probe", "rectload")}
+#: kernel name -> its source (K1-K4)
+SOURCES = {"sat": _HERE / "sat" / "sat.cu",
+           "probe": _HERE / "probe" / "probe.cu",
+           "rectload": _HERE / "rectload" / "rectload.cu",
+           "sat3": _HERE / "sat" / "sat3d.cu"}
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 
-#: Kernel launches by kernel name (``sat``, ``probe``, ``rectload``).
+#: Kernel launches by kernel name (``sat``, ``probe``, ``rectload``,
+#: ``sat3``).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -36,6 +40,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repro_sat_gamma_f32": [_P, _P, _I, _I, _I, _P],
     "repro_sat_gamma_i32": [_P, _P, _I, _I, _I, _P],
+    "repro_sat3_gamma_f32": [_P, _P, _I, _I, _I, _I, _P],
+    "repro_sat3_gamma_i32": [_P, _P, _I, _I, _I, _I, _P],
     "repro_probe_counts_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_probe_counts_i32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_rectload_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

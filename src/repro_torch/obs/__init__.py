@@ -1,4 +1,5 @@
-"""Observability for the port: the span tracer of :mod:`.trace`.
+"""Observability for the port: the span tracer of :mod:`.trace` and the
+engine counters of :mod:`.counters`.
 
 Typical use::
 
@@ -10,9 +11,11 @@ Typical use::
 """
 from __future__ import annotations
 
-from . import trace
+from . import counters, trace
+from .counters import C, Counters
 from .trace import (TRACER, Tracer, chrome_trace, enabled, instant, span,
                     tracing, validate_chrome_trace, write_chrome_trace)
 
-__all__ = ["TRACER", "Tracer", "chrome_trace", "enabled", "instant", "span",
-           "trace", "tracing", "validate_chrome_trace", "write_chrome_trace"]
+__all__ = ["C", "Counters", "TRACER", "Tracer", "chrome_trace", "counters",
+           "enabled", "instant", "span", "trace", "tracing",
+           "validate_chrome_trace", "write_chrome_trace"]

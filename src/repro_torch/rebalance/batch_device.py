@@ -144,6 +144,13 @@ class Plan:
     def max_load(self, gamma: np.ndarray) -> float:
         return float(self.loads(gamma).max(initial=0))
 
+    def to_partition(self):
+        """Convert to a ``core.types.Partition`` (validation, plotting)."""
+        from repro_torch.core import types
+        return types.from_row_cuts_and_col_cuts(
+            self.row_cuts, [self.stripe_col_cuts(s)
+                            for s in range(len(self.counts))], self.shape)
+
     def validate(self, gamma: np.ndarray | None = None, *,
                  m: int | None = None) -> "Plan":
         """Structural check: raise ``ValueError`` on any malformed plan.

@@ -10,11 +10,18 @@ O(T * m) cut vectors coming back to the host.  The partition stage is the
 JAG-M-HEUR heuristic by default, or the exact JAG-PQ-OPT with
 ``exact=True`` (its column probes on kernel K2).
 
+A ``(T, n1, n2, n3)`` volume stream (:func:`plan_stream_3d`, or
+:func:`plan_stream` with rank-4 frames) goes through
+
+    frame ingest -> 3D SAT build (kernel K4) -> SGORP warm start + refine
+
+into a ``p1 x p2 x p3`` rectilinear processor grid per frame
+(``core.sgorp``).
+
 Entry points take ``device=None``, which means ``"cuda"``: they raise
 ``RuntimeError`` where CUDA is absent and run on the CPU only when the
 caller passes ``device="cpu"``, as the tests do.  The mesh-sharded path
-(``mesh=``) and rank-3 frames are not ported yet and raise
-``NotImplementedError``.
+(``mesh=``) is not ported yet and raises ``NotImplementedError``.
 
 ``iter_plan_slices`` / ``plan_iter`` expose the stream lazily: every slice
 is enqueued up front (CUDA launches are asynchronous, and the heuristic
@@ -23,18 +30,20 @@ overlaps with the card still planning slices ``i+1..``.
 """
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core import device
+from repro_torch.core import device, sgorp
 from repro_torch.kernels.sat import ops as sat_ops
 from repro_torch.obs import trace as _trace
 
 __all__ = ["resolve_device", "resolve_gamma_dtype", "ingest_stage",
            "sat_stage", "partition_stage", "plan_frames", "plan_stream",
-           "iter_plan_slices", "plan_iter", "plan_host", "profile_stages"]
+           "plan_frames_3d", "plan_stream_3d", "iter_plan_slices",
+           "plan_iter", "plan_host", "profile_stages"]
 
 # How many slices the lazy iterator aims for when none is requested: deep
 # enough that the policy loop starts after ~1/4 of the stream is planned,
@@ -44,6 +53,9 @@ _DEFAULT_SLICES = 4
 # exact (int32) planning keeps every frame total below this, so greedy
 # targets p + L cannot wrap
 _EXACT_LIMIT = 2 ** 30
+# the 3D path's int32 Gamma3 only has to hold the frame total (its warm
+# start's greedy targets are float32)
+_INT32_LIMIT = 2 ** 31
 
 
 def resolve_device(device=None) -> torch.device:
@@ -94,12 +106,11 @@ def _check_finite(frames, t0: int, t1: int, *, what: str) -> None:
 
 
 def _check_rank(frames, what: str) -> None:
-    if frames.ndim == 4:
-        raise NotImplementedError(f"{what}: rank-3 frames (the SGORP path) "
-                                  f"are not ported yet")
     if frames.ndim != 3:
+        hint = (" (rank-3 volumes go through plan_stream or plan_stream_3d)"
+                if frames.ndim == 4 else "")
         raise ValueError(f"{what} takes (T, n1, n2) frames, got rank "
-                         f"{frames.ndim}")
+                         f"{frames.ndim}{hint}")
 
 
 def _check_mesh(mesh) -> None:
@@ -124,19 +135,22 @@ def resolve_gamma_dtype(gamma_dtype, *, exact: bool) -> torch.dtype:
     return torch.int32 if exact else torch.float32
 
 
-def ingest_stage(frames: torch.Tensor, *,
-                 gamma_dtype=torch.float32) -> torch.Tensor:
+def ingest_stage(frames: torch.Tensor, *, gamma_dtype=torch.float32,
+                 limit: int = _EXACT_LIMIT) -> torch.Tensor:
     """Frame ingest: cast to the accumulator dtype *before* the SAT scan.
 
-    An int32 accumulator (the exact path) needs every frame total below
-    2**30; larger frames raise here, before the cast could wrap them.
+    An int32 accumulator needs every frame total below ``limit``: 2**30 on
+    the exact 2D path (its greedy targets p + L must not wrap), 2**31 on
+    the 3D path.  Larger frames raise here, before the cast could wrap
+    them.
     """
     if gamma_dtype == torch.int32:
         totals = frames.reshape(frames.shape[0], -1).sum(dim=1,
                                                          dtype=torch.int64)
-        if totals.numel() and int(totals.max()) >= _EXACT_LIMIT:
-            raise ValueError(f"exact planning needs every frame total below "
-                             f"2**30, got {int(totals.max())}")
+        if totals.numel() and int(totals.max()) >= limit:
+            raise ValueError(f"int32 planning needs every frame total below "
+                             f"2**{limit.bit_length() - 1}, got "
+                             f"{int(totals.max())}")
     return frames.to(gamma_dtype)
 
 
@@ -180,6 +194,58 @@ def plan_frames(frames: torch.Tensor, *, P: int, m: int, k: int = 8,
                            gamma_dtype=gamma_dtype, exact=exact)
 
 
+def plan_frames_3d(frames: torch.Tensor, *, grid: tuple[int, ...],
+                   max_iters: int = 256, patience: int = 32, k: int = 8,
+                   rounds: int = 8, gamma_dtype=None):
+    """The rank-3 chain on the frames' device: ingest -> 3D SAT -> SGORP.
+
+    The volumetric twin of :func:`plan_frames` for ``(T, n1, n2, n3)``
+    frame batches: one Gamma3 build (kernel K4 on the card), then the
+    SGORP planner over the whole batch — per-axis 1D warm start refined
+    by the subgradient fixed point (``core.sgorp``).  ``grid`` is the
+    (p1, p2, p3) processor grid; ``gamma_dtype`` the accumulator (float32
+    by default, or int32).  Returns ``(cuts1 (T, p1+1), cuts2, cuts3,
+    Lmax (T,), iters (T,), projections (T,))``.
+    """
+    gamma_dtype = torch.float32 if gamma_dtype is None else gamma_dtype
+    return sgorp.sgorp_plan_3d_impl(
+        ingest_stage(frames, gamma_dtype=gamma_dtype, limit=_INT32_LIMIT),
+        grid=grid, max_iters=max_iters, patience=patience, k=k,
+        rounds=rounds, gamma_dtype=gamma_dtype)
+
+
+def plan_stream_3d(frames, *, m: int, grid: tuple[int, ...] | None = None,
+                   mesh=None, max_iters: int = 256, patience: int = 32,
+                   k: int = 8, rounds: int = 8, gamma_dtype=None,
+                   device=None):
+    """SGORP planning for a whole (T, n1, n2, n3) volume stream on one
+    device.
+
+    The rank-3 twin of :func:`plan_stream`.  ``frames`` is a numpy array
+    or a tensor; it is moved to ``device`` (``None``: the card).
+    ``grid=None`` derives the (p1, p2, p3) processor grid from ``m`` via
+    :func:`repro_torch.core.sgorp.default_grid`.  Returns the stacked
+    ``(cuts1, cuts2, cuts3, Lmax, iters, projections)`` tensors on that
+    device.
+    """
+    _check_mesh(mesh)
+    if frames.ndim != 4:
+        raise ValueError(
+            f"plan_stream_3d takes (T, n1, n2, n3) frames, got rank "
+            f"{frames.ndim}")
+    dev = resolve_device(device)
+    _check_finite(frames, 0, frames.shape[0], what="plan_stream_3d")
+    if grid is None:
+        grid = sgorp.default_grid(m, tuple(frames.shape[1:]))
+    grid = tuple(int(g) for g in grid)
+    if math.prod(grid) != m:
+        raise ValueError(f"grid {grid} has {math.prod(grid)} cells, "
+                         f"expected m={m}")
+    return plan_frames_3d(_to_device(frames, dev), grid=grid,
+                          max_iters=max_iters, patience=patience, k=k,
+                          rounds=rounds, gamma_dtype=gamma_dtype)
+
+
 def plan_stream(frames, *, P: int, m: int, mesh=None, k: int = 8,
                 rounds: int = 8, gamma_dtype=None, exact: bool = False,
                 device=None):
@@ -189,7 +255,18 @@ def plan_stream(frames, *, P: int, m: int, mesh=None, k: int = 8,
     (``None``: the card).  Returns the batched (row_cuts, counts,
     col_cuts, Lmax) tensors on that device.  ``exact=True`` plans every
     frame with the exact JAG-PQ-OPT (``Q = m // P``).
+
+    Rank-4 ``(T, n1, n2, n3)`` frames route to :func:`plan_stream_3d`
+    (the SGORP chain): ``P`` — a 2D stripe count — is ignored there; the
+    (p1, p2, p3) processor grid is derived from ``m``.
     """
+    if frames.ndim == 4:
+        if exact:
+            raise ValueError(
+                "exact=True has no rank-3 solver; the 3D path plans with "
+                "the SGORP refiner (plan_stream_3d)")
+        return plan_stream_3d(frames, m=m, mesh=mesh, k=k, rounds=rounds,
+                              gamma_dtype=gamma_dtype, device=device)
     _check_mesh(mesh)
     _check_rank(frames, "plan_stream")
     dev = resolve_device(device)
@@ -258,6 +335,7 @@ def plan_host(frames, *, P: int, m: int, mesh=None, k: int = 8,
               device=None):
     """Whole-stream planning to host Plans (one dispatch, no slicing)."""
     from repro_torch.rebalance import batch_device
+    _check_rank(frames, "plan_host")
     batched = plan_stream(frames, P=P, m=m, mesh=mesh, k=k, rounds=rounds,
                           gamma_dtype=gamma_dtype, exact=exact,
                           device=device)

@@ -1,6 +1,6 @@
 """Time-evolving workload streams (the paper's Fig. 4 regime and beyond).
 
-Each generator returns a ``(T, n1, n2)`` int64 batch of load frames with
+Each 2D generator returns a ``(T, n1, n2)`` int64 batch of load frames with
 strictly positive cells — the input shape ``batch_device.plan_stream``
 consumes.  The PIC series reproduces the paper's every-500-iterations
 experiment; the others exercise regimes the paper motivates but does not
@@ -8,8 +8,11 @@ simulate: smooth drift (hotspots), rotation/advection (particles), and
 spatially abrupt change (AMR-style refinement bursts) — the case where
 hysteresis policies earn their keep.
 
-The port's NumPy copy of the 2D generators of ``repro.rebalance.stream``:
-the same seed gives the same frames in both packages.
+The 3D generators (``STREAMS_3D``) return ``(T, n1, n2, n3)`` volumes
+for the rank-3 planner (``planner.plan_stream_3d``).
+
+The port's NumPy copy of ``repro.rebalance.stream``: the same seed gives
+the same frames in both packages.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import numpy as np
 from repro_torch.core import prefix
 
 __all__ = ["drifting_hotspot", "particle_advection", "refinement_bursts",
-           "pic_series", "static", "STREAMS"]
+           "pic_series", "static", "STREAMS", "pic_series_3d",
+           "amr_series_3d", "STREAMS_3D"]
 
 
 def drifting_hotspot(T: int, n1: int, n2: int, *, n_hotspots: int = 2,
@@ -136,4 +140,35 @@ STREAMS = {
     "refinement-bursts": refinement_bursts,
     "pic": pic_series,
     "static": static,
+}
+
+
+# ---------------------------------------------------------------------------
+# rank-3 volumes: (T, n1, n2, n3) streams for the d-dimensional planner
+
+
+def pic_series_3d(T: int, n1: int, n2: int, n3: int, *, stride: int = 500,
+                  seed: int = 0) -> np.ndarray:
+    """3D PIC dumps: ``prefix.pic_like_instance_3d`` every ``stride``
+    iterations — the volumetric analogue of :func:`pic_series` (a drifting
+    shell plus a dense lobe, Poisson-sampled, strictly positive)."""
+    return np.stack([prefix.pic_like_instance_3d(n1, n2, n3,
+                                                 iteration=t * stride,
+                                                 seed=seed)
+                     for t in range(T)])
+
+
+def amr_series_3d(T: int, n1: int, n2: int, n3: int, *, levels: int = 3,
+                  seed: int = 0) -> np.ndarray:
+    """AMR-style 3D refinement hierarchy, re-drawn per frame: nested boxes
+    multiply their load by 4x per level, and the boxes move between frames
+    (fresh seed each step) — the spatially abrupt regime in 3D."""
+    return np.stack([prefix.amr_like_instance_3d(n1, n2, n3, levels=levels,
+                                                 seed=seed + t)
+                     for t in range(T)])
+
+
+STREAMS_3D = {
+    "pic3d": pic_series_3d,
+    "amr3d": amr_series_3d,
 }

@@ -8,13 +8,16 @@ with the card has none); run them there with::
 
 Tolerance: none.  int32 inputs, and float32 inputs whose sums stay below
 2**24, give bit-identical results; the probe and rectload kernels are
-bit-identical for any input.
+bit-identical for any input.  The SAT kernels (K1, K4) sum float32 in
+another order than ``torch.cumsum``, so the float32 cases here keep
+integer loads with frame totals below 2**24.
 """
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import int_loads, need_card, probe_case, rectload_case
+from repro_torch.core import prefix, sgorp
 from repro_torch.kernels import _build
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.probe import ref as probe_ref
@@ -87,3 +90,55 @@ def test_planner_on_card_matches_cpu(name, exact):
     assert _build.launches["sat"] == before.get("sat", 0) + 1
     if exact:
         assert _build.launches["probe"] > before.get("probe", 0)
+
+
+def _small_int_loads(shape, high, seed=0):
+    return np.random.default_rng(seed).integers(0, high, shape)
+
+
+@pytest.mark.parametrize("shape,high", [
+    ((1, 1, 1), 100), ((5, 7, 9), 100), ((3, 17, 33, 130), 100),
+    ((2, 40, 29, 3), 100), ((2, 0, 4, 5), 100), ((3, 6, 0, 2), 100),
+    ((1, 200, 3, 70), 100),
+    ((16, 128, 128, 128), 8)])   # the 3D path's shape, totals < 2**24
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sat3_kernel_matches_plain(shape, high, dtype):
+    dev = need_card()
+    a = torch.from_numpy(_small_int_loads(shape, high)).to(
+        DTYPES[dtype]).to(dev)
+    n = _build.launches["sat3"]
+    got = sat_ops.gamma3(a)
+    assert _build.launches["sat3"] == n + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, sat_ref.gamma3_ref(a))
+    assert torch.equal(sat_ops.sat3(a), got[..., 1:, 1:, 1:])
+
+
+@pytest.mark.parametrize("name", sorted(stream.STREAMS_3D))
+@pytest.mark.parametrize("gamma_dtype", list(DTYPES))
+def test_planner3d_on_card_matches_cpu(name, gamma_dtype):
+    """The 3D path through K4 equals the CPU path through the plain
+    version, bit for bit (frame totals below 2**24)."""
+    dev = need_card()
+    fr = stream.STREAMS_3D[name](3, 14, 16, 18, seed=5)
+    gd = DTYPES[gamma_dtype]
+    before = _build.launches["sat3"]
+    got = planner.plan_stream(fr, P=0, m=12, gamma_dtype=gd, device=dev)
+    want = planner.plan_stream(fr, P=0, m=12, gamma_dtype=gd, device="cpu")
+    assert len(got) == 6
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
+    assert _build.launches["sat3"] == before + 1
+
+
+@pytest.mark.parametrize("speeds", [None, [1, 2, 1, 1, 3, 1, 1, 2]])
+def test_sgorp_host_entries_on_card_match_cpu(speeds):
+    dev = need_card()
+    vol = prefix.amr_like_instance_3d(12, 10, 14, seed=2)
+    got = sgorp.sgorp_3d(vol, 8, speeds=speeds, device=dev)
+    want = sgorp.sgorp_3d(vol, 8, speeds=speeds, device="cpu")
+    assert got.boxes == want.boxes and got.is_valid()
+    g2 = prefix.prefix_sum_2d(vol.sum(axis=0))
+    assert sgorp.sgorp_2d(g2, 8, speeds=speeds, device=dev).rects == \
+        sgorp.sgorp_2d(g2, 8, speeds=speeds, device="cpu").rects

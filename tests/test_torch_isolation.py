@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import sgorp
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.sat import ops as sat_ops
@@ -44,6 +45,8 @@ fr = stream.drifting_hotspot(2, 24, 32, seed=0)
 for exact in (False, True):
     plans = planner.plan_host(fr, P=2, m=4, exact=exact, device="cpu")
     assert len(plans) == 2
+vol = stream.pic_series_3d(2, 8, 8, 8, seed=0)
+assert len(planner.plan_stream(vol, P=0, m=8, device="cpu")) == 6
 leaked = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "repro"))]
 assert not leaked, leaked
@@ -60,6 +63,7 @@ def test_port_imports_and_plans_without_jax_or_repro():
 
 def _entry_points():
     fr = stream.static(2, 16, 16)
+    vol = stream.amr_series_3d(2, 8, 8, 8)
     plan = planner.plan_host(fr, P=2, m=4, device="cpu")[0]
     return [
         lambda: planner.plan_stream(fr, P=4, m=16),
@@ -71,10 +75,14 @@ def _entry_points():
         lambda: batch_device.jag_m_heur_batch(np.zeros((1, 5, 5)), P=2, m=4),
         lambda: execute.plan_rect_loads(plan, fr[0]),
         lambda: execute.execute_migration(plan, plan, fr[0]),
+        lambda: planner.plan_stream(vol, P=0, m=8),
+        lambda: planner.plan_stream_3d(vol, m=8),
+        lambda: sgorp.sgorp_2d(np.arange(25).reshape(5, 5), 4),
+        lambda: sgorp.sgorp_3d(vol[0], 8),
     ]
 
 
-@pytest.mark.parametrize("i", range(9))
+@pytest.mark.parametrize("i", range(13))
 def test_entry_points_raise_without_cuda(i, monkeypatch):
     call = _entry_points()[i]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -84,6 +92,7 @@ def test_entry_points_raise_without_cuda(i, monkeypatch):
 
 @pytest.mark.parametrize("call", [
     lambda t: sat_ops.gamma(t((3, 4), torch.int32)),
+    lambda t: sat_ops.gamma3(t((3, 4, 5), torch.float32)),
     lambda t: probe_ops.probe_counts(t((2, 5), torch.int32),
                                      t((2, 3), torch.int32), 2),
     lambda t: rl_ops.jagged_loads(t((5, 5), torch.float32),

@@ -126,8 +126,17 @@ def test_plan_stream_refuses(kwargs, exc):
 
 
 def test_rank3_frames_are_not_ported_yet():
+    """Rank-3 frames plan through ``plan_stream`` on one device (see
+    ``test_torch_planner3d.py``); their mesh-sharded planner is not ported
+    yet, and the 2D-only entry points refuse them."""
+    vol = np.ones((2, 4, 4, 4))
+    assert len(planner.plan_stream(vol, P=2, m=4, device=CPU)) == 6
     with pytest.raises(NotImplementedError):
-        planner.plan_stream(np.ones((2, 4, 4, 4)), P=2, m=4, device=CPU)
+        planner.plan_stream(vol, P=2, m=4, mesh=object(), device=CPU)
+    for call in (planner.plan_host, planner.profile_stages,
+                 lambda *a, **k: list(planner.plan_iter(*a, **k))):
+        with pytest.raises(ValueError, match="plan_stream_3d"):
+            call(vol, P=2, m=4, device=CPU)
 
 
 def test_poisoned_frames_are_named():
