@@ -17,7 +17,17 @@ against its plain version, ``planner.plan_stream`` on rank-4 frames at
 m=1024 (a 16 x 8 x 8 processor grid) with its own launch counts, its
 checks and times.  The last two lines before the final one are the
 kernels' JSON record and the card's name and power limit; the final
-line is ``{"ok": true, "device": {...}}``.
+line is ``{"ok": true, "device": {...}}``.  Last, flash attention (K5):
+``kernels.flash.ops.attention`` at full model width, B=1 and S=8192 in
+bf16 — Gemma-2-9B's local (window 4096) and global layers (16 heads, its
+8 KV heads through ``models.layers.repeat_kv``, head dim 256, softcap 50)
+and Qwen3-0.6B's (16 heads from 8 KV heads, head dim 128) — with its own
+launch counts, each output held against the plain version on the card
+(rtol = atol = 2e-2, as ``tests/test_flash.py``, and a relative L2 error
+of at most 1e-2), plus one float32 check at Qwen3 width and S=2048
+(2e-5).  The Gemma-2 queries are drawn large enough that the softcap
+changes the logits; ``flex_attention`` (compiled) is timed there as the
+library yardstick, and SDPA at Qwen3.
 
 Dtype contract checked here: int32 results are bit-identical between the
 kernels and the plain versions, and to the CPU path; so are float32
@@ -48,6 +58,7 @@ Q = M // P
 F32_EXACT = 2 ** 24
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 
 
@@ -89,9 +100,10 @@ def device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -310,6 +322,224 @@ def run_3d(cuda: torch.device) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
             torch.cumsum(a, dim=-3), dim=-2), dim=-1))}
+
+
+# K5's shapes: (name, source, query heads, KV heads, head dim, window,
+# softcap); B=1 and S=8192 (Gemma-2's context length) for all three
+FLASH_SHAPES = [
+    ("gemma2-9b local", "src/repro/configs/gemma2_9b.py", 16, 8, 256, 4096,
+     50.0),
+    ("gemma2-9b global", "src/repro/configs/gemma2_9b.py", 16, 8, 256, 0,
+     50.0),
+    ("qwen3-0.6b", "src/repro/configs/qwen3_0_6b.py", 16, 8, 128, 0, 0.0),
+]
+S_FLASH = 8192
+Q_STD_SOFTCAP = 8.0   # logits of standard deviation 8 where softcap is 50
+FLASH_REL_L2 = 1e-2   # ||kernel - plain|| / ||plain|| in bf16
+
+
+def flex_yardstick(qf, kf, vf, window: int, softcap: float):
+    """The library yardstick where SDPA has no softcap: compiled
+    ``flex_attention`` with the softcap as its score modifier and causal
+    (and window) as its block mask, on the folded ``(BH, S, d)`` inputs.
+    Timed only; the port never calls it."""
+    import torch._inductor.config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    torch._inductor.config.compile_threads = 1   # no compile worker pool
+
+    def keep(b, h, iq, jk):
+        ok = jk <= iq
+        return ok & (iq - jk < window) if window > 0 else ok
+
+    def cap(s, b, h, iq, jk):
+        return softcap * torch.tanh(s / softcap)
+
+    S = qf.shape[1]
+    mask = create_block_mask(keep, None, None, S, S, device=qf.device)
+    flex = torch.compile(flex_attention)
+    q4, k4, v4 = qf[None], kf[None], vf[None]
+
+    def call():
+        return flex(q4, k4, v4, score_mod=cap, block_mask=mask)[0]
+    return call, "flex_attention, compiled, softcap score_mod, block mask"
+
+
+def causal_pairs(S: int, window: int) -> int:
+    """Unmasked (i, j) pairs of one head under the causal mask (and the
+    window, where > 0)."""
+    kept = np.arange(1, S + 1, dtype=np.int64)
+    return int((np.minimum(kept, window) if window > 0 else kept).sum())
+
+
+def run_flash(cuda: torch.device) -> dict:
+    """K5 at full model width: ``ops.attention`` on the three shapes with
+    its own launch counts, each output against the plain version on the
+    card, one float32 check, and times.  Returns K5's entry of the kernels'
+    record (its top-level numbers at the Qwen3 shape, the one with a
+    library yardstick; every shape's numbers under ``shapes``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.models import layers
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls must run in full float32")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SEED)
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    # -- 12. data: random q, k, v from a seed, on the card -----------------
+    # Where there is a softcap, q has standard deviation Q_STD_SOFTCAP, so
+    # the logits spread as far (the largest reach about 50) and the softcap
+    # changes them; elsewhere q, k and v are unit normals.
+    inputs = {}
+    for name, _, H, Hkv, d, _, softcap in FLASH_SHAPES:
+        q = normal((1, S_FLASH, H, d), torch.float32)
+        q = (q * (Q_STD_SOFTCAP if softcap else 1.0)).to(torch.bfloat16)
+        k, v = (layers.repeat_kv(normal((1, S_FLASH, Hkv, d),
+                                        torch.bfloat16), H // Hkv)
+                for _ in range(2))
+        inputs[name] = (q, k, v)
+
+    # -- 13. the attention path at full width -----------------------------
+    _build.launches.clear()
+    outs = {}
+    t0 = time.perf_counter()
+    for name, _, H, _, d, window, softcap in FLASH_SHAPES:
+        q, k, v = inputs[name]
+        outs[name] = flash_ops.attention(q, k, v, causal=True, window=window,
+                                         softcap=softcap)
+    torch.cuda.synchronize()
+    log("flash", f"attention on the 3 shapes in "
+        f"{time.perf_counter() - t0:.2f} s (host clock, first calls)")
+    launches = dict(_build.launches)
+    log("flash", f"kernel launches on the attention path: {launches}")
+    check(launches.get("flash", 0) >= 1, "kernel flash never ran on the "
+          "attention path")
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(-1, S_FLASH,
+                                         x.shape[-1]).contiguous()
+
+    def rel_l2(got, want):
+        return float((got - want).norm() / want.norm())
+
+    rows, err = [], 0.0
+    for name, src, H, Hkv, d, window, softcap in FLASH_SHAPES:
+        q, k, v = inputs[name]
+        out = outs[name]
+        check(out.shape == (1, S_FLASH, H, d) and out.dtype == torch.bfloat16
+              and bool(torch.isfinite(out).all()),
+              f"flash {name}: output is not finite bf16 of shape "
+              f"{(1, S_FLASH, H, d)}")
+        qf, kf, vf = fold(q), fold(k), fold(v)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        want = flash_ref.attention_ref(qf, kf, vf, **kw).float()
+        got = fold(out).float()
+        e = float((got - want).abs().max())
+        rel = rel_l2(got, want)
+        check(torch.allclose(got, want, rtol=2e-2, atol=2e-2),
+              f"flash {name}: kernel is {e:.3g} off the plain version "
+              f"(limit rtol = atol = 2e-2)")
+        check(rel <= FLASH_REL_L2, f"flash {name}: kernel's relative L2 "
+              f"error {rel:.3g} (limit {FLASH_REL_L2})")
+        held = (f"max |kernel - plain| {e:.3g} (held at rtol = atol = "
+                f"2e-2), relative L2 {rel:.3g} (limit {FLASH_REL_L2}; "
+                f"|plain| median {float(want.abs().median()):.3g}, max "
+                f"{float(want.abs().max()):.3g})")
+        if softcap:
+            # the data is such that a kernel ignoring the softcap would fail
+            nocap = flash_ref.attention_ref(qf, kf, vf, causal=True,
+                                            window=window).float()
+            rel_nocap = rel_l2(nocap, want)
+            del nocap
+            check(rel_nocap > FLASH_REL_L2, f"flash {name}: without the "
+                  f"softcap the plain version moves by only {rel_nocap:.3g}"
+                  f" (relative L2), within the limit: the check cannot see "
+                  f"the softcap")
+            held += (f"; the plain version without the softcap is "
+                     f"{rel_nocap:.3g} off (relative L2)")
+        err = max(err, e)
+        pairs = causal_pairs(S_FLASH, window)
+        nbytes = 4 * qf.numel() * qf.element_size()   # q, k, v in; out
+        b_ms, b_by = bound(nbytes, 4 * qf.shape[0] * d * pairs,
+                           BF16_TC_OPS_PER_S)
+        row = {"shape": name, "source": src, "B": 1, "S": S_FLASH, "H": H,
+               "kv_heads": Hkv, "d": d, "window": window,
+               "softcap": softcap, "max_abs_err": e, "rel_l2_err": rel,
+               "ms": device_ms(lambda: flash_ops.flash_attention(
+                   qf, kf, vf, **kw)),
+               "plain_ms": device_ms(lambda: flash_ref.attention_ref(
+                   qf, kf, vf, **kw), reps=5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if softcap:
+            lib_fn, lib_name = flex_yardstick(qf, kf, vf, window, softcap)
+        else:
+            def lib_fn(q4=qf[None], k4=kf[None], v4=vf[None]):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True)[0]
+            lib_name = "SDPA, is_causal"
+        lib_out = lib_fn().float()
+        lib_rel = rel_l2(lib_out, want)
+        lib_err = float((lib_out - got).abs().max())
+        del lib_out, want, got
+        check(lib_rel <= FLASH_REL_L2, f"flash {name}: the library yardstick "
+              f"({lib_name}) is {lib_rel:.3g} off the plain version "
+              f"(relative L2): it does not compute this function")
+        row["library_ms"] = device_ms(lib_fn)
+        lib = (f"library_ms {row['library_ms']:.4f} ({lib_name}; a "
+               f"yardstick only: relative L2 {lib_rel:.3g} off the plain "
+               f"version, max |library - kernel| {lib_err:.3g})")
+        log("flash", f"{name} ({src}): q (1, {S_FLASH}, {H}, {d}) bf16, "
+            f"{Hkv} KV heads repeated to {H}, causal, window {window}, "
+            f"softcap {softcap}: {held}; "
+            f"ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, bound_ms "
+            f"{b_ms:.4f} ({b_by}; {pairs * H} unmasked pairs, {nbytes} "
+            f"bytes); {lib}")
+        rows.append(row)
+        del qf, kf, vf, lib_fn
+    del inputs, outs
+    torch.cuda.empty_cache()
+    by = {r["shape"]: r for r in rows}
+    ratio = by["gemma2-9b local"]["ms"] / by["gemma2-9b global"]["ms"]
+    pair_ratio = causal_pairs(S_FLASH, 4096) / causal_pairs(S_FLASH, 0)
+    log("flash", f"local/global time {ratio:.3f} (unmasked pairs "
+        f"{pair_ratio:.3f}): the key-tile skip under the window")
+
+    # float32: Qwen3 width at S=2048, CUDA-core FMA, against the plain
+    # version in full float32
+    S32 = 2048
+    q, k, v = (normal((16, S32, 128), torch.float32) for _ in range(3))
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    want = flash_ref.attention_ref(q, k, v, causal=True)
+    e32, rel32 = float((got - want).abs().max()), rel_l2(got, want)
+    check(torch.allclose(got, want, rtol=2e-5, atol=2e-5), f"flash float32: "
+          f"kernel is {e32:.3g} off the plain version (limit rtol = atol = "
+          f"2e-5)")
+    check(rel32 <= 1e-5, f"flash float32: kernel's relative L2 error "
+          f"{rel32:.3g} (limit 1e-5)")
+    ms32 = device_ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                        causal=True))
+    b32, _ = bound(4 * q.numel() * 4, 4 * 16 * 128 * causal_pairs(S32, 0))
+    log("flash", f"float32 (16, {S32}, 128) causal: max |kernel - plain| "
+        f"{e32:.3g} (held at rtol = atol = 2e-5), relative L2 {rel32:.3g} "
+        f"(limit 1e-5); ms {ms32:.4f}, bound_ms "
+        f"{b32:.4f} (float32 CUDA cores)")
+    del q, k, v, got, want
+    top = by["qwen3-0.6b"]
+    return {
+        "name": "flash", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash/flash.cu",
+        "replaces": "src/repro/kernels/flash/flash.py:94",
+        "launches": launches.get("flash", 0), "max_abs_err": err,
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "shapes": rows}
 
 
 def main() -> int:
@@ -638,6 +868,7 @@ def main() -> int:
         f"touched; max_abs_err for sat is the largest over every "
         f"comparison above (float32 PIC frames lie above 2**24)")
     kernels.append(run_3d(cuda))
+    kernels.append(run_flash(cuda))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -23,19 +23,21 @@ import pathlib
 import torch
 
 _HERE = pathlib.Path(__file__).resolve().parent
-#: kernel name -> its source (K1-K4)
+#: kernel name -> its source (K1-K5)
 SOURCES = {"sat": _HERE / "sat" / "sat.cu",
            "probe": _HERE / "probe" / "probe.cu",
            "rectload": _HERE / "rectload" / "rectload.cu",
-           "sat3": _HERE / "sat" / "sat3d.cu"}
+           "sat3": _HERE / "sat" / "sat3d.cu",
+           "flash": _HERE / "flash" / "flash.cu"}
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 
 #: Kernel launches by kernel name (``sat``, ``probe``, ``rectload``,
-#: ``sat3``).
+#: ``sat3``, ``flash``).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argument types; every entry point returns cudaError_t
 _SIGNATURES = {
     "repro_sat_gamma_f32": [_P, _P, _I, _I, _I, _P],
@@ -46,6 +48,10 @@ _SIGNATURES = {
     "repro_probe_counts_i32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_rectload_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_rectload_i32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                             _P],
+    "repro_flash_attn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                              _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -73,12 +79,14 @@ def library() -> ctypes.CDLL:
 def launch(kernel: str, fn: str, *args) -> None:
     """Call C entry point ``fn`` of ``kernel`` on the current stream.
 
-    Tensors are passed by data pointer and ints as C ints; the stream is
-    appended.  Raises ``RuntimeError`` when the launch is refused (the C
-    side returns ``cudaGetLastError()`` right after its launches).
+    Tensors are passed by data pointer, Python floats as C floats and
+    everything else as C ints; the stream is appended.  Raises
+    ``RuntimeError`` when the launch is refused (the C side returns
+    ``cudaGetLastError()`` right after its launches).
     """
     lib = library()
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor)
+            else ctypes.c_float(a) if isinstance(a, float) else int(a)
             for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, fn)(*conv, stream)

@@ -1,0 +1,78 @@
+"""Wrappers of the flash attention kernel K5 (``flash.cu``).
+
+A CUDA tensor goes through the kernel, a CPU tensor through the plain
+version in ``ref.py``; there is no other route.  The TPU kernel's tile
+sizes (``qc``, ``kc``) are not arguments here: tiles belong to the
+kernel, and the result depends on them only through the order of float
+summation.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .ref import attention_ref
+
+_FN = {torch.float32: "repro_flash_attn_f32",
+       torch.bfloat16: "repro_flash_attn_bf16"}
+#: largest head dim the kernel is compiled for
+MAX_HEAD_DIM = 256
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dtype not in _FN or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes q, k, v all float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
+        raise ValueError("flash_attention takes (BH, S, d) tensors")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} must share "
+                         f"BH and d, and k and v their length")
+    if not 1 <= q.shape[2] <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {q.shape[2]} is not in "
+                         f"1..{MAX_HEAD_DIM}")
+    if q.device != k.device or q.device != v.device:
+        raise ValueError(f"flash_attention: tensors on {q.device}, "
+                         f"{k.device} and {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention needs contiguous tensors")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0,
+                    scale: float | None = None) -> torch.Tensor:
+    """q: (BH, Sq, d), k, v: (BH, Skv, d), flattened batch*heads, all
+    float32 or all bfloat16, 1 <= d <= 256.  Returns (BH, Sq, d) in the
+    input dtype.  ``causal`` keeps key j <= query i (aligned top-left,
+    also when Sq != Skv); ``window > 0`` keeps i - j < window; ``softcap
+    > 0`` applies softcap * tanh(s / softcap) after the scale (default
+    d ** -0.5)."""
+    _check(q, k, v)
+    BH, Sq, d = q.shape
+    if scale is None:
+        scale = float(d) ** -0.5
+    if _build.on_cpu("flash", q):
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale)
+    o = torch.empty_like(q)
+    _build.launch("flash", _FN[q.dtype], q, k, v, o, BH, Sq, k.shape[1], d,
+                  int(causal), int(window), float(softcap), float(scale))
+    return o
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              softcap: float = 0.0) -> torch.Tensor:
+    """(B, S, H, d) attention through :func:`flash_attention`, the heads
+    folded into the batch axis.  Returns (B, Sq, H, d)."""
+    B, Sq, H, d = q.shape
+    Skv = k.shape[1]
+    qf = q.transpose(1, 2).reshape(B * H, Sq, d).contiguous()
+    kf = k.transpose(1, 2).reshape(B * H, Skv, d).contiguous()
+    vf = v.transpose(1, 2).reshape(B * H, Skv, d).contiguous()
+    of = flash_attention(qf, kf, vf, causal=causal, window=window,
+                         softcap=softcap)
+    return of.reshape(B, H, Sq, d).transpose(1, 2)

@@ -79,6 +79,28 @@ def need_card() -> torch.device:
 # ---------------------------------------------------------------------------
 # inputs, made from a seed with NumPy
 
+#: ``tests/test_flash.py::CASES``, copied here because the machine with the
+#: card has no JAX: (B, Sq, Skv, H, d, causal, window, softcap)
+FLASH_CASES = [
+    (1, 64, 64, 2, 64, True, 0, 0.0),
+    (2, 128, 128, 2, 64, True, 0, 0.0),
+    (1, 100, 100, 1, 128, True, 0, 0.0),     # ragged vs tile size
+    (1, 128, 128, 2, 64, True, 32, 0.0),     # sliding window
+    (1, 128, 128, 2, 64, True, 0, 50.0),     # softcap (gemma2)
+    (1, 64, 256, 2, 64, False, 0, 0.0),      # cross-attention shape
+]
+#: tolerance of ``tests/test_flash.py`` by dtype, compared in float32
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def qkv(B, Sq, Skv, H, d, seed=0) -> tuple:
+    """Standard normal float32 q (B, Sq, H, d), k and v (B, Skv, H, d)."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, d)).astype(np.float32),
+            rng.standard_normal((B, Skv, H, d)).astype(np.float32),
+            rng.standard_normal((B, Skv, H, d)).astype(np.float32))
+
+
 
 def int_loads(shape, dtype, seed=0) -> np.ndarray:
     """Integer loads in [0, 100) as ``dtype`` (float32 sums stay exact)."""

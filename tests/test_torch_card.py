@@ -6,29 +6,39 @@ with the card has none); run them there with::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
 
-Tolerance: none.  int32 inputs, and float32 inputs whose sums stay below
-2**24, give bit-identical results; the probe and rectload kernels are
-bit-identical for any input.  The SAT kernels (K1, K4) sum float32 in
-another order than ``torch.cumsum``, so the float32 cases here keep
-integer loads with frame totals below 2**24.
+Tolerance: none for K1-K4.  int32 inputs, and float32 inputs whose sums
+stay below 2**24, give bit-identical results; the probe and rectload
+kernels are bit-identical for any input.  The SAT kernels (K1, K4) sum
+float32 in another order than ``torch.cumsum``, so the float32 cases here
+keep integer loads with frame totals below 2**24.  The flash attention
+kernel (K5) sums in tiles with an online softmax, the plain version
+densely: ``tests/test_flash.py``'s tolerances, 2e-5 for float32 and 2e-2
+for bfloat16, compared in float32, with the plain version's float32
+products in full float32 (no TF32); against the model layer's chunked
+attention 3e-5 in float32, that test's own.
 """
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import int_loads, need_card, probe_case, rectload_case
+from _torch_parity import (FLASH_CASES, FLASH_TOL, int_loads, need_card,
+                           probe_case, qkv, rectload_case)
 from repro_torch.core import prefix, sgorp
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash import ref as flash_ref
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.probe import ref as probe_ref
 from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.rectload import ref as rl_ref
 from repro_torch.kernels.sat import ops as sat_ops
 from repro_torch.kernels.sat import ref as sat_ref
+from repro_torch.models import layers
 from repro_torch.rebalance import planner, stream
 
 pytestmark = pytest.mark.cuda
 DTYPES = {"int32": torch.int32, "float32": torch.float32}
+FLASH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (7, 9), (33, 65), (3, 17, 130),
@@ -142,3 +152,78 @@ def test_sgorp_host_entries_on_card_match_cpu(speeds):
     g2 = prefix.prefix_sum_2d(vol.sum(axis=0))
     assert sgorp.sgorp_2d(g2, 8, speeds=speeds, device=dev).rects == \
         sgorp.sgorp_2d(g2, 8, speeds=speeds, device="cpu").rects
+
+
+def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0):
+    """K5 through ``attention`` on the card against the plain version on
+    the same (folded) inputs."""
+    dev = need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.get_float32_matmul_precision() == "highest"
+    q, k, v = (torch.from_numpy(x).to(dev, FLASH_DTYPES[dtype])
+               for x in qkv(B, Sq, Skv, H, d, seed))
+    n = _build.launches["flash"]
+    got = flash_ops.attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    assert _build.launches["flash"] == n + 1
+    torch.cuda.synchronize()
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(B * H, -1, d).contiguous()
+
+    want = flash_ref.attention_ref(fold(q), fold(k), fold(v), causal=causal,
+                                   window=window, softcap=softcap)
+    want = want.reshape(B, H, Sq, d).transpose(1, 2)
+    assert got.dtype == q.dtype and got.shape == (B, Sq, H, d)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", FLASH_CASES)
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_kernel_matches_plain(B, Sq, Skv, H, d, causal, window,
+                                    softcap, dtype):
+    _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 200, 256])  # 200: not a
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))       # compiled width
+@pytest.mark.parametrize("mode", ["causal-window-softcap", "cross"])
+def test_flash_kernel_head_dims(d, dtype, mode):
+    if mode == "cross":   # Sq < Skv, no mask, neither a multiple of a tile
+        _flash_case(1, 70, 197, 2, d, False, 0, 0.0, dtype, seed=d)
+    else:
+        _flash_case(1, 130, 130, 2, d, True, 48, 50.0, dtype, seed=d)
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_kernel_many_heads(dtype):
+    """B * H = 66,000 > 65,535: the flattened grid takes it."""
+    _flash_case(2, 16, 16, 33000, 32, True, 0, 0.0, dtype)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_kernel_matches_chunked_attention(window, dtype):
+    """K5 against the model layer's chunked attention at Gemma-2 smoke
+    widths (4 heads, 2 KV heads through ``repeat_kv``, head dim 16, attn
+    softcap 50, chunks of 16; the local layer's window 8 and a global
+    layer)."""
+    dev = need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, Hkv, d = 2, 64, 4, 2, 16
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((B, S, H, d)).astype(
+        np.float32)).to(dev, FLASH_DTYPES[dtype])
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, Hkv, d)).astype(
+        np.float32)).to(dev, FLASH_DTYPES[dtype]) for _ in range(2))
+    k, v = layers.repeat_kv(k, H // Hkv), layers.repeat_kv(v, H // Hkv)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    want = layers.chunked_attention(q, k, v, pos, pos, causal=True,
+                                    window=window, softcap=50.0,
+                                    scale=d ** -0.5, q_chunk=16,
+                                    kv_chunk=16)
+    got = flash_ops.attention(q, k, v, causal=True, window=window,
+                              softcap=50.0)
+    tol = 3e-5 if dtype == "float32" else FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -1,0 +1,182 @@
+"""K5 parity: the port's flash attention (``repro_torch.kernels.flash``)
+and the model layer's chunked attention (``repro_torch.models.layers``)
+against the JAX package's, on the CPU.  The same NumPy inputs go to both.
+
+On the CPU the port's wrapper runs its plain version; the JAX side runs
+its Pallas kernel in interpret mode, as ``tests/test_flash.py`` does, so
+these tests hold the port's plain version to the TPU kernel (the CUDA
+kernel against the plain version is in ``test_torch_card.py``).
+
+Tolerances, all compared in float32:
+- port vs the Pallas kernel: ``tests/test_flash.py``'s own, 2e-5 for
+  float32 and 2e-2 for bfloat16 (the kernel sums in tiles with an online
+  softmax, the plain version densely);
+- plain version vs plain version: 1e-6 (the same dense formula; only the
+  einsums' summation order differs), at half the default scale, so that
+  the explicit argument matters and the logits stay of order 1 (exp
+  amplifies the einsums' rounding of larger logits: scale 0.3 at d=128
+  gives 3.1e-6);
+- chunked attention JAX vs port: 1e-5 (the same chunked online softmax;
+  the einsums' summation order differs);
+- port kernel entry vs port chunked attention: 3e-5, the JAX test's own.
+"""
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import FLASH_CASES, FLASH_TOL, qkv
+from repro.kernels.flash import ops as jax_flash
+from repro.kernels.flash.ref import attention_ref as jax_attention_ref
+from repro.models import layers as jax_layers
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash.ref import attention_ref
+from repro_torch.models import layers
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", FLASH_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_matches_jax_pallas(B, Sq, Skv, H, d, causal, window,
+                                      softcap, dtype):
+    jdt, tdt = DTYPES[dtype]
+    q, k, v = qkv(B, Sq, Skv, H, d)
+    want = jax_flash.attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                               jnp.asarray(v, jdt), causal=causal,
+                               window=window, softcap=softcap,
+                               use_pallas=True, interpret=True)
+    before = dict(_build.launches)
+    got = flash_ops.attention(*(torch.from_numpy(x).to(tdt)
+                                for x in (q, k, v)),
+                              causal=causal, window=window, softcap=softcap)
+    assert dict(_build.launches) == before   # the CPU runs no kernel
+    assert got.dtype == tdt and got.shape == (B, Sq, H, d)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", FLASH_CASES)
+def test_attention_ref_matches_jax(B, Sq, Skv, H, d, causal, window,
+                                   softcap):
+    q, k, v = (x.transpose(0, 2, 1, 3).reshape(B * H, -1, d)
+               for x in qkv(B, Sq, Skv, H, d, seed=1))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              scale=0.5 * d ** -0.5)
+    want = jax_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             **kw)
+    got = attention_ref(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+# (B, Sq, Skv, H, Hkv, dk, dv, causal, window, softcap, q_chunk, kv_chunk,
+#  band_window, invalid kv slots)
+CHUNKED = [
+    (2, 40, 40, 3, 3, 16, 16, c, w, sc, 16, 16, 0, False)
+    for c in (True, False) for w in (0, 8) for sc in (0.0, 50.0)
+] + [
+    (2, 40, 40, 3, 3, 16, 16, True, 8, 0.0, 16, 16, 0, True),    # -1 slots
+    (2, 48, 48, 2, 2, 16, 16, False, 0, 0.0, 16, 16, 0, True),
+    (1, 64, 64, 2, 2, 16, 16, True, 8, 50.0, 16, 8, 8, False),   # band
+    (2, 40, 40, 4, 1, 24, 16, True, 0, 0.0, 16, 16, 0, False),   # MQA
+    (2, 37, 53, 2, 2, 16, 16, False, 0, 0.0, 16, 12, 0, False),  # ragged
+    (1, 37, 53, 2, 2, 32, 32, True, 5, 30.0, 8, 16, 0, True),
+]
+
+
+def _positions(B, Sq, Skv, invalid, seed):
+    rng = np.random.default_rng(seed)
+    q_pos = np.broadcast_to(np.arange(Skv - Sq, Skv), (B, Sq)).copy()
+    kv_pos = np.broadcast_to(np.arange(Skv), (B, Skv)).copy()
+    if invalid:
+        kv_pos[rng.random((B, Skv)) < 0.25] = -1
+    return q_pos.astype(np.int32), kv_pos.astype(np.int32)
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Skv,H,Hkv,dk,dv,causal,window,softcap,qc,kc,band,invalid",
+    CHUNKED)
+def test_chunked_attention_matches_jax(B, Sq, Skv, H, Hkv, dk, dv, causal,
+                                       window, softcap, qc, kc, band,
+                                       invalid):
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((B, Sq, H, dk)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, Hkv, dk)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, Hkv, dv)).astype(np.float32)
+    q_pos, kv_pos = _positions(B, Sq, Skv, invalid, seed=3)
+    kw = dict(causal=causal, softcap=softcap, scale=dk ** -0.5, q_chunk=qc,
+              kv_chunk=kc, band_window=band)
+    want = jax_layers.chunked_attention(
+        *(jnp.asarray(x) for x in (q, k, v, q_pos, kv_pos)),
+        window=jnp.int32(window), **kw)
+    t = [torch.from_numpy(x) for x in (q, k, v, q_pos, kv_pos)]
+    got = layers.chunked_attention(*t, window=window, **kw)
+    assert got.shape == (B, Sq, H, dv) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    # window as a 0-d tensor, as the reference takes a traced int32
+    got_t = layers.chunked_attention(*t, window=torch.tensor(window), **kw)
+    assert torch.equal(got_t, got)
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 3])
+def test_repeat_kv_matches_jax(n_rep):
+    k = np.random.default_rng(4).standard_normal((2, 5, 3, 8)).astype(
+        np.float32)
+    want = np.asarray(jax_layers.repeat_kv(jnp.asarray(k), n_rep))
+    got = layers.repeat_kv(torch.from_numpy(k), n_rep).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_flash_matches_model_attention():
+    """The kernel's entry point agrees with the model layer's chunked
+    attention (the port's twin of ``tests/test_flash.py``'s test)."""
+    B, S, H, d = 2, 96, 4, 32
+    q, k, v = (torch.from_numpy(x) for x in qkv(B, S, S, H, d, seed=5))
+    pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+    a = layers.chunked_attention(q, k, v, pos, pos, causal=True,
+                                 window=torch.tensor(0), softcap=0.0,
+                                 scale=d ** -0.5, q_chunk=32, kv_chunk=32)
+    b = flash_ops.attention(q, k, v, causal=True)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=3e-5, atol=3e-5)
+
+
+def test_launch_passes_floats_as_c_float(monkeypatch):
+    """``_build.launch`` hands a Python float to the C entry point as a C
+    float (0.0625 arrives as 0.0625, not as int 0) and ints as ints; the
+    entry point here is a ctypes callback with K5's real signature."""
+    name = "repro_flash_attn_f32"
+    seen = []
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *_build._SIGNATURES[name])
+    fn = proto(lambda *a: seen.append(a) or 0)
+
+    class Lib:
+        pass
+
+    lib = Lib()
+    setattr(lib, name, fn)
+    monkeypatch.setattr(_build, "library", lambda: lib)
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    t = torch.zeros(4)
+    before = _build.launches["flash"]
+    _build.launch("flash", name, t, t, t, t, 2, 3, 5, 7, 1, 4, 50.0, 0.0625)
+    assert _build.launches["flash"] == before + 1
+    (args,) = seen
+    assert args[4:10] == (2, 3, 5, 7, 1, 4)
+    assert args[10] == 50.0 and args[11] == 0.0625

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.core import sgorp
+from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.sat import ops as sat_ops
@@ -47,6 +48,14 @@ for exact in (False, True):
     assert len(plans) == 2
 vol = stream.pic_series_3d(2, 8, 8, 8, seed=0)
 assert len(planner.plan_stream(vol, P=0, m=8, device="cpu")) == 6
+import torch
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.models import layers
+q = torch.randn(1, 9, 2, 8)
+pos = torch.arange(9)[None]
+assert torch.allclose(flash_ops.attention(q, q, q), layers.chunked_attention(
+    q, q, q, pos, pos, causal=True, window=0, softcap=0.0, scale=8 ** -0.5,
+    q_chunk=4, kv_chunk=4), atol=1e-5)
 leaked = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "repro"))]
 assert not leaked, leaked
@@ -58,7 +67,7 @@ def test_port_imports_and_plans_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", _ISOLATED], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 15
+    assert int(r.stdout.split()[-1]) >= 31
 
 
 def _entry_points():
@@ -97,10 +106,47 @@ def test_entry_points_raise_without_cuda(i, monkeypatch):
                                      t((2, 3), torch.int32), 2),
     lambda t: rl_ops.jagged_loads(t((5, 5), torch.float32),
                                   t((3,), torch.int32), t((2, 3), torch.int32)),
+    lambda t: flash_ops.attention(t((1, 6, 2, 16), torch.bfloat16),
+                                  t((1, 9, 2, 16), torch.bfloat16),
+                                  t((1, 9, 2, 16), torch.bfloat16)),
 ])
 def test_wrappers_take_only_cpu_or_cuda(call):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         call(lambda shape, dt: torch.zeros(shape, dtype=dt, device="meta"))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("q,k,v,error,match", [
+    ((4, 8, 257), (4, 8, 257), (4, 8, 257), ValueError, "head dim 257"),
+    ((4, 8, 16), (4, 8, 16), (4, 8, 16, torch.bfloat16), TypeError,
+     "float32 or all bfloat16"),
+    ((4, 8, 16, torch.float16), (4, 8, 16, torch.float16),
+     (4, 8, 16, torch.float16), TypeError, "float32 or all bfloat16"),
+    ((4, 8, 16), (4, 9, 16), (4, 8, 16), ValueError, "their length"),
+    ((4, 8, 16), (4, 8, 32), (4, 8, 32), ValueError, "share BH and d"),
+])
+def test_flash_wrapper_rejects(device, q, k, v, error, match):
+    """The flash wrapper refuses what the kernel does not take, on every
+    device: d above 256, mixed dtypes, float16, k and v of other lengths,
+    another head dim."""
+    def t(spec):
+        dt = spec[3] if len(spec) == 4 else torch.float32
+        return torch.zeros(spec[:3], dtype=dt, device=device)
+
+    with pytest.raises(error, match=match):
+        flash_ops.flash_attention(t(q), t(k), t(v))
+
+
+def test_flash_wrapper_needs_contiguous_tensors():
+    q = torch.zeros(4, 16, 8).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q, q, q)
+
+
+def test_no_fallback_sources_cover_the_port():
+    names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
+    assert {"kernels/flash/ops.py", "kernels/flash/ref.py",
+            "models/layers.py", "kernels/_build.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
