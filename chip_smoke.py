@@ -24,10 +24,16 @@ bf16 — Gemma-2-9B's local (window 4096) and global layers (16 heads, its
 and Qwen3-0.6B's (16 heads from 8 KV heads, head dim 128) — with its own
 launch counts, each output held against the plain version on the card
 (rtol = atol = 2e-2, as ``tests/test_flash.py``, and a relative L2 error
-of at most 1e-2), plus one float32 check at Qwen3 width and S=2048
-(2e-5).  The Gemma-2 queries are drawn large enough that the softcap
-changes the logits; ``flex_attention`` (compiled) is timed there as the
-library yardstick, and SDPA at Qwen3.
+of at most 1e-2), every shape through the Hopper kernel (launch key
+``flash``, none through ``flash_mma``).  Then the general bf16 route with
+its own launch counts: the same inputs, folded to ``(BH, S, d)`` and
+copied one element past a 16-byte boundary, which TMA cannot describe,
+through ``kernels.flash.ops.flash_attention`` (every shape through
+``flash_mma``, none through ``flash``), held to the same limits.  Last one
+float32 check at Qwen3 width and S=2048 (2e-5).  The Gemma-2 queries are drawn large enough that
+the softcap changes the logits; ``flex_attention`` (compiled) is timed
+there as the library yardstick, SDPA at Qwen3 and SDPA on float32 beside
+the float32 check.
 
 Dtype contract checked here: int32 results are bit-identical between the
 kernels and the plain versions, and to the CPU path; so are float32
@@ -373,12 +379,22 @@ def causal_pairs(S: int, window: int) -> int:
     return int((np.minimum(kept, window) if window > 0 else kept).sum())
 
 
-def run_flash(cuda: torch.device) -> dict:
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose base lies one element past the
+    start of its buffer, so not on a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
+def run_flash(cuda: torch.device) -> list:
     """K5 at full model width: ``ops.attention`` on the three shapes with
-    its own launch counts, each output against the plain version on the
-    card, one float32 check, and times.  Returns K5's entry of the kernels'
-    record (its top-level numbers at the Qwen3 shape, the one with a
-    library yardstick; every shape's numbers under ``shapes``)."""
+    its own launch counts (the Hopper kernel), then the same inputs at
+    unaligned bases through ``ops.flash_attention`` with their own launch
+    counts (the general kernel), each output against the plain version on
+    the card, one float32 check, and times.  Returns K5's two entries of
+    the kernels' record, ``flash`` and ``flash_mma`` (top-level numbers at
+    the Qwen3 shape, the one with SDPA as its yardstick; every shape's
+    numbers under ``shapes``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
@@ -419,17 +435,51 @@ def run_flash(cuda: torch.device) -> dict:
         f"{time.perf_counter() - t0:.2f} s (host clock, first calls)")
     launches = dict(_build.launches)
     log("flash", f"kernel launches on the attention path: {launches}")
-    check(launches.get("flash", 0) >= 1, "kernel flash never ran on the "
-          "attention path")
+    check(launches.get("flash", 0) >= len(FLASH_SHAPES)
+          and launches.get("flash_mma", 0) == 0,
+          "the attention path did not take the Hopper kernel (flash) at "
+          "every shape, or took the general one (flash_mma)")
 
     def fold(x):
         return x.transpose(1, 2).reshape(-1, S_FLASH,
                                          x.shape[-1]).contiguous()
 
+    # -- 14. the general bf16 route at full width -------------------------
+    # The same inputs, folded, at bases TMA cannot describe: the C entry
+    # point gives every shape to the general mma.sync kernel.
+    general = {name: tuple(unaligned(fold(x)) for x in inputs[name])
+               for name, *_ in FLASH_SHAPES}
+    check(all(x.data_ptr() % 16 != 0 for g in general.values() for x in g),
+          "flash: the unaligned copies lie on 16-byte boundaries")
+    _build.launches.clear()
+    gouts = {}
+    for name, _, _, _, _, window, softcap in FLASH_SHAPES:
+        gouts[name] = flash_ops.flash_attention(
+            *general[name], causal=True, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    glaunches = dict(_build.launches)
+    log("flash", f"kernel launches on the general route (unaligned "
+        f"bases): {glaunches}")
+    check(glaunches.get("flash_mma", 0) == len(FLASH_SHAPES)
+          and glaunches.get("flash", 0) == 0,
+          "the unaligned inputs did not take the general kernel "
+          "(flash_mma) at every shape, or took the Hopper one (flash)")
+
     def rel_l2(got, want):
         return float((got - want).norm() / want.norm())
 
-    rows, err = [], 0.0
+    def held_to_plain(name, route, got, want):
+        """max |got - want| and relative L2, both checked."""
+        e = float((got - want).abs().max())
+        rel = rel_l2(got, want)
+        check(torch.allclose(got, want, rtol=2e-2, atol=2e-2),
+              f"flash {name} ({route}): kernel is {e:.3g} off the plain "
+              f"version (limit rtol = atol = 2e-2)")
+        check(rel <= FLASH_REL_L2, f"flash {name} ({route}): kernel's "
+              f"relative L2 error {rel:.3g} (limit {FLASH_REL_L2})")
+        return e, rel
+
+    rows, grows, err, gerr = [], [], 0.0, 0.0
     for name, src, H, Hkv, d, window, softcap in FLASH_SHAPES:
         q, k, v = inputs[name]
         out = outs[name]
@@ -441,13 +491,13 @@ def run_flash(cuda: torch.device) -> dict:
         kw = dict(causal=True, window=window, softcap=softcap)
         want = flash_ref.attention_ref(qf, kf, vf, **kw).float()
         got = fold(out).float()
-        e = float((got - want).abs().max())
-        rel = rel_l2(got, want)
-        check(torch.allclose(got, want, rtol=2e-2, atol=2e-2),
-              f"flash {name}: kernel is {e:.3g} off the plain version "
-              f"(limit rtol = atol = 2e-2)")
-        check(rel <= FLASH_REL_L2, f"flash {name}: kernel's relative L2 "
-              f"error {rel:.3g} (limit {FLASH_REL_L2})")
+        e, rel = held_to_plain(name, "flash", got, want)
+        gout = gouts[name]
+        check(gout.shape == qf.shape and gout.dtype == torch.bfloat16
+              and bool(torch.isfinite(gout).all()),
+              f"flash {name} (flash_mma): output is not finite bf16 of "
+              f"shape {tuple(qf.shape)}")
+        ge, grel = held_to_plain(name, "flash_mma", gout.float(), want)
         held = (f"max |kernel - plain| {e:.3g} (held at rtol = atol = "
                 f"2e-2), relative L2 {rel:.3g} (limit {FLASH_REL_L2}; "
                 f"|plain| median {float(want.abs().median()):.3g}, max "
@@ -464,7 +514,7 @@ def run_flash(cuda: torch.device) -> dict:
                   f"the softcap")
             held += (f"; the plain version without the softcap is "
                      f"{rel_nocap:.3g} off (relative L2)")
-        err = max(err, e)
+        err, gerr = max(err, e), max(gerr, ge)
         pairs = causal_pairs(S_FLASH, window)
         nbytes = 4 * qf.numel() * qf.element_size()   # q, k, v in; out
         b_ms, b_by = bound(nbytes, 4 * qf.shape[0] * d * pairs,
@@ -495,15 +545,21 @@ def run_flash(cuda: torch.device) -> dict:
         lib = (f"library_ms {row['library_ms']:.4f} ({lib_name}; a "
                f"yardstick only: relative L2 {lib_rel:.3g} off the plain "
                f"version, max |library - kernel| {lib_err:.3g})")
+        grow = dict(row, max_abs_err=ge, rel_l2_err=grel,
+                    ms=device_ms(lambda: flash_ops.flash_attention(
+                        *general[name], **kw)))
         log("flash", f"{name} ({src}): q (1, {S_FLASH}, {H}, {d}) bf16, "
             f"{Hkv} KV heads repeated to {H}, causal, window {window}, "
             f"softcap {softcap}: {held}; "
             f"ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, bound_ms "
             f"{b_ms:.4f} ({b_by}; {pairs * H} unmasked pairs, {nbytes} "
-            f"bytes); {lib}")
+            f"bytes); {lib}; general route (flash_mma, unaligned copies): "
+            f"max |kernel - plain| {ge:.3g}, relative L2 {grel:.3g}, ms "
+            f"{grow['ms']:.4f}")
         rows.append(row)
+        grows.append(grow)
         del qf, kf, vf, lib_fn
-    del inputs, outs
+    del inputs, outs, general, gouts
     torch.cuda.empty_cache()
     by = {r["shape"]: r for r in rows}
     ratio = by["gemma2-9b local"]["ms"] / by["gemma2-9b global"]["ms"]
@@ -512,7 +568,8 @@ def run_flash(cuda: torch.device) -> dict:
         f"{pair_ratio:.3f}): the key-tile skip under the window")
 
     # float32: Qwen3 width at S=2048, CUDA-core FMA, against the plain
-    # version in full float32
+    # version in full float32; SDPA on float32 as its yardstick, held to
+    # the same relative L2
     S32 = 2048
     q, k, v = (normal((16, S32, 128), torch.float32) for _ in range(3))
     got = flash_ops.flash_attention(q, k, v, causal=True)
@@ -523,23 +580,45 @@ def run_flash(cuda: torch.device) -> dict:
           f"2e-5)")
     check(rel32 <= 1e-5, f"flash float32: kernel's relative L2 error "
           f"{rel32:.3g} (limit 1e-5)")
-    ms32 = device_ms(lambda: flash_ops.flash_attention(q, k, v,
-                                                        causal=True))
-    b32, _ = bound(4 * q.numel() * 4, 4 * 16 * 128 * causal_pairs(S32, 0))
+    b32, b32_by = bound(4 * q.numel() * 4,
+                        4 * 16 * 128 * causal_pairs(S32, 0))
+
+    def sdpa32(q4=q[None], k4=k[None], v4=v[None]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)[0]
+    lib_rel32 = rel_l2(sdpa32(), want)
+    lib32 = device_ms(sdpa32) if lib_rel32 <= 1e-5 else None
+    row32 = {"shape": "qwen3-0.6b float32", "B": 1, "S": S32, "H": 16,
+             "d": 128, "window": 0, "softcap": 0.0, "max_abs_err": e32,
+             "rel_l2_err": rel32,
+             "ms": device_ms(lambda: flash_ops.flash_attention(
+                 q, k, v, causal=True)),
+             "plain_ms": device_ms(lambda: flash_ref.attention_ref(
+                 q, k, v, causal=True), reps=5),
+             "bound_ms": b32, "bound_by": b32_by, "library_ms": lib32}
+    rows.append(row32)
     log("flash", f"float32 (16, {S32}, 128) causal: max |kernel - plain| "
         f"{e32:.3g} (held at rtol = atol = 2e-5), relative L2 {rel32:.3g} "
-        f"(limit 1e-5); ms {ms32:.4f}, bound_ms "
-        f"{b32:.4f} (float32 CUDA cores)")
+        f"(limit 1e-5); ms {row32['ms']:.4f}, plain_ms "
+        f"{row32['plain_ms']:.4f}, bound_ms {b32:.4f} (float32 CUDA "
+        f"cores); library_ms {lib32} (SDPA on float32, relative L2 "
+        f"{lib_rel32:.3g} off the plain version"
+        + ("" if lib32 is not None else ": above 1e-5, so not timed as "
+           "this function") + ")")
     del q, k, v, got, want
-    top = by["qwen3-0.6b"]
-    return {
-        "name": "flash", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash/flash.cu",
-        "replaces": "src/repro/kernels/flash/flash.py:94",
-        "launches": launches.get("flash", 0), "max_abs_err": err,
-        "ms": top["ms"], "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-        "library_ms": top["library_ms"], "shapes": rows}
+
+    def entry(name, n, e, shape_rows):
+        top = next(r for r in shape_rows if r["shape"] == "qwen3-0.6b")
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash/flash.cu",
+            "replaces": "src/repro/kernels/flash/flash.py:94",
+            "launches": n, "max_abs_err": e,
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "shapes": shape_rows}
+    return [entry("flash", launches.get("flash", 0), err, rows),
+            entry("flash_mma", glaunches.get("flash_mma", 0), gerr, grows)]
 
 
 def main() -> int:
@@ -868,7 +947,7 @@ def main() -> int:
         f"touched; max_abs_err for sat is the largest over every "
         f"comparison above (float32 PIC frames lie above 2**24)")
     kernels.append(run_3d(cuda))
-    kernels.append(run_flash(cuda))
+    kernels.extend(run_flash(cuda))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -3,7 +3,9 @@
 The ``.cu`` sources beside each kernel's ``ops.py`` export plain C entry
 points (no PyTorch headers, so ``nvcc`` takes seconds, not minutes).  At
 the first launch :func:`library` compiles all of them in one
-``torch.utils.cpp_extension.load`` call (``-arch=sm_90a``; ninja builds
+``torch.utils.cpp_extension.load`` call (``-gencode=arch=compute_90a,
+code=sm_90a``: sm_90a code only, since ``-arch=sm_90a`` also emits
+compute_90 PTX, where ``wgmma`` and ``setmaxnreg`` do not exist; ninja builds
 the sources in parallel) into ``build/repro_torch_kernels/`` at the root
 of the checkout, then binds the shared library with ``ctypes``.  Nothing
 is built when a module is imported: the CPU tests import every module and
@@ -32,7 +34,8 @@ SOURCES = {"sat": _HERE / "sat" / "sat.cu",
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 
 #: Kernel launches by kernel name (``sat``, ``probe``, ``rectload``,
-#: ``sat3``, ``flash``).
+#: ``sat3``; K5 by route: ``flash`` for the Hopper bf16 kernel,
+#: ``flash_mma`` for the general bf16 kernel, ``flash_fma`` for float32).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -66,7 +69,8 @@ def library() -> ctypes.CDLL:
         path = load(name="repro_torch_kernels",
                     sources=[str(s) for s in SOURCES.values()],
                     build_directory=str(BUILD_DIR),
-                    extra_cuda_cflags=["-O3", "-arch=sm_90a"],
+                    extra_cuda_cflags=["-O3",
+                                       "-gencode=arch=compute_90a,code=sm_90a"],
                     is_python_module=False, verbose=False)
         lib = ctypes.CDLL(path)
         for fn, argtypes in _SIGNATURES.items():
@@ -76,24 +80,28 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, fn: str, *args) -> None:
+def launch(kernel: str | tuple[str, ...], fn: str, *args) -> None:
     """Call C entry point ``fn`` of ``kernel`` on the current stream.
 
     Tensors are passed by data pointer, Python floats as C floats and
-    everything else as C ints; the stream is appended.  Raises
-    ``RuntimeError`` when the launch is refused (the C side returns
-    ``cudaGetLastError()`` right after its launches).
+    everything else as C ints; the stream is appended.  An entry point
+    that chooses among several kernels is given their names as a tuple
+    and returns ``-i`` after launching the ``i``-th (0 for the first);
+    the launch is counted under that name.  Raises ``RuntimeError`` when
+    the launch is refused (the C side returns ``cudaGetLastError()``, a
+    positive code, right after its launches).
     """
+    names = (kernel,) if isinstance(kernel, str) else kernel
     lib = library()
     conv = [a.data_ptr() if isinstance(a, torch.Tensor)
             else ctypes.c_float(a) if isinstance(a, float) else int(a)
             for a in args]
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, fn)(*conv, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} kernel ({fn}) failed to launch: "
-                           f"CUDA error {err}")
-    launches[kernel] += 1
+    ret = getattr(lib, fn)(*conv, stream)
+    if ret > 0 or -ret >= len(names):
+        raise RuntimeError(f"{names[0]} kernel ({fn}) failed to launch: "
+                           f"CUDA error {ret}")
+    launches[names[-ret]] += 1
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

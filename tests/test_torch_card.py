@@ -154,18 +154,29 @@ def test_sgorp_host_entries_on_card_match_cpu(speeds):
         sgorp.sgorp_2d(g2, 8, speeds=speeds, device="cpu").rects
 
 
-def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0):
+#: launch keys of K5's kernels by dtype (which one takes a bf16 call is
+#: the C entry point's choice)
+FLASH_KEYS = {"float32": ("flash_fma",), "bfloat16": ("flash", "flash_mma")}
+
+
+def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0,
+                q_scale=1.0, key=None):
     """K5 through ``attention`` on the card against the plain version on
-    the same (folded) inputs."""
+    the same (folded) inputs; one launch is counted, under ``key`` where
+    the case names the route it must take."""
     dev = need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     assert torch.get_float32_matmul_precision() == "highest"
+    q, k, v = qkv(B, Sq, Skv, H, d, seed)
     q, k, v = (torch.from_numpy(x).to(dev, FLASH_DTYPES[dtype])
-               for x in qkv(B, Sq, Skv, H, d, seed))
-    n = _build.launches["flash"]
+               for x in (q * np.float32(q_scale), k, v))
+    before = {n: _build.launches[n] for n in FLASH_KEYS[dtype]}
     got = flash_ops.attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
-    assert _build.launches["flash"] == n + 1
+    added = {n: _build.launches[n] - c for n, c in before.items()}
+    assert sum(added.values()) == 1
+    if key is not None:
+        assert added[key] == 1
     torch.cuda.synchronize()
 
     def fold(x):
@@ -200,6 +211,82 @@ def test_flash_kernel_head_dims(d, dtype, mode):
 def test_flash_kernel_many_heads(dtype):
     """B * H = 66,000 > 65,535: the flattened grid takes it."""
     _flash_case(2, 16, 16, 33000, 32, True, 0, 0.0, dtype)
+
+
+# the Hopper kernel's tiles: 128 query rows, 128 keys at d <= 128 and 64
+# keys at d = 256
+EDGE_LENGTHS = [(1, 1, True), (127, 127, True), (129, 129, True),
+                (257, 257, True), (1000, 1000, True), (1, 1000, False),
+                (127, 257, False), (1000, 129, True), (257, 1, False)]
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", EDGE_LENGTHS)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_hopper_tile_edges(Sq, Skv, causal, d):
+    """Ragged query and key lengths on both sides of a tile edge."""
+    _flash_case(1, Sq, Skv, 2, d, causal, 0, 0.0, "bfloat16", seed=Sq + Skv,
+                key="flash")
+
+
+@pytest.mark.parametrize("window", [64, 100, 128])   # on / inside a tile
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_hopper_window_edges(window, d):
+    _flash_case(1, 512, 512, 2, d, True, window, 0.0, "bfloat16", seed=window,
+                key="flash")
+
+
+@pytest.mark.parametrize("window", [0, 256])
+def test_flash_hopper_gemma2_softcap(window):
+    """d=256 global and local layers at S=1024 with Gemma-2's softcap 50,
+    q drawn 8x larger so the softcap changes the logits."""
+    _flash_case(1, 1024, 1024, 2, 256, True, window, 50.0, "bfloat16",
+                q_scale=8.0, key="flash")
+
+
+# 72: TMA can describe it, not a compiled width; 70: d % 8 != 0
+@pytest.mark.parametrize("d,key", [(72, "flash"), (70, "flash_mma")])
+def test_flash_widths_route_by_shape(d, key):
+    _flash_case(1, 200, 300, 2, d, True, 48, 50.0, "bfloat16", seed=d,
+                key=key)
+    _flash_case(1, 70, 197, 2, d, False, 0, 0.0, "bfloat16", seed=d, key=key)
+
+
+def test_flash_unaligned_base_takes_the_general_kernel():
+    """A base that is not 16-byte aligned is out of TMA's reach: the
+    general kernel takes it, counted as ``flash_mma``."""
+    dev = need_card()
+    q, k, v = (x[0].transpose(1, 0, 2) for x in qkv(1, 96, 96, 2, 64))
+    buf = [torch.zeros(x.size + 1, dtype=torch.bfloat16, device=dev)
+           for x in (q, k, v)]
+    q, k, v = (b[1:].view(x.shape).copy_(torch.from_numpy(
+        np.ascontiguousarray(x))) for b, x in zip(buf, (q, k, v)))
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    n = _build.launches["flash_mma"]
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    assert _build.launches["flash_mma"] == n + 1
+    want = flash_ref.attention_ref(q, k, v, causal=True)
+    tol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_hopper_negative_scale(causal):
+    """An explicit negative scale, with logits spread over hundreds (q
+    drawn 4x larger): the Hopper kernel's interior tiles may take the max
+    of the raw dots only for a positive scale, or p overflows."""
+    dev = need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = qkv(1, 512, 512, 2, 128, 3)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(
+        x[0].transpose(1, 0, 2))).to(dev, torch.bfloat16)
+        for x in (q * np.float32(4.0), k, v))
+    n = _build.launches["flash"]
+    got = flash_ops.flash_attention(q, k, v, causal=causal, scale=-1.0)
+    assert _build.launches["flash"] == n + 1
+    want = flash_ref.attention_ref(q, k, v, causal=causal, scale=-1.0)
+    assert bool(torch.isfinite(got).all())
+    tol = FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("window", [0, 8])

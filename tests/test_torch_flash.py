@@ -180,3 +180,59 @@ def test_launch_passes_floats_as_c_float(monkeypatch):
     (args,) = seen
     assert args[4:10] == (2, 3, 5, 7, 1, 4)
     assert args[10] == 50.0 and args[11] == 0.0625
+
+
+@pytest.mark.parametrize("dtype,ret,key", [
+    (torch.bfloat16, 0, "flash"), (torch.bfloat16, -1, "flash_mma"),
+    (torch.float32, 0, "flash_fma"), (torch.bfloat16, 700, None),
+    (torch.bfloat16, -2, None), (torch.float32, -1, None)])
+def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
+                                                         ret, key):
+    """The wrapper counts a CUDA launch under the key of the kernel the C
+    entry point reports: the bf16 entry point returns 0 after the Hopper
+    kernel and -1 after the general one, float32 has one kernel.  A CUDA
+    error (positive) or a code no kernel has raises and counts nothing.
+    The library here is ctypes callbacks with the real signatures;
+    ``on_cpu`` is told the tensors lie on the card."""
+    calls = {}
+
+    def entry(name):
+        def fn(*a):
+            calls[name] = a
+            return ret
+        return ctypes.CFUNCTYPE(ctypes.c_int, *_build._SIGNATURES[name])(fn)
+
+    class Lib:
+        pass
+
+    lib = Lib()
+    for name in ("repro_flash_attn_bf16", "repro_flash_attn_f32"):
+        setattr(lib, name, entry(name))
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "on_cpu", lambda name, t: False)
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    q = torch.zeros(3, 5, 24, dtype=dtype)
+    k = torch.zeros(3, 7, 24, dtype=dtype)
+    before = dict(_build.launches)
+
+    def run():
+        flash_ops.flash_attention(q, k, k, causal=False, window=4,
+                                  softcap=30.0)
+    if key is None:
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            run()
+    else:
+        run()
+    changed = {n: c - before.get(n, 0) for n, c in _build.launches.items()
+               if c != before.get(n, 0)}
+    assert changed == ({} if key is None else {key: 1})
+    fn = "repro_flash_attn_bf16" if dtype == torch.bfloat16 \
+        else "repro_flash_attn_f32"
+    assert list(calls) == [fn]
+    assert calls[fn][0] == q.data_ptr()
+    assert calls[fn][4:11] == (3, 5, 7, 24, 0, 4, 30.0)
+    assert calls[fn][11] == pytest.approx(24 ** -0.5, rel=1e-7)
