@@ -11,11 +11,14 @@ paper's PIC series); hold every kernel against its plain PyTorch version
 on the card; drive the 2D main path (``planner.plan_stream``, heuristic
 and ``exact=True``, then plan pricing and executed migration) with the
 kernels' launch counts set to zero just before it and read just after;
-time the path and the kernels.  Then the same for the 3D path: T=16
-volumes of 128^3 (the 3D PIC series and AMR refinement), kernel K4
-against its plain version, ``planner.plan_stream`` on rank-4 frames at
-m=1024 (a 16 x 8 x 8 processor grid) with its own launch counts, its
-checks and times.  The last two lines before the final one are the
+time the path and the kernels (K1 also at ``plan_iter``'s 16-frame
+slices).  Then the same for the 3D path: T=16 volumes of 128^3 (the 3D PIC
+series and AMR refinement), kernel K4 against its plain version,
+``planner.plan_stream`` on rank-4 frames at m=1024 (a 16 x 8 x 8 processor
+grid) with its own launch counts (every launch through K4's ``sat3``
+route, none through ``sat3_general``), its checks and times (K4 also at
+B=1); then K4's general route on purpose, planes too wide for one block,
+with its own launch counts, held against the plain version.  The last two lines before the final one are the
 kernels' JSON record and the card's name and power limit; the final
 line is ``{"ok": true, "device": {...}}``.  Last, flash attention (K5):
 ``kernels.flash.ops.attention`` at full model width, B=1 and S=8192 in
@@ -113,10 +116,39 @@ def bound(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def run_3d(cuda: torch.device) -> dict:
+def by_kernel(fn, reps: int = 10) -> str:
+    """Device time per launch of each CUDA kernel that ``fn`` launches
+    (torch.profiler over ``reps`` calls; the profiler may miss the first
+    launches of its window, so each time is over its own count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return "; ".join(
+        f"{e.key.replace('void ', '').replace('(anonymous namespace)::', '')}"
+        .split("(")[0] + f" {e.self_device_time_total / e.count / 1e3:.4f} "
+        f"ms ({e.count} of {reps} launches seen)" for e in ev)
+
+
+def copy_rate(a: torch.Tensor) -> str:
+    """The card's practical rate for the same bytes: one device copy of
+    ``a`` (its bytes read once and written once)."""
+    b = torch.empty_like(a)
+    ms = device_ms(lambda: b.copy_(a))
+    return (f"a device copy of the input ({2 * a.numel() * 4} bytes) "
+            f"{ms:.4f} ms, {2 * a.numel() * 4 / ms / 1e9:.2f} TB/s")
+
+
+def run_3d(cuda: torch.device) -> list:
     """The 3D path: K4 against its plain version, the main path through
     ``planner.plan_stream`` on rank-4 frames with its own launch counts,
-    its checks and times.  Returns K4's entry of the kernels' record."""
+    its checks and times, then K4's general route on purpose.  Returns K4's
+    two entries of the kernels' record (``sat3``, ``sat3_general``)."""
     from repro_torch.core import prefix, sgorp, threed
     from repro_torch.kernels import _build
     from repro_torch.kernels.sat import ops as sat_ops
@@ -186,6 +218,8 @@ def run_3d(cuda: torch.device) -> dict:
     log("main3", f"kernel launches on the 3D path: {launches}")
     check(launches.get("sat3", 0) >= 1, "kernel sat3 never ran on the 3D "
           "path")
+    check(launches.get("sat3_general", 0) == 0, "the 3D path took K4's "
+          "general route (sat3_general)")
 
     for name, fr in vols.items():
         c1, c2, c3, L, it, pr = out3[name]
@@ -318,7 +352,7 @@ def run_3d(cuda: torch.device) -> dict:
     b_ms, b_by = bound(nbytes, 3 * a.numel())
     log("kernels", f"sat3: shape {tuple(a.shape)} float32, {nbytes} bytes "
         f"in and out; library_ms is torch.cumsum three times")
-    return {
+    k4 = {
         "name": "sat3", "route": "cuda",
         "source": "src/repro_torch/kernels/sat/sat3d.cu",
         "replaces": "src/repro/kernels/sat/sat3d.py:83",
@@ -328,6 +362,76 @@ def run_3d(cuda: torch.device) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
             torch.cumsum(a, dim=-3), dim=-2), dim=-1))}
+    a1 = a[:1].contiguous()
+    nb1 = a1.numel() * 4 + (N3 + 1) ** 3 * 4
+    log("sat3", f"K4 at B=1, shape {tuple(a1.shape)} float32: "
+        f"{device_ms(lambda: sat_ops.gamma3(a1)):.4f} ms against a bound of "
+        f"{bound(nb1, 3 * a1.numel())[0]:.4f} ms ({nb1} bytes in and out); "
+        f"at B={T3}: {k4['ms']:.4f} ms against {b_ms:.4f} ms")
+    log("sat3", f"K4 at {tuple(a.shape)} float32 by kernel: "
+        f"{by_kernel(lambda: sat_ops.gamma3(a))}; {copy_rate(a)}")
+    del a, a1
+    return [k4, run_sat3_general(cuda)]
+
+
+SHAPE_G = (2, 128, 128, 300)   # n3 > 256: planes too wide for one block
+
+
+def run_sat3_general(cuda: torch.device) -> dict:
+    """K4's general route on purpose: a stack whose planes no block of the
+    fast route holds, with its own launch counts, against the plain version
+    (int32 and float32 below 2**24 bit for bit, float32 above it within
+    1e-6 of the frame total).  Returns its entry of the kernels' record."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sat import ops as sat_ops
+    from repro_torch.kernels.sat import ref as sat_ref
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    check(sat_ops.sat3_plan(*SHAPE_G, sms)[0] == "sat3_general",
+          f"{SHAPE_G} should take K4's general route")
+    rng = np.random.default_rng(SEED + 1)
+    small = torch.as_tensor(rng.integers(0, 3, SHAPE_G), device=cuda)
+    check(int(small.reshape(SHAPE_G[0], -1).sum(1).max()) < F32_EXACT,
+          "sat3_general's small loads must keep frame totals below 2**24")
+    large = torch.as_tensor(rng.integers(0, 4000, SHAPE_G), device=cuda)
+    _build.launches.clear()
+    for dt in (torch.int32, torch.float32):
+        a = small.to(dt)
+        check(torch.equal(sat_ops.gamma3(a), sat_ref.gamma3_ref(a)),
+              f"sat3_general {SHAPE_G} {dt}: kernel differs from the plain "
+              f"version")
+    exact = torch.cumsum(torch.cumsum(torch.cumsum(large, -3), -2), -1)
+    total = exact[:, -1, -1, -1].double()
+    af = large.to(torch.float32)
+    gk = sat_ops.gamma3(af)
+    err = float((gk[:, 1:, 1:, 1:].double() - sat_ref.sat3_ref(af).double())
+                .abs().max())
+    rk = float(((gk[:, 1:, 1:, 1:].double() - exact.double()).abs()
+                / total[:, None, None, None]).max())
+    check(rk <= 1e-6, f"sat3_general float32: kernel is {rk:.3g} x the "
+          f"frame total off the exact prefix (limit 1e-6)")
+    glaunches = dict(_build.launches)
+    check(glaunches.get("sat3_general", 0) == 3
+          and glaunches.get("sat3", 0) == 0,
+          f"K4's general step launched {glaunches}, not 3 sat3_general")
+    nbytes = af.numel() * 4 + SHAPE_G[0] * math.prod(
+        n + 1 for n in SHAPE_G[1:]) * 4
+    b_ms, b_by = bound(nbytes, 3 * af.numel())
+    log("sat3", f"general route (sat3_general) on purpose at {SHAPE_G}: "
+        f"int32 and float32 below 2**24 bit-identical to the plain version; "
+        f"float32 with frame totals up to {float(total.max()):.3e}: "
+        f"{rk:.3g} x the frame total off the exact int64 prefix (limit "
+        f"1e-6); launches {glaunches} (none on the 3D path)")
+    return {
+        "name": "sat3_general", "route": "cuda",
+        "source": "src/repro_torch/kernels/sat/sat3d.cu",
+        "replaces": "src/repro/kernels/sat/sat3d.py:83",
+        "launches": glaunches.get("sat3_general", 0), "max_abs_err": err,
+        "ms": device_ms(lambda: sat_ops.gamma3(af)),
+        "plain_ms": device_ms(lambda: sat_ref.gamma3_ref(af)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
+            torch.cumsum(af, dim=-3), dim=-2), dim=-1))}
 
 
 # K5's shapes: (name, source, query heads, KV heads, head dim, window,
@@ -880,6 +984,16 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
             a, dim=-2), dim=-1))})
+    # K1 at plan_iter's slices: (T // 4, 512, 512) float32
+    a16 = a[:T // 4].contiguous()
+    nb16 = a16.numel() * 4 + (T // 4) * (N1 + 1) * (N2 + 1) * 4
+    log("sat", f"K1 at plan_iter's slice shape {tuple(a16.shape)} float32: "
+        f"{device_ms(lambda: sat_ops.gamma(a16)):.4f} ms against a bound of "
+        f"{bound(nb16, 2 * a16.numel())[0]:.4f} ms ({nb16} bytes in and "
+        f"out); at ({T}, {N1}, {N2}): {kernels[-1]['ms']:.4f} ms against "
+        f"{b_ms:.4f} ms")
+    log("sat", f"K1 at {tuple(a.shape)} float32 by kernel: "
+        f"{by_kernel(lambda: sat_ops.gamma(a))}; {copy_rate(a)}")
     # K2 at the exact path's first column round: (T*P, 513) int32 stripe
     # rows, 8 interior candidates each, cap = Q
     g = torch.as_tensor(np.stack(host_gamma["refinement-bursts"]),
@@ -946,7 +1060,7 @@ def main() -> int:
         f"({N1 + 1}, {N2 + 1}) float32 Gamma, {touched} distinct entries "
         f"touched; max_abs_err for sat is the largest over every "
         f"comparison above (float32 PIC frames lie above 2**24)")
-    kernels.append(run_3d(cuda))
+    kernels.extend(run_3d(cuda))
     kernels.extend(run_flash(cuda))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

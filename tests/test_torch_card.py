@@ -10,7 +10,9 @@ Tolerance: none for K1-K4.  int32 inputs, and float32 inputs whose sums
 stay below 2**24, give bit-identical results; the probe and rectload
 kernels are bit-identical for any input.  The SAT kernels (K1, K4) sum
 float32 in another order than ``torch.cumsum``, so the float32 cases here
-keep integer loads with frame totals below 2**24.  The flash attention
+keep integer loads with frame totals below 2**24, except
+``test_sat_float32_above_2_24``, held to 1e-6 of the frame total against
+the exact int64 prefix (``chip_smoke.py``'s limit).  The flash attention
 kernel (K5) sums in tiles with an online softmax, the plain version
 densely: ``tests/test_flash.py``'s tolerances, 2e-5 for float32 and 2e-2
 for bfloat16, compared in float32, with the plain version's float32
@@ -122,6 +124,111 @@ def test_sat3_kernel_matches_plain(shape, high, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got, sat_ref.gamma3_ref(a))
     assert torch.equal(sat_ops.sat3(a), got[..., 1:, 1:, 1:])
+
+
+def _sat_case(fn, key, shape, high, dtype, seed=0):
+    """``fn`` on the card counts one launch under ``key`` (and none under
+    the other SAT keys) and equals the plain version bit for bit."""
+    dev = need_card()
+    a = torch.from_numpy(_small_int_loads(shape, high, seed)).to(
+        DTYPES[dtype]).to(dev)
+    before = {k: _build.launches[k] for k in SAT_KEYS}
+    got = fn(a)
+    added = {k: _build.launches[k] - n for k, n in before.items()}
+    assert added == {k: int(k == key) for k in SAT_KEYS}
+    torch.cuda.synchronize()
+    want = (sat_ref.gamma_ref if fn is sat_ops.gamma
+            else sat_ref.gamma3_ref)(a)
+    assert torch.equal(got, want)
+
+
+SAT_KEYS = ("sat", "sat3", "sat3_general")
+
+
+# band and tile edges of K1: rows not a multiple of the band height (64),
+# n1 = 1, n2 = 1, n2 not a multiple of 4, rows past one 128-column chunk,
+# more than 64 bands (the reduce's group), B = 1 and B = 64 at 512 x 512
+@pytest.mark.parametrize("shape", [
+    (3, 130, 200), (5, 1, 1), (2, 1, 700), (2, 700, 1), (2, 65, 131),
+    (2, 300, 1030), (1, 4480, 3), (1, 1000, 37), (1, 512, 512),
+    (64, 512, 512)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sat_kernel_band_edges(shape, dtype):
+    _sat_case(sat_ops.gamma, "sat", shape, 100, dtype)
+
+
+# band and plane edges of K4's fast route: n1 not a multiple of the band
+# (S = 17, and S = 4 with a 1-slab last band), 1 x 1 planes, the largest
+# plane of each class (64 x 256, 512 x 32), B = 1 at the path's 128^3
+@pytest.mark.parametrize("shape", [
+    (16, 130, 17, 19), (1, 301, 5, 7), (3, 33, 1, 1), (2, 3, 64, 256),
+    (1, 5, 512, 32), (2, 9, 100, 70), (1, 128, 128, 128)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sat3_kernel_band_edges(shape, dtype):
+    high = 8 if shape == (1, 128, 128, 128) else 100
+    _sat_case(sat_ops.gamma3, "sat3", shape, high, dtype)
+
+
+# planes that do not fit K4's fast route: n3 > 256, n2 > 512, n2 > 64
+# with n3 > 128; empty slabs and empty planes
+@pytest.mark.parametrize("shape", [
+    (2, 5, 20, 300), (1, 3, 600, 17), (2, 4, 70, 130), (1, 0, 600, 17),
+    (2, 3, 0, 300)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_sat3_general_route_matches_plain(shape, dtype):
+    assert sat_ops.sat3_plan(*shape, 132)[0] == "sat3_general"
+    _sat_case(sat_ops.gamma3, "sat3_general", shape, 100, dtype)
+
+
+def _exact_gamma(a64: torch.Tensor, axes: int) -> torch.Tensor:
+    """Exclusive prefix in int64 over the trailing ``axes`` axes."""
+    s = a64
+    for d in range(-axes, 0):
+        s = torch.cumsum(s, dim=d)
+    pad = [1, 0] * axes
+    return torch.nn.functional.pad(s, pad)
+
+
+# float32 above 2**24 at the main paths' shapes (frame totals about 5e8):
+# within 1e-6 of the frame total of the exact int64 prefix
+@pytest.mark.parametrize("fn,key,shape,high", [
+    ("gamma", "sat", (64, 512, 512), 4000),
+    ("gamma3", "sat3", (16, 128, 128, 128), 400),
+    ("gamma3", "sat3_general", (2, 64, 40, 300), 4000)])
+def test_sat_float32_above_2_24(fn, key, shape, high):
+    dev = need_card()
+    a64 = torch.from_numpy(_small_int_loads(shape, high, seed=3)).to(dev)
+    axes = len(shape) - 1
+    exact = _exact_gamma(a64, axes)
+    total = exact.reshape(shape[0], -1)[:, -1].double()
+    assert float(total.min()) > 2 ** 24
+    n = _build.launches[key]
+    got = getattr(sat_ops, fn)(a64.float())
+    assert _build.launches[key] == n + 1
+    err = ((got.double() - exact.double()).abs().reshape(shape[0], -1)
+           / total[:, None]).max()
+    assert float(err) <= 1e-6
+
+
+# int32 whose partial sums pass 2**31: bit-identical to
+# torch.cumsum(dtype=int32) and to the exact prefix wrapped mod 2**32
+@pytest.mark.parametrize("fn,key,shape,high", [
+    ("gamma", "sat", (4, 512, 512), 2 ** 20),
+    ("gamma3", "sat3", (2, 128, 128, 128), 2 ** 16),
+    ("gamma3", "sat3_general", (2, 16, 40, 300), 2 ** 20)])
+def test_sat_int32_wraps_like_cumsum(fn, key, shape, high):
+    dev = need_card()
+    a64 = torch.from_numpy(_small_int_loads(shape, high, seed=4)).to(dev)
+    exact = _exact_gamma(a64, len(shape) - 1)
+    assert int(exact.max()) > 2 ** 31
+    wrapped = ((exact + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+    a = a64.to(torch.int32)
+    n = _build.launches[key]
+    got = getattr(sat_ops, fn)(a)
+    assert _build.launches[key] == n + 1
+    assert torch.equal(got, wrapped)
+    want = (sat_ref.gamma_ref if fn == "gamma" else sat_ref.gamma3_ref)(a)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("name", sorted(stream.STREAMS_3D))
