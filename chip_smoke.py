@@ -12,15 +12,19 @@ on the card; drive the 2D main path (``planner.plan_stream``, heuristic
 and ``exact=True``, then plan pricing and executed migration) with the
 kernels' launch counts set to zero just before it and read just after;
 time the path and the kernels (K1 also at ``plan_iter``'s 16-frame
-slices).  Then the same for the 3D path: T=16 volumes of 128^3 (the 3D PIC
-series and AMR refinement), kernel K4 against its plain version,
-``planner.plan_stream`` on rank-4 frames at m=1024 (a 16 x 8 x 8 processor
-grid) with its own launch counts (every launch through K4's ``sat3``
-route, none through ``sat3_general``), its checks and times (K4 also at
-B=1); then K4's general route on purpose, planes too wide for one block,
-with its own launch counts, held against the plain version.  The last two lines before the final one are the
-kernels' JSON record and the card's name and power limit; the final
-line is ``{"ok": true, "device": {...}}``.  Last, flash attention (K5):
+slices; the card's launch floor, one one-element ``add_``, beside K2 and
+K3; K2's greedy steps; K3 also on a stream's 64 plans in one launch
+beside its bound; K1, K2 and K3 by kernel).  Then the same for the 3D
+path: T=16 volumes of 128^3 (the 3D PIC series and AMR refinement),
+kernel K4 against its plain version, ``planner.plan_stream`` on rank-4
+frames at m=1024 (a 16 x 8 x 8 processor grid) with its own launch
+counts (every launch through K4's ``sat3`` route, none through
+``sat3_general``), its checks and times (K4 also at B=1); then K4's
+general route on purpose, planes too wide for one block, with its own
+launch counts, held against the plain version.  The last two lines
+before the final one are the kernels' JSON record and the card's name
+and power limit; the final line is ``{"ok": true, "device": {...}}``.
+Last, flash attention (K5):
 ``kernels.flash.ops.attention`` at full model width, B=1 and S=8192 in
 bf16 — Gemma-2-9B's local (window 4096) and global layers (16 heads, its
 8 KV heads through ``models.layers.repeat_kv``, head dim 256, softcap 50)
@@ -142,6 +146,52 @@ def copy_rate(a: torch.Tensor) -> str:
     ms = device_ms(lambda: b.copy_(a))
     return (f"a device copy of the input ({2 * a.numel() * 4} bytes) "
             f"{ms:.4f} ms, {2 * a.numel() * 4 / ms / 1e9:.2f} TB/s")
+
+
+def touched_entries(row_cuts: np.ndarray, col_cuts: np.ndarray) -> int:
+    """Distinct Gamma entries one plan's rectangle loads need: the two row
+    cuts of each stripe at each of its column cuts."""
+    r = row_cuts.astype(np.int64)
+    c = col_cuts.astype(np.int64)
+    return np.unique(np.concatenate([(r[:-1, None] * (N2 + 1) + c).ravel(),
+                                     (r[1:, None] * (N2 + 1) + c).ravel()
+                                     ])).size
+
+
+def run_rectload_stream(cuda: torch.device, plans: list, gammas: list,
+                        floor_ms: float) -> None:
+    """K3 at the shape its frame axis exists for: a stream's T plans of
+    (P + 1) row cuts and (P, m - P + 2) padded column cuts in one launch,
+    on their float32 Gammas, held to the plain version bit for bit and
+    timed beside its bound (counted as the one-plan entry counts it)."""
+    from repro_torch.kernels.rectload import ops as rl_ops
+    from repro_torch.kernels.rectload import ref as rl_ref
+
+    g = torch.from_numpy(np.stack(gammas).astype(np.float32)).to(cuda)
+    rc = torch.as_tensor(np.stack([pl.row_cuts for pl in plans]),
+                         device=cuda).int()
+    cc_np = np.stack([pl._live_col_cuts() for pl in plans])
+    cc = torch.as_tensor(cc_np, device=cuda).int()
+    got = rl_ops.jagged_loads(g, rc, cc)
+    check(torch.equal(got, rl_ref.jagged_loads_ref(g, rc, cc).float()),
+          f"rectload {tuple(cc.shape)}: kernel differs from the plain "
+          f"version")
+    touched = sum(touched_entries(pl.row_cuts, c)
+                  for pl, c in zip(plans, cc_np))
+    n_rect = got.numel()
+    nbytes = touched * 4 + rc.numel() * 4 + cc.numel() * 4 + n_rect * 4
+    b_ms, _ = bound(nbytes, 3 * n_rect)
+    ms = device_ms(lambda: rl_ops.jagged_loads(g, rc, cc))
+    plain_ms = device_ms(lambda: rl_ref.jagged_loads_ref(g, rc, cc).float())
+    log("rectload", f"K3 on a stream's {len(plans)} plans in one launch: "
+        f"Gamma {tuple(g.shape)} float32, cuts {tuple(rc.shape)} / "
+        f"{tuple(cc.shape)}; bit-identical to the "
+        f"plain version; {ms:.4f} ms against a bound of {b_ms:.4f} ms "
+        f"({ms / b_ms:.2f}x; {nbytes} bytes: {touched} distinct Gamma "
+        f"entries, the cuts, {n_rect} loads), "
+        f"{ms - floor_ms:.4f} ms above the launch floor; plain version "
+        f"{plain_ms:.4f} ms; by kernel: "
+        f"{by_kernel(lambda: rl_ops.jagged_loads(g, rc, cc))}")
 
 
 def run_3d(cuda: torch.device) -> list:
@@ -1024,6 +1074,28 @@ def main() -> int:
     log("kernels", "probe: no single PyTorch call computes greedy interval "
         "counts (the plain version is a cap-step loop of gather + "
         "searchsorted), so library_ms is null")
+    # the card's launch floor: the device time of one launch that does
+    # next to nothing (a one-element add), queued as device_ms queues
+    one = torch.zeros(1, device=cuda)
+    floor_ms = device_ms(lambda: one.add_(1))
+    log("kernels", f"launch floor: one one-element add_ takes {floor_ms:.4f} "
+        f"ms (device_ms, queued launches; by kernel: "
+        f"{by_kernel(lambda: one.add_(1))}); probe {kernels[-1]['ms']:.4f} "
+        f"ms is {kernels[-1]['ms'] - floor_ms:.4f} ms above it, its bound "
+        f"{b_ms:.4f} ms")
+    log("probe", f"K2 at {tuple(sm.shape)} x {cand.shape[1]} candidates, "
+        f"cap {Q}, one row and one warp a block, by kernel: "
+        f"{by_kernel(lambda: probe_ops.probe_counts(sm, cand, Q))}")
+    # where K2's time goes: its greedy steps, at the planner's rows and at
+    # 4 rows alone (a few warps, so no walk waits for another's issue slot)
+    sweep = {}
+    for rows in (sm.shape[0], 4):
+        ms0, ms1 = (device_ms(lambda c=c: probe_ops.probe_counts(
+            sm[:rows], cand[:rows], c)) for c in (0, Q))
+        sweep[rows] = f"{ms0:.4f} ms at cap 0, {ms1:.4f} ms at cap {Q}: " \
+            f"{(ms1 - ms0) / Q * 1e3:.3f} us a step"
+    log("probe", f"K2's steps: {sm.shape[0]} rows {sweep[sm.shape[0]]}; "
+        f"4 rows alone {sweep[4]}")
     # K3 at the pricing shape: one plan, (P, m - P + 1) intervals
     pl = rb_plans[0]
     g1 = torch.from_numpy(host_gamma["refinement-bursts"][0].astype(
@@ -1033,11 +1105,8 @@ def main() -> int:
     err["rectload"] = float((rl_ops.jagged_loads(g1, rc1, cc1)
                              - rl_ref.jagged_loads_ref(g1, rc1, cc1))
                             .abs().max())
-    r = pl.row_cuts.astype(np.int64)
-    cc_np = pl._live_col_cuts().astype(np.int64)
-    touched = np.unique(np.concatenate([
-        (r[:-1, None] * (N2 + 1) + cc_np).ravel(),
-        (r[1:, None] * (N2 + 1) + cc_np).ravel()])).size
+    cc_np = pl._live_col_cuts()
+    touched = touched_entries(pl.row_cuts, cc_np)
     n_rect = cc_np.shape[0] * (cc_np.shape[1] - 1)
     nbytes = touched * 4 + rc1.numel() * 4 + cc1.numel() * 4 + n_rect * 4
     b_ms, b_by = bound(nbytes, 3 * n_rect)
@@ -1054,6 +1123,12 @@ def main() -> int:
     log("kernels", "rectload: no single PyTorch call computes jagged "
         "rectangle loads (the plain version is two row gathers, one "
         "column gather and three differences), so library_ms is null")
+    log("rectload", f"K3 one plan: {kernels[-1]['ms']:.4f} ms, "
+        f"{kernels[-1]['ms'] - floor_ms:.4f} ms above the launch floor "
+        f"({floor_ms:.4f} ms), bound {b_ms:.4f} ms; by kernel: "
+        f"{by_kernel(lambda: rl_ops.jagged_loads(g1, rc1, cc1))}")
+    run_rectload_stream(cuda, rb_plans, host_gamma["refinement-bursts"],
+                        floor_ms)
     log("kernels", f"shapes: sat ({T}, {N1}, {N2}) float32; probe "
         f"{tuple(sm.shape)} int32 rows x 8 candidates, cap {Q}, {steps} "
         f"greedy steps; rectload one plan of {n_rect} intervals on a "

@@ -10,51 +10,147 @@
 //   result = cap + 1 if pos < n after cap steps, else max(count, 1)
 // (upper_bound is searchsorted(side="right") on the non-decreasing row.)
 //
-// What bounds it on the card: neither bytes nor operations at the
-// planner's shapes (a 513-entry row, 8 candidates) but latency: each step
-// is a binary search whose probes depend on each other.
+// What bounds it on the card: neither bytes (4.2 MB of rows at the exact
+// planner's shape, about 1.3 us) nor operations, but the walks' chains of
+// dependent steps (a step's target needs the step before it) and the
+// instructions that each step issues: 16,384 walks of about 32 steps.
 //
-// Design.  The TPU has no vector binary search, so its kernel recounted a
-// masked comparison over the whole row at every step (O(N) per step).
-// Here one block stages row s in shared memory (513 entries are about
-// 2 KB) and one thread per candidate runs its own binary searches there,
-// O(log N) per step.  A lane stops early once nothing can change any more
-// (it reached n, or it is stuck on an element larger than L); the result
-// is the one the full `cap` steps give.  The int32 form computes p[pos]+L
-// in int32: callers keep the total load below 2**30 so it cannot wrap.
+// Design.  The TPU kernel recounted a masked comparison over the whole row
+// at every step.  Here a block of one warp stages one row in shared memory
+// with every 4-byte copy in flight at once (cp.async; rows of 4 (N+1) bytes
+// are not 16-byte aligned), and a group of 4 lanes walks one candidate, 8
+// candidates at a time.  A step tests the 32 entries after pos (those up
+// to n), lane i of the group the entries pos+1+i+4e for e < 8, and adds up
+// the group's hits with xor shuffles.  The row is non-decreasing, so the
+// hits are a prefix of the window and their count c is upper_bound - 1 -
+// pos, clipped at n: nxt = pos + c.  c = 0 means stuck; a full window (an
+// interval past 32 entries) goes on with a 32-ary search over
+// (pos + 32, n].  The steps of a warp's candidates run in lockstep, so the
+// step count, and the stop when no candidate of the warp can move any more
+// (every one at n, stuck, or done with `cap` steps), are the same for every
+// lane.  Fewer lanes per candidate issue fewer instructions per step: on
+// the H100, 4 lanes a walk were faster at the exact planner's shape than
+// 8, 16 or 32, and several rows or several warps a block no faster than
+// one of each (PERF.md).
+
+// int32: the target p[pos] + L is computed in uint32 and wraps as the plain
+// version's int32 add does; callers keep totals below 2**30 so it cannot.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kWindow = 32;        // entries a step tests at once
+constexpr int kLanes = 4;          // lanes that walk one candidate
+constexpr int kWalks = 32 / kLanes;  // candidates a warp walks (ops)
+constexpr int kHits = kWindow / kLanes;  // window entries a lane tests
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float add_wrap(float a, float b) { return a + b; }
+__device__ __forceinline__ int add_wrap(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+// The group's sum of c (xor shuffles within aligned groups of kLanes).
+__device__ __forceinline__ int group_sum(int c) {
+#pragma unroll
+  for (int off = kLanes / 2; off >= 1; off >>= 1)
+    c += __shfl_xor_sync(kFull, c, off);
+  return c;
+}
+
+// Entries <= t among row[pos + 1 .. min(pos + 32, n)].
 template <typename T>
-__global__ void probe_kernel(const T* __restrict__ p, const T* __restrict__ Ls,
-                             int* __restrict__ out, int n_plus_1, int K,
-                             int cap) {
+__device__ __forceinline__ int count_window(const T* row, int pos, int n, T t,
+                                            bool on, int gl) {
+  const int i0 = pos + 1 + gl;
+  int hit[kHits];
+#pragma unroll
+  for (int e = 0; e < kHits; ++e)
+    hit[e] = on && i0 + kLanes * e <= n && row[i0 + kLanes * e] <= t;
+#pragma unroll
+  for (int d = 1; d < kHits; d *= 2)
+#pragma unroll
+    for (int e = 0; e + d < kHits; e += 2 * d) hit[e] += hit[e + d];
+  return group_sum(hit[0]);
+}
+
+// Entries <= t among row[lo + j * stride], j = 1..32, below top: one round
+// of the 32-ary search.
+template <typename T>
+__device__ __forceinline__ int count_strided(const T* row, int lo, int stride,
+                                             int top, T t, bool on, int gl) {
+  int c = 0;
+#pragma unroll
+  for (int e = 0; e < kHits; ++e) {
+    const int i = lo + (gl + 1 + kLanes * e) * stride;
+    c += on && i < top && row[i] <= t;
+  }
+  return group_sum(c);
+}
+
+// One block of one warp per row; the grid is the rows.
+template <typename T>
+__global__ void __launch_bounds__(32)
+probe_kernel(const T* __restrict__ p, const T* __restrict__ Ls,
+             int* __restrict__ out, int n_plus_1, int K, int cap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* row = reinterpret_cast<T*>(smem_raw);
   const long long s = blockIdx.x;
-  const T* prow = p + s * n_plus_1;
-  for (int i = threadIdx.x; i < n_plus_1; i += blockDim.x) row[i] = prow[i];
-  __syncthreads();
+  const T* src = p + s * n_plus_1;
+  for (int i = threadIdx.x; i < n_plus_1; i += 32) cp_async4(row + i, src + i);
+
+  const int lane = threadIdx.x;
+  const int g = lane / kLanes, gl = lane % kLanes;
   const int n = n_plus_1 - 1;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const T L = Ls[s * K + k];
+  // the first candidates' bottlenecks travel while the row arrives
+  T L = g < K ? Ls[s * K + g] : T(0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  for (int k0 = 0; k0 < K; k0 += kWalks) {  // warp-uniform
+    const int k = k0 + g;
+    if (k0 != 0) L = k < K ? Ls[s * K + k] : T(0);
     int pos = 0, cnt = 0;
-    for (int step = 0; step < cap && pos < n; ++step) {
-      const T target = row[pos] + L;
-      int lo = 0, hi = n_plus_1;  // first index with row[idx] > target
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (row[mid] <= target) lo = mid + 1; else hi = mid;
+    bool on = k < K && n > 0;  // this group's walk can still move
+    T t = on ? add_wrap(row[0], L) : T(0);
+    for (int step = 0; step < cap && __any_sync(kFull, on); ++step) {
+      int c = count_window<T>(row, pos, n, t, on, gl);
+      bool far = on && c == kWindow;  // the interval outruns the window
+      if (__any_sync(kFull, far)) {
+        int lo = pos + kWindow, top = n_plus_1;
+        far = far && top - lo > 1;
+        while (__any_sync(kFull, far)) {
+          const int d = (top - lo - 1 + kWindow - 1) / kWindow;
+          const int c2 = count_strided<T>(row, lo, d, top, t, far, gl);
+          if (far) {
+            if (c2 < kWindow) top = min(top, lo + (c2 + 1) * d);
+            lo += c2 * d;
+            far = top - lo > 1;
+          }
+        }
+        if (on && c == kWindow) c = lo - pos;
       }
-      int nxt = lo - 1;
-      nxt = nxt < pos ? pos : (nxt > n ? n : nxt);
-      if (nxt <= pos) break;  // stuck: every later step is the same
-      pos = nxt;
-      ++cnt;
+      if (on) {
+        if (c == 0) {
+          on = false;  // stuck: no later step moves
+        } else {
+          pos += c;
+          ++cnt;
+          on = pos < n;
+          if (on) t = add_wrap(row[pos], L);
+        }
+      }
     }
-    out[s * K + k] = pos < n ? cap + 1 : (cnt > 1 ? cnt : 1);
+    if (k < K && gl == 0)
+      out[s * K + k] = pos < n ? cap + 1 : (cnt > 1 ? cnt : 1);
   }
 }
 
@@ -69,9 +165,8 @@ int probe_launch(const T* p, const T* Ls, int* out, int S, int n_plus_1,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int threads = ((K + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  probe_kernel<T><<<S, threads, smem, st>>>(p, Ls, out, n_plus_1, K, cap);
+  probe_kernel<T><<<(unsigned)S, 32, smem, st>>>(p, Ls, out, n_plus_1, K,
+                                                  cap);
   return (int)cudaGetLastError();
 }
 

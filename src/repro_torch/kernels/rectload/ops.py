@@ -42,6 +42,9 @@ def jagged_loads(gamma: torch.Tensor, row_cuts: torch.Tensor,
     if rc.shape[0] != B or cc.shape[:2] != (B, P):
         raise ValueError(f"cuts {tuple(rc.shape)} / {tuple(cc.shape)} do not "
                          f"match {B} frames of {P} stripes")
+    if n1p * n2p >= 2 ** 31:
+        raise ValueError(f"rectload kernel indexes a frame in int32: "
+                         f"({n1p}, {n2p}) is too large")
     _build.check_cuda("rectload", g, rc, cc)
     Qp1 = cc.shape[2]
     out = torch.empty((B, P, Qp1 - 1), dtype=torch.float32, device=g.device)

@@ -124,6 +124,26 @@ def probe_case(S, n, K, seed=0):
     return p, Ls
 
 
+def long_run_case(S, n, K, seed=0):
+    """Rows of mostly zero loads with a few spikes, so greedy intervals
+    span hundreds to thousands of entries (more than one window and more
+    than 32 windows), and candidates from the largest spike up to the row
+    total."""
+    rng = np.random.default_rng(seed)
+    loads = np.zeros((S, n), np.int64)
+    for s in range(S):
+        spikes = rng.choice(n, size=rng.integers(1, 9), replace=False)
+        loads[s, spikes] = rng.integers(1, 1000, spikes.size)
+    loads[0, ::97] = 3                       # one row of even spacing
+    p = np.zeros((S, n + 1), np.int64)
+    p[:, 1:] = np.cumsum(loads, axis=1)
+    hi = p[:, -1]
+    Ls = np.stack([np.linspace(loads[s].max(), hi[s], K)
+                   for s in range(S)]).astype(np.int64)
+    Ls[:, 0] = 0
+    return p, Ls
+
+
 def rectload_case(B, n1, n2, P, Q, seed=0):
     """(Gamma (B, n1+1, n2+1) int64, row cuts (B, P+1), col cuts
     (B, P, Q+1) int32, loads (B, n1, n2)); random cuts may repeat, so

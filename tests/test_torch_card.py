@@ -23,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (FLASH_CASES, FLASH_TOL, int_loads, need_card,
-                           probe_case, qkv, rectload_case)
+from _torch_parity import (FLASH_CASES, FLASH_TOL, int_loads, long_run_case,
+                           need_card, probe_case, qkv, rectload_case)
 from repro_torch.core import prefix, sgorp
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash import ops as flash_ops
@@ -83,6 +83,129 @@ def test_rectload_kernel_matches_plain(B, n1, n2, P, Q, dtype, batched):
     c = _build.launches["rectload"]
     got = rl_ops.jagged_loads(g, rc, cc)
     assert _build.launches["rectload"] == c + 1
+    assert torch.equal(got, rl_ref.jagged_loads_ref(g, rc, cc).float())
+
+
+def _probe_case_on_card(p, Ls, cap, dtype):
+    """K2 on the card launches once under ``probe`` and equals the plain
+    version bit for bit."""
+    dev = need_card()
+    p, Ls = (torch.from_numpy(x).to(DTYPES[dtype]).to(dev) for x in (p, Ls))
+    c = _build.launches["probe"]
+    got = probe_ops.probe_counts(p, Ls, cap)
+    assert _build.launches["probe"] == c + 1
+    assert torch.equal(got, probe_ref.probe_counts_ref(p, Ls, cap))
+    return got
+
+
+# the window scan's edges: intervals past one window (32 entries) and past
+# 32 windows (1,024); K above a block's 8 walks (one warp walks K = 40 and
+# 200 eight at a time), K not a multiple of them (K = 1, 3); grids of up
+# to 9,001 one-row blocks; n = 0, cap = 0
+@pytest.mark.parametrize("case,S,n,K,cap", [
+    ("long", 6, 100, 5, 8), ("long", 8, 3000, 6, 12),
+    ("long", 4, 20000, 4, 40), ("long", 300, 2000, 8, 32),
+    ("probe", 2047, 512, 8, 32), ("probe", 4000, 200, 40, 16),
+    ("probe", 9, 60, 200, 5), ("probe", 9001, 100, 8, 16),
+    ("probe", 50, 70, 1, 9), ("probe", 50, 70, 3, 9),
+    ("probe", 4, 0, 3, 2), ("probe", 5, 17, 7, 0)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_probe_kernel_window_edges(case, S, n, K, cap, dtype):
+    make = long_run_case if case == "long" else probe_case
+    _probe_case_on_card(*make(S, n, K), cap, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_probe_kernel_row_at_the_shared_memory_limit(dtype):
+    """A row of 58,112 entries fills a block's 232,448 bytes of shared
+    memory; one more entry is refused."""
+    n = probe_ops._SMEM_MAX // 4 - 1
+    _probe_case_on_card(*long_run_case(2, n, 4), 24, dtype)
+    dev = need_card()
+    with pytest.raises(ValueError):
+        probe_ops.probe_counts(
+            torch.zeros((1, n + 2), dtype=DTYPES[dtype], device=dev),
+            torch.zeros((1, 1), dtype=DTYPES[dtype], device=dev), 4)
+
+
+def _rectload_on_card(g, rc, cc):
+    c = _build.launches["rectload"]
+    got = rl_ops.jagged_loads(g, rc, cc)
+    assert _build.launches["rectload"] == c + 1
+    return got
+
+
+# column runs: Q+1 not a multiple of a warp's 32 cuts, many frames of 32
+# stripes, P = 1, empty stripes (more stripes than rows)
+@pytest.mark.parametrize("B,n1,n2,P,Q", [
+    (1, 20, 600, 3, 31), (1, 20, 600, 2, 127), (2, 20, 2000, 2, 1022),
+    (1, 40, 300, 1, 200), (2, 5, 40, 9, 4), (64, 40, 1100, 2, 1023),
+    (16, 40, 1000, 32, 993), (32, 40, 1000, 32, 993),
+    (64, 64, 200, 32, 129)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rectload_kernel_column_runs(B, n1, n2, P, Q, dtype):
+    dev = need_card()
+    g, rc, cc, _ = (torch.from_numpy(x).to(dev)
+                    for x in rectload_case(B, n1, n2, P, Q))
+    g = g.to(DTYPES[dtype])
+    got = _rectload_on_card(g, rc, cc)
+    assert torch.equal(got, rl_ref.jagged_loads_ref(g, rc, cc).float())
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rectload_kernel_stream_of_padded_plans(dtype):
+    """A stream's 64 plans in one launch, as pricing would hand them over:
+    P = 32, m = 1024, 993 intervals a stripe with the dead ones pinned at
+    n2 (``Plan._live_col_cuts``)."""
+    dev = need_card()
+    fr = stream.STREAMS["refinement-bursts"](64, 512, 512, seed=0)
+    rc, counts, cc, _ = planner.plan_stream(fr, P=32, m=1024, device=dev)
+    live = torch.arange(cc.shape[2], device=dev) <= counts[..., None]
+    cc = torch.where(live, cc, 512).int()
+    assert cc.shape == (64, 32, 994)
+    g = torch.stack([torch.from_numpy(prefix.prefix_sum_2d(f)) for f in fr])
+    g = g.to(DTYPES[dtype]).to(dev)
+    got = _rectload_on_card(g, rc, cc)
+    assert torch.equal(got, rl_ref.jagged_loads_ref(g, rc, cc).float())
+
+
+@pytest.mark.parametrize("bad", [-1, 601])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rectload_kernel_cut_outside_gamma_gives_nan(bad, dtype):
+    """A column cut outside the Gamma turns exactly its two neighbouring
+    rectangles NaN; a row cut outside it, its whole stripe."""
+    dev = need_card()
+    g, rc, cc, _ = (torch.from_numpy(x).to(dev)
+                    for x in rectload_case(2, 30, 600, 3, 300))
+    g = g.to(DTYPES[dtype])
+    want = rl_ref.jagged_loads_ref(g, rc, cc).float()
+    cc2 = cc.clone()
+    cc2[1, 2, 124] = bad      # a column two warps' runs share
+    got = _rectload_on_card(g, rc, cc2)
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    nan[1, 2, 123:125] = True
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], want[~nan])
+    rc2 = rc.clone()
+    rc2[0, 1] = bad if bad < 0 else 31
+    got = _rectload_on_card(g, rc2, cc)
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    nan[0, :2] = True
+    assert torch.equal(got.isnan(), nan)
+
+
+def test_rectload_kernel_int32_wraps_like_plain():
+    """An int32 Gamma past 2**31: stripe values and their differences wrap
+    as the plain version's int32 arithmetic does."""
+    dev = need_card()
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.integers(0, 2 ** 20, (2, 64, 300))).to(dev)
+    exact = torch.nn.functional.pad(a.cumsum(1).cumsum(2), [1, 0, 1, 0])
+    assert int(exact.max()) > 2 ** 31
+    g = ((exact + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+    _, rc, cc, _ = (torch.from_numpy(x).to(dev)
+                    for x in rectload_case(2, 64, 300, 3, 200, seed=3))
+    got = _rectload_on_card(g, rc, cc)
     assert torch.equal(got, rl_ref.jagged_loads_ref(g, rc, cc).float())
 
 

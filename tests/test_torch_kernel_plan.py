@@ -1,0 +1,259 @@
+"""The probe and rectload kernels' designs (K2, K3), on the CPU.
+
+The kernels run only on the card, and ``test_torch_card.py`` is their check:
+it holds them bit for bit against the plain versions at the same edges as
+here.  This file keeps a documented model of each design, replayed in NumPy
+and torch step by step as the CUDA sources do it: K2's 32-entry window and
+the count of its hits, its 32-ary search for long intervals and its
+warp-uniform stop; K3's per-column stripe values in warp runs of 32 cut
+columns and their differences.  Each replay is held bit for bit against the
+plain version (tolerance: none; every case has integer loads, int32 and
+float32 alike), which shows that the design computes the plain version's
+result; a change of design in a ``.cu`` file must be made here too.
+"""
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import long_run_case, probe_case, rectload_case
+from repro_torch.kernels.probe import ref as probe_ref
+from repro_torch.kernels.rectload import ref as rl_ref
+from repro_torch.rebalance.batch_device import Plan
+
+WINDOW = 32  # probe.cu: kWindow
+WALKS = 8  # probe.cu: kWalks, the candidates a warp walks at once
+RUN = 32  # rectload.cu: kRun, the cut columns of a warp's run
+DTYPES = {"int32": (np.int32, torch.int32),
+          "float32": (np.float32, torch.float32)}
+
+
+# ---------------------------------------------------------------------------
+# K2: the walk, replayed
+
+def window_scan_counts(p: np.ndarray, Ls: np.ndarray,
+                       cap: int) -> np.ndarray:
+    """probe.cu's walk in NumPy, all candidates at once.  A step tests the
+    32 entries after pos (those up to n) against t = p[pos] + L and counts
+    the hits (on the card, 4 lanes each count theirs and shuffles add them
+    up); a full window goes on with 32-ary search rounds over (pos + 32,
+    n].  The candidates of a warp (``WALKS`` of them) step
+    together, and the warp stops when none of them can move.  The entries
+    <= t must be a prefix of every window and every search round (the row
+    is non-decreasing), which is what lets a count stand for
+    upper_bound."""
+    S, K = Ls.shape
+    n = p.shape[1] - 1
+    cpw = WALKS
+    lanes = np.arange(1, WINDOW + 1)
+    rows = np.arange(S)[:, None]
+
+    def at(idx):
+        return p[rows[..., None], np.clip(idx, 0, max(n, 0))]
+
+    def prefix_count(ok):
+        c = ok.sum(-1)
+        assert (ok == (lanes <= c[..., None])).all(), "not a prefix"
+        return c
+
+    pos = np.zeros((S, K), np.int64)
+    cnt = np.zeros((S, K), np.int64)
+    on = np.full((S, K), n > 0)
+    t = (p[:, :1] + Ls) if n >= 0 else Ls.copy()
+    warps = -(-K // cpw)
+    for _ in range(cap):
+        pad = np.zeros((S, warps * cpw), bool)
+        pad[:, :K] = on
+        if not pad.reshape(S, warps, cpw).any(-1).any():
+            break
+        idx = pos[..., None] + lanes
+        c = prefix_count(on[..., None] & (idx <= n)
+                         & (at(idx) <= t[..., None]))
+        far = on & (c == WINDOW)
+        lo = pos + WINDOW
+        top = np.full((S, K), n + 1)
+        far &= top - lo > 1
+        while far.any():
+            stride = np.maximum((top - lo - 1 + WINDOW - 1) // WINDOW, 1)
+            j = lo[..., None] + lanes * stride[..., None]
+            c2 = prefix_count(far[..., None] & (j < top[..., None])
+                              & (at(j) <= t[..., None]))
+            top = np.where(far & (c2 < WINDOW),
+                           np.minimum(top, lo + (c2 + 1) * stride), top)
+            lo = np.where(far, lo + c2 * stride, lo)
+            far &= top - lo > 1
+        c = np.where(on & (c == WINDOW), lo - pos, c)
+        adv = on & (c > 0)
+        pos = np.where(adv, pos + c, pos)
+        cnt += adv
+        on = adv & (pos < n)
+        t = np.where(on, p[rows, np.clip(pos, 0, max(n, 0))] + Ls, t)
+    return np.where(pos < n, cap + 1, np.maximum(cnt, 1)).astype(np.int32)
+
+
+def _check_walk(p, Ls, cap, dtype):
+    npd, td = DTYPES[dtype]
+    p, Ls = p.astype(npd), Ls.astype(npd)
+    want = probe_ref.probe_counts_ref(torch.from_numpy(p),
+                                      torch.from_numpy(Ls), cap).numpy()
+    with np.errstate(over="ignore"):
+        np.testing.assert_array_equal(window_scan_counts(p, Ls, cap), want)
+    return want
+
+
+@pytest.mark.parametrize("S,n,K,cap", [
+    (1, 0, 3, 2), (3, 1, 4, 1), (5, 17, 7, 4), (4, 130, 9, 16),
+    (6, 33, 40, 3), (2, 9, 5, 0), (64, 512, 8, 32), (3, 300, 5, 20)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_window_scan_matches_plain_on_probe_cases(S, n, K, cap, dtype):
+    _check_walk(*probe_case(S, n, K), cap, dtype)
+
+
+@pytest.mark.parametrize("S,n,K,cap", [(6, 100, 5, 8), (8, 3000, 6, 12),
+                                       (4, 20000, 4, 40)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_window_scan_matches_plain_past_one_window(S, n, K, cap, dtype):
+    want = _check_walk(*long_run_case(S, n, K), cap, dtype)
+    assert (want <= cap).any() and (want == cap + 1).any()
+
+
+def test_window_scan_intervals_span_more_than_1024_entries():
+    """A row of 4,000 zero loads between two spikes: the greedy's first
+    interval is 2,000 entries long, so the walk searches past 32 windows."""
+    loads = np.zeros((1, 4000), np.int64)
+    loads[0, [1999, 3999]] = 5
+    p = np.zeros((1, 4001), np.int64)
+    p[0, 1:] = np.cumsum(loads)
+    Ls = np.array([[5, 9, 10]])
+    got = _check_walk(p, Ls, 4, "int32")
+    np.testing.assert_array_equal(got, [[2, 2, 1]])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_window_scan_sentinels(dtype):
+    """L = 0 and L below the largest element are stuck (cap + 1), an empty
+    row and an all-zero row count 1, cap = 0 gives 1 on every row."""
+    p, Ls = probe_case(5, 40, 4)
+    got = _check_walk(p, Ls, 6, dtype)
+    assert (got[0] == 1).all() and (got[1:, :2] == 7).all()
+    empty = np.zeros((3, 1), np.int64)
+    assert (_check_walk(empty, np.ones((3, 2), np.int64), 5, dtype)
+            == 1).all()
+    assert (_check_walk(p, Ls, 0, dtype) == 1).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_window_scan_float32_above_2_24(seed):
+    """float32 rows whose prefixes pass 2**24 (loads up to 2**20 each):
+    the target rounds, and the walk compares the same float32 values as
+    searchsorted does."""
+    rng = np.random.default_rng(seed)
+    loads = rng.integers(0, 2 ** 20, (16, 512)).astype(np.float32)
+    p = np.zeros((16, 513), np.float32)
+    p[:, 1:] = np.cumsum(loads, axis=1, dtype=np.float32)
+    assert p[:, -1].min() > 2 ** 24 and (np.diff(p, axis=1) >= 0).all()
+    Ls = np.stack([np.linspace(p[s, -1] / 40, p[s, -1] / 20, 8)
+                   for s in range(16)]).astype(np.float32)
+    _check_walk(p, Ls, 32, "float32")
+
+
+# ---------------------------------------------------------------------------
+# K3: the per-column replay
+
+def runs(Qp1):
+    """Warps along one stripe's ``Qp1`` cuts (rectload.cu: ``runs``): a warp
+    reads ``RUN`` consecutive cuts, and neighbouring runs share one, so it
+    writes one interval fewer."""
+    return (Qp1 - 2) // (RUN - 1) + 1
+
+
+@pytest.mark.parametrize("Qp1", [2, 3, 31, 32, 33, 63, 64, 65, 255, 256,
+                                 257, 994, 3000])
+def test_rectload_runs_cover_every_interval(Qp1):
+    got = []
+    for r in range(runs(Qp1)):
+        q0 = r * (RUN - 1)
+        got += [q0 + i for i in range(RUN - 1) if q0 + i < Qp1 - 1]
+    assert got == list(range(Qp1 - 1))
+
+
+def test_rectload_one_plan_fills_the_card():
+    """One plan of 32 stripes x 994 cuts: 33 warp runs a stripe, 9 blocks
+    of 4 warps, 288 blocks in all, more than the H100's 132 SMs."""
+    assert runs(994) == 33
+    assert 32 * -(-runs(994) // 4) == 288 >= 132
+
+
+def column_run_loads(g, rc, cc):
+    """rectload.cu in torch: for each frame, stripe and warp's run of
+    ``RUN`` cut columns, the stripe values of the run's columns in Gamma's
+    dtype, then each column's difference with its right neighbour in the
+    run (a shuffle on the card), cast last."""
+    B, P, Qp1 = cc.shape
+    out = torch.empty((B, P, Qp1 - 1), dtype=torch.float32)
+    b = torch.arange(B)[:, None, None]
+    r0, r1 = rc[:, :-1, None].long(), rc[:, 1:, None].long()
+    for r in range(runs(Qp1)):
+        q0 = r * (RUN - 1)
+        cols = cc[:, :, q0:q0 + RUN].long()
+        sv = g[b, r1, cols] - g[b, r0, cols]
+        out[:, :, q0:q0 + cols.shape[2] - 1] = (sv[..., 1:]
+                                                - sv[..., :-1]).float()
+    return out
+
+
+def _check_rectload(g, rc, cc):
+    want = rl_ref.jagged_loads_ref(g, rc, cc).float()
+    assert torch.equal(column_run_loads(g, rc, cc), want)
+
+
+@pytest.mark.parametrize("B,n1,n2,P,Q", [
+    (1, 16, 16, 2, 2), (3, 33, 40, 4, 3), (2, 40, 600, 5, 30),
+    (2, 40, 600, 3, 31), (2, 40, 600, 3, 62), (1, 20, 2000, 2, 255),
+    (1, 20, 2000, 2, 1023), (2, 9, 300, 1, 300)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_column_runs_match_plain_with_repeated_cuts(B, n1, n2, P, Q, dtype):
+    g, rc, cc, _ = rectload_case(B, n1, n2, P, Q)
+    _check_rectload(torch.from_numpy(g).to(DTYPES[dtype][1]),
+                    torch.from_numpy(rc), torch.from_numpy(cc))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_column_runs_match_plain_on_padded_plans(dtype):
+    """Plans as pricing hands them over: P = 32 stripes, m = 1024, so
+    993 intervals a stripe with the dead ones pinned at n2
+    (``Plan._live_col_cuts``)."""
+    rng = np.random.default_rng(2)
+    n1 = n2 = 512
+    P, m = 32, 1024
+    a = rng.integers(0, 50, (4, n1, n2))
+    g = np.zeros((4, n1 + 1, n2 + 1), np.int64)
+    g[:, 1:, 1:] = a.cumsum(1).cumsum(2)
+    rcs, ccs = [], []
+    for _ in range(4):
+        counts = 1 + rng.multinomial(m - P, np.ones(P) / P)
+        cuts = np.full((P, m - P + 2), -7)   # masked entries: garbage
+        for s, k in enumerate(counts):
+            cuts[s, :k + 1] = np.r_[0, np.sort(rng.integers(0, n2 + 1, k - 1)),
+                                    n2]
+        rows = np.r_[0, np.sort(rng.integers(0, n1 + 1, P - 1)), n1]
+        plan = Plan(rows, counts, cuts, (n1, n2))
+        rcs.append(plan.row_cuts)
+        ccs.append(plan._live_col_cuts())
+    cc = torch.from_numpy(np.stack(ccs).astype(np.int32))
+    assert cc.shape == (4, P, 994)
+    _check_rectload(torch.from_numpy(g).to(DTYPES[dtype][1]),
+                    torch.from_numpy(np.stack(rcs).astype(np.int32)), cc)
+
+
+def test_column_runs_wrap_int32_past_2_31():
+    """int32 Gamma entries past 2**31 wrap; the stripe values and their
+    differences wrap the same way in both."""
+    rng = np.random.default_rng(3)
+    a = rng.integers(0, 2 ** 20, (2, 64, 300))
+    g = np.zeros((2, 65, 301), np.int64)
+    g[:, 1:, 1:] = a.cumsum(1).cumsum(2)
+    assert g.max() > 2 ** 31
+    g32 = torch.from_numpy(((g + 2 ** 31) % 2 ** 32 - 2 ** 31)
+                           .astype(np.int32))
+    _, rc, cc, _ = rectload_case(2, 64, 300, 3, 200, seed=3)
+    _check_rectload(g32, torch.from_numpy(rc), torch.from_numpy(cc))
