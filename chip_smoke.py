@@ -21,7 +21,15 @@ frames at m=1024 (a 16 x 8 x 8 processor grid) with its own launch
 counts (every launch through K4's ``sat3`` route, none through
 ``sat3_general``), its checks and times (K4 also at B=1); then K4's
 general route on purpose, planes too wide for one block, with its own
-launch counts, held against the plain version.  The last two lines
+launch counts, held against the plain version.  Then the paper's
+algorithm registry (``core.registry``) with its own launch counts: its
+device names at the paper's width (``jag-pq-opt-device`` at 512x512,
+m=1024, on int32, float32 and ``speeds=`` with dead parts;
+``jag-m-opt-device`` at 64x64, m=24; ``sgorp-2d``; ``explain``) and the
+exact 1D solver on rows of 4,096 and 1,048,576 entries (the second
+through K2's general route, ``probe_general``), each held against the
+CPU path and the host engine, and K2 against its plain version at every
+shape the phase gave it.  The last two lines
 before the final one are the kernels' JSON record and the card's name
 and power limit; the final line is ``{"ok": true, "device": {...}}``.
 Last, flash attention (K5):
@@ -482,6 +490,217 @@ def run_sat3_general(cuda: torch.device) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
             torch.cumsum(af, dim=-3), dim=-2), dim=-1))}
+
+
+N_1D = (4096, 1048576)   # the exact 1D solver's rows: K2 stages the first
+M_OPT = 24               # jag-m-opt-device on a 64x64 frame
+N_DEAD = 8               # dead parts among the 1024 speeds
+
+
+def _rects(part) -> list:
+    return [(r.r0, r.r1, r.c0, r.c1) for r in part.rects]
+
+
+def _rel_bottleneck(part, gamma, speeds) -> float:
+    loads = part.loads(gamma).astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return float(np.where(loads > 0, loads / speeds, 0.0).max())
+
+
+def run_registry(cuda: torch.device) -> list:
+    """The paper's algorithm registry on the card (``core.registry``): the
+    device-backed names at the paper's width with their own launch counts,
+    each held against the CPU path and the host engine, then the exact 1D
+    solver on a 4 MB row through K2's general route.  Returns the
+    kernels' record entry of ``probe_general``."""
+    from repro_torch.core import device, oned, prefix, registry, sgorp
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.probe import ops as probe_ops
+    from repro_torch.kernels.probe import ref as probe_ref
+    from repro_torch.rebalance import stream
+
+    # -- 16. data ----------------------------------------------------------
+    rng = np.random.default_rng(SEED + 2)
+    g_int = prefix.prefix_sum_2d(prefix.pic_like_instance(
+        N1, N2, iteration=20_000, seed=SEED))
+    check(g_int[-1, -1] < 2 ** 30, "the int32 frame's total must stay below "
+          "2**30 (P7)")
+    g_f32 = prefix.prefix_sum_2d(stream.refinement_bursts(
+        1, N1, N2, seed=SEED)[0]).astype(np.float32)
+    check(g_f32[-1, -1] < F32_EXACT, "the float32 frame's total must stay "
+          "below 2**24")
+    speeds = rng.uniform(0.25, 4.0, M)
+    speeds[rng.choice(M, N_DEAD, replace=False)] = 0.0
+    g_opt = prefix.prefix_sum_2d(prefix.pic_like_instance(
+        64, 64, iteration=20_000, seed=SEED))
+    rows = {}
+    for n in N_1D:
+        loads = rng.integers(0, 1000, n)
+        loads[rng.choice(n, 16, replace=False)] = 200_000   # a few spikes
+        rows[n] = np.concatenate([[0], np.cumsum(loads)]).astype(np.int32)
+        check(int(rows[n][-1]) < 2 ** 30, "1D totals must stay below 2**30")
+    pq = {"P": P, "Q": Q}
+
+    # -- 17. the registry's device names on the card -----------------------
+    # K2's inputs and outputs as the phase gives them: the first and the
+    # last call at each (shape, dtype, candidates, cap), held to the plain
+    # version in section 18
+    k2_calls = {}
+    k2_launch = probe_ops.probe_counts
+
+    def k2_tap(p, Ls, cap):
+        out = k2_launch(p, Ls, cap)
+        key = (tuple(p.shape), str(p.dtype).removeprefix("torch."),
+               Ls.shape[1], cap)
+        rec = (p.clone(), Ls.clone(), out.clone())
+        k2_calls.setdefault(key, [rec, rec])[1] = rec
+        return out
+
+    probe_ops.probe_counts = k2_tap
+    _build.launches.clear()
+    on_card, secs = {}, {}
+
+    def timed(tag, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[tag] = time.perf_counter() - t0
+        return out
+
+    on_card["int32"] = timed("jag-pq-opt-device int32", lambda: (
+        registry.partition("jag-pq-opt-device", g_int, M, **pq)))
+    on_card["float32"] = timed("jag-pq-opt-device float32", lambda: (
+        registry.partition("jag-pq-opt-device", g_f32, M, **pq)))
+    on_card["speeds"] = timed("jag-pq-opt-device speeds", lambda: (
+        registry.partition("jag-pq-opt-device", g_int, M, speeds=speeds,
+                           **pq)))
+    on_card["m-opt"] = timed(f"jag-m-opt-device m={M_OPT}", lambda: (
+        registry.partition("jag-m-opt-device", g_opt, M_OPT)))
+    for n in N_1D:
+        on_card[n] = timed(f"nicol_optimal_device_impl n={n}", lambda n=n: (
+            device.nicol_optimal_device_impl(
+                torch.as_tensor(rows[n], device=cuda), M)))
+    on_card["sgorp"] = timed("sgorp-2d", lambda: registry.partition(
+        "sgorp-2d", g_int.astype(np.float32), M))
+    report = timed("explain jag-pq-opt-device", lambda: registry.explain(
+        "jag-pq-opt-device", g_int, M, **pq))
+    launches = dict(_build.launches)
+    probe_ops.probe_counts = k2_launch
+    log("registry", f"kernel launches of the registry phase: {launches}")
+    for k in ("probe", "probe_general"):
+        check(launches.get(k, 0) > 0, f"kernel {k} never ran in the registry "
+              f"phase")
+
+    # -- 18. held against the plain K2, the CPU path and the host engine --
+    # the 1D solver's rows (cap M) and the stripes of the column solves
+    # ((T*P, N2+1), cap Q) at 15 candidates a round: walks past 1,024
+    # steps and the second pass of each row's walks (K > 8)
+    for key in [((1, n + 1), "int32", 15, M) for n in N_1D] + [
+            ((P, N2 + 1), dt, 15, Q) for dt in ("int32", "float32")]:
+        check(key in k2_calls, f"the registry phase gave K2 no call at "
+              f"{key}; it did at {sorted(k2_calls)}")
+    k2_err = {}
+    for key, recs in sorted(k2_calls.items()):
+        k2_err[key] = max(float((out - probe_ref.probe_counts_ref(
+            p, Ls, key[3])).abs().max()) for p, Ls, out in recs)
+        check(k2_err[key] == 0, f"K2 ({probe_ops.route(key[0][1])}) "
+              f"differs from the plain version at {key}: {k2_err[key]}")
+        log("registry", f"K2 {probe_ops.route(key[0][1])} at p {key[0]} "
+            f"{key[1]}, {key[2]} candidates, cap {key[3]}: first and last "
+            f"call of the phase = plain version (max_abs_err "
+            f"{k2_err[key]})")
+    def same_as_cpu(name, m, part, gamma, **kw):
+        cpu = registry.partition(name, gamma, m, device="cpu", **kw)
+        check(_rects(part) == _rects(cpu) and part.max_load(gamma)
+              == cpu.max_load(gamma), f"{name} {kw}: card and CPU differ")
+
+    host = registry.partition("jag-pq-opt", g_int, M, **pq)
+    same_as_cpu("jag-pq-opt-device", M, on_card["int32"], g_int, **pq)
+    check(on_card["int32"].max_load(g_int) == host.max_load(g_int),
+          "jag-pq-opt-device int32: Lmax differs from the host jag-pq-opt")
+    host_f = registry.partition("jag-pq-opt", g_f32, M, **pq)
+    same_as_cpu("jag-pq-opt-device", M, on_card["float32"], g_f32, **pq)
+    rel_f = abs(on_card["float32"].max_load(g_f32) / host_f.max_load(g_f32)
+                - 1)
+    check(rel_f <= 1e-5, f"jag-pq-opt-device float32: Lmax {rel_f:.3g} off "
+          f"the host jag-pq-opt (limit 1e-5)")
+    host_s = registry.partition("jag-pq-opt", g_int, M, speeds=speeds, **pq)
+    got_s = _rel_bottleneck(on_card["speeds"], g_int, speeds)
+    want_s = _rel_bottleneck(host_s, g_int, speeds)
+    check(abs(got_s / want_s - 1) <= 1e-5, f"jag-pq-opt-device speeds: "
+          f"relative bottleneck {got_s} against the host's {want_s} (limit "
+          f"1e-5)")
+    part_s = on_card["speeds"]
+    check(part_s.is_valid() and all(part_s.rects[i].area == 0
+                                    for i in np.flatnonzero(speeds == 0)),
+          "jag-pq-opt-device speeds: invalid, or a dead part got a "
+          "non-empty rectangle")
+    same_as_cpu("jag-pq-opt-device", M, part_s, g_int, speeds=speeds, **pq)
+    host_m = registry.partition("jag-m-opt", g_opt, M_OPT)
+    same_as_cpu("jag-m-opt-device", M_OPT, on_card["m-opt"], g_opt)
+    check(on_card["m-opt"].max_load(g_opt) == host_m.max_load(g_opt),
+          "jag-m-opt-device: Lmax differs from the host jag-m-opt")
+    # the host's nicol_optimal takes minutes on the 4 MB row; its
+    # probe_bisect_optimal realizes the same cuts (checked on the short
+    # row) in a fraction of a second
+    host_1d = {N_1D[0]: oned.nicol_optimal(rows[N_1D[0]].astype(np.int64), M)}
+    check(np.array_equal(host_1d[N_1D[0]], oned.probe_bisect_optimal(
+        rows[N_1D[0]].astype(np.int64), M)), "host nicol_optimal and "
+        "probe_bisect_optimal differ")
+    host_1d[N_1D[1]] = oned.probe_bisect_optimal(
+        rows[N_1D[1]].astype(np.int64), M)
+    for n in N_1D:
+        check(np.array_equal(on_card[n][0].cpu().numpy(), host_1d[n]),
+              f"nicol_optimal_device_impl n={n}: cuts differ from the host "
+              f"solver's")
+    direct = sgorp.sgorp_2d(g_int.astype(np.float32), M)
+    check(_rects(on_card["sgorp"]) == _rects(direct), "sgorp-2d through the "
+          "registry differs from sgorp.sgorp_2d")
+    names = {ev["name"] for ev in report.spans}
+    check("partition.jag-pq-opt-device" in names, f"explain's spans lack "
+          f"partition.jag-pq-opt-device: {sorted(names)}")
+    check(_rects(report.partition) == _rects(on_card["int32"]),
+          "explain's partition differs from the plain call")
+    log("registry", f"jag-pq-opt-device at {N1}x{N2}, m={M} (P=Q={P}), "
+        f"orient=best: int32 (total {int(g_int[-1, -1])}) card = CPU rect "
+        f"for rect, Lmax {on_card['int32'].max_load(g_int)} = host "
+        f"jag-pq-opt; float32 (total {float(g_f32[-1, -1]):.0f}) card = "
+        f"CPU, Lmax {rel_f:.3g} off the host (limit 1e-5); speeds ({M} in "
+        f"[0.25, 4), {N_DEAD} dead) card = CPU, relative bottleneck "
+        f"{got_s:.6g} against the host's {want_s:.6g}, dead parts empty")
+    log("registry", f"jag-m-opt-device 64x64 m={M_OPT}: card = CPU, Lmax "
+        f"{on_card['m-opt'].max_load(g_opt)} = host jag-m-opt; "
+        f"nicol_optimal_device_impl m={M} at n={N_1D}: cuts = host "
+        f"oned.nicol_optimal (n={N_1D[0]}) and oned.probe_bisect_optimal "
+        f"(both n; routes {[probe_ops.route(n + 1) for n in N_1D]}); sgorp-2d through the registry = sgorp.sgorp_2d; explain spans "
+        f"hold partition.jag-pq-opt-device (summary: "
+        f"{report.summary().splitlines()[0]})")
+    log("registry", "host clock, first call on the card: " + "; ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in secs.items()))
+
+    # -- 19. K2's general route at the 1D solver's shape -------------------
+    n = N_1D[-1]
+    key = ((1, n + 1), "int32", 15, M)
+    p, cand, counts = k2_calls[key][0]      # the solver's first round
+    steps = int(torch.clamp(counts, max=M).sum())
+    nbytes = p.numel() * 4 + cand.numel() * 4 * 2
+    b_ms, b_by = bound(nbytes, steps * (math.ceil(math.log2(n + 1)) + 2))
+    entry = {
+        "name": "probe_general", "route": "cuda",
+        "source": "src/repro_torch/kernels/probe/probe.cu",
+        "replaces": "src/repro/kernels/probe/probe.py:65",
+        "launches": launches.get("probe_general", 0),
+        "max_abs_err": k2_err[key],
+        "ms": device_ms(lambda: probe_ops.probe_counts(p, cand, M), reps=5),
+        "plain_ms": device_ms(lambda: probe_ref.probe_counts_ref(
+            p, cand, M), reps=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    log("probe", f"K2's general route (probe_general) at the 1D solver's "
+        f"first round: a {tuple(p.shape)} int32 row, 15 candidates, cap {M}, "
+        f"{steps} greedy steps: {entry['ms']:.4f} ms against a bound of "
+        f"{b_ms:.4f} ms ({b_by}); plain version {entry['plain_ms']:.4f} ms")
+    return [entry]
 
 
 # K5's shapes: (name, source, query heads, KV heads, head dim, window,
@@ -1136,6 +1355,7 @@ def main() -> int:
         f"touched; max_abs_err for sat is the largest over every "
         f"comparison above (float32 PIC frames lie above 2**24)")
     kernels.extend(run_3d(cuda))
+    kernels.extend(run_registry(cuda))
     kernels.extend(run_flash(cuda))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

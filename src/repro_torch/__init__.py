@@ -12,6 +12,9 @@ Ported so far: the single-device frame planner, frames -> Gamma (K1) ->
 JAG-M-HEUR or exact JAG-PQ-OPT (K2) -> host Plans, plus plan pricing
 and executed migration (K3); and the single-device 3D planner, volumes
 -> Gamma3 (K4) -> SGORP rectilinear cuts (``core.sgorp``); see
-``rebalance.planner``; and flash attention (K5, ``kernels.flash``) with
-the model layer's plain chunked attention (``models.layers``).
+``rebalance.planner``; flash attention (K5, ``kernels.flash``) with
+the model layer's plain chunked attention (``models.layers``); and the
+paper's algorithm registry (``core.registry``: every partitioner by its
+paper name) over a NumPy copy of the host engine, its exact device
+solvers (``core.device``: 1D, JAG-PQ-OPT, JAG-M-OPT) on the card.
 """

@@ -1,13 +1,18 @@
-"""Prefix sums (the paper's Gamma) and the PIC-like instance generators.
+"""Prefix-sum (summed-area table) utilities and instance generators.
 
-The port's NumPy copy of the parts of ``repro.core.prefix`` that the 2D
-and 3D frame planners need: the host Gamma (and Gamma3) every plan is
-validated and priced against, and the generators behind
-``rebalance.stream.pic_series``, ``pic_series_3d`` and ``amr_series_3d``.
+The port's NumPy copy of ``repro.core.prefix``: the same code in the same
+order of floating-point operations, so its results are bit-identical.
+
+The paper assumes the load matrix is given as a 2D prefix-sum array Gamma so
+any rectangle load is O(1) (Section 2.1). All host-side algorithms in this
+package consume Gamma, never A. ``kernels/sat`` builds the same table on-TPU.
 """
 from __future__ import annotations
 
 import numpy as np
+
+# ---------------------------------------------------------------------------
+# Gamma construction
 
 
 def prefix_sum_2d(a: np.ndarray) -> np.ndarray:
@@ -20,6 +25,37 @@ def prefix_sum_2d(a: np.ndarray) -> np.ndarray:
     g = np.zeros((a.shape[0] + 1, a.shape[1] + 1), dtype=dtype)
     np.cumsum(np.cumsum(a, axis=0, dtype=dtype), axis=1, out=g[1:, 1:])
     return g
+
+
+def rect_load(gamma: np.ndarray, r0: int, r1: int, c0: int, c1: int):
+    """Load of half-open rectangle [r0,r1) x [c0,c1) in O(1)."""
+    return gamma[r1, c1] - gamma[r0, c1] - gamma[r1, c0] + gamma[r0, c0]
+
+
+def row_prefix(gamma: np.ndarray) -> np.ndarray:
+    """1D prefix array of the projection onto the main (row) dimension."""
+    return gamma[:, -1]
+
+
+def stripe_col_prefix(gamma: np.ndarray, r0: int, r1: int) -> np.ndarray:
+    """1D prefix array of columns restricted to rows [r0, r1).
+
+    A key trick from the paper: no re-projection needed, a stripe's column
+    prefix array is just a difference of two Gamma rows.
+    """
+    return gamma[r1, :] - gamma[r0, :]
+
+
+def col_prefix(gamma: np.ndarray) -> np.ndarray:
+    return gamma[-1, :]
+
+
+def stripe_row_prefix(gamma: np.ndarray, c0: int, c1: int) -> np.ndarray:
+    return gamma[:, c1] - gamma[:, c0]
+
+
+def transpose_gamma(gamma: np.ndarray) -> np.ndarray:
+    return gamma.T.copy()
 
 
 def prefix_sum_3d(a: np.ndarray) -> np.ndarray:
@@ -44,6 +80,50 @@ def rect_load_3d(gamma3: np.ndarray, x0: int, x1: int, r0: int, r1: int,
             - gamma3[x1, r0, c1] - gamma3[x1, r1, c0]
             + gamma3[x0, r0, c1] + gamma3[x0, r1, c0] + gamma3[x1, r0, c0]
             - gamma3[x0, r0, c0])
+
+
+# ---------------------------------------------------------------------------
+# Instance generators (Section 4.1 of the paper)
+
+
+def uniform_instance(n1: int, n2: int, delta: float = 1.2,
+                     seed: int = 0) -> np.ndarray:
+    """Load of each cell uniform in [1000, 1000*delta] (paper's Uniform)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(1000, max(int(1000 * delta), 1001),
+                        size=(n1, n2)).astype(np.int64)
+
+
+def _distance_field(n1: int, n2: int, refs: np.ndarray) -> np.ndarray:
+    ii, jj = np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij")
+    pts = np.stack([ii.ravel(), jj.ravel()], axis=1).astype(np.float64)
+    d = np.linalg.norm(pts[:, None, :] - refs[None, :, :], axis=2).min(axis=1)
+    return d.reshape(n1, n2)
+
+
+def diagonal_instance(n1: int, n2: int, seed: int = 0) -> np.ndarray:
+    """Load ~ U(0, n1*n2) / (dist to closest diagonal point + 0.1)."""
+    rng = np.random.default_rng(seed)
+    ii, jj = np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij")
+    # distance of (i, j) to the line i*n2 = j*n1, normalized to cell units
+    d = np.abs(ii * n2 - jj * n1) / np.hypot(n1, n2)
+    u = rng.uniform(0, n1 * n2, size=(n1, n2))
+    return np.maximum(u / (d + 0.1), 0).astype(np.int64)
+
+
+def peak_instance(n1: int, n2: int, n_peaks: int = 1,
+                  seed: int = 0) -> np.ndarray:
+    """Load ~ U(0, n1*n2) / (dist to closest of n_peaks random points + 0.1)."""
+    rng = np.random.default_rng(seed)
+    refs = np.stack([rng.integers(0, n1, n_peaks),
+                     rng.integers(0, n2, n_peaks)], axis=1).astype(np.float64)
+    d = _distance_field(n1, n2, refs)
+    u = rng.uniform(0, n1 * n2, size=(n1, n2))
+    return np.maximum(u / (d + 0.1), 0).astype(np.int64)
+
+
+def multipeak_instance(n1: int, n2: int, seed: int = 0) -> np.ndarray:
+    return peak_instance(n1, n2, n_peaks=3, seed=seed)
 
 
 def pic_like_instance(n1: int, n2: int, iteration: int = 0,
@@ -109,3 +189,40 @@ def amr_like_instance_3d(n1: int, n2: int, n3: int, levels: int = 3,
         lo, hi = np.minimum(lo, hi - 2), np.maximum(hi, lo + 2)
         a[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] *= 4
     return a
+
+
+def mesh_like_instance(n1: int, n2: int, n_vertices: int = 60_000,
+                       seed: int = 0) -> np.ndarray:
+    """SLAC-like: vertices of a 3D surface mesh projected to a 2D grid.
+
+    Sparse (many zero cells), unit load per vertex — the case that defeats
+    most jagged algorithms in the paper (Figure 12) and where hierarchical
+    methods shine.
+    """
+    rng = np.random.default_rng(seed)
+    # sample points on a torus-ish cavity surface and project (x, y)
+    u = rng.uniform(0, 2 * np.pi, n_vertices)
+    v = rng.uniform(0, 2 * np.pi, n_vertices)
+    big, small = 0.36, 0.14
+    x = (big + small * np.cos(v)) * np.cos(u) * 0.5 + 0.5
+    y = (big + small * np.cos(v)) * np.sin(u) * 0.16 + 0.5  # flattened cavity
+    a = np.zeros((n1, n2), dtype=np.int64)
+    np.add.at(a, (np.clip((x * n1).astype(int), 0, n1 - 1),
+                  np.clip((y * n2).astype(int), 0, n2 - 1)), 1)
+    return a
+
+
+INSTANCES = {
+    "uniform": uniform_instance,
+    "diagonal": diagonal_instance,
+    "peak": peak_instance,
+    "multipeak": multipeak_instance,
+    "pic": pic_like_instance,
+    "slac": mesh_like_instance,
+}
+
+# (n1, n2, n3, **kw) -> (n1, n2, n3) int64 volume
+INSTANCES_3D = {
+    "pic3d": pic_like_instance_3d,
+    "amr3d": amr_like_instance_3d,
+}

@@ -33,9 +33,10 @@ SOURCES = {"sat": _HERE / "sat" / "sat.cu",
            "flash": _HERE / "flash" / "flash.cu"}
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 
-#: Kernel launches by kernel name (``sat``, ``probe``, ``rectload``; K4 by
-#: route: ``sat3`` for planes that fit a block, ``sat3_general`` for the
-#: rest; K5 by route: ``flash`` for the Hopper bf16 kernel, ``flash_mma``
+#: Kernel launches by kernel name (``sat``, ``rectload``; K2 by route:
+#: ``probe`` for rows that fit shared memory, ``probe_general`` for the
+#: rest; K4 by route: ``sat3`` for planes that fit a block, ``sat3_general``
+#: for the rest; K5 by route: ``flash`` for the Hopper bf16 kernel, ``flash_mma``
 #: for the general bf16 kernel, ``flash_fma`` for float32).
 launches: collections.Counter = collections.Counter()
 
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "repro_sat3_general_i32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_probe_counts_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_probe_counts_i32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_probe_general_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_probe_general_i32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_rectload_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_rectload_i32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,

@@ -1,7 +1,9 @@
 """Wrapper of the probe kernel (``probe.cu``).
 
 A CUDA tensor goes through the kernel, a CPU tensor through the plain
-version in ``ref.py``; there is no other route.
+version in ``ref.py``; there is no other route.  On the card the row
+length chooses the kernel's route (:func:`route`): rows that fit shared
+memory are staged there, longer ones are read from global memory.
 """
 from __future__ import annotations
 
@@ -10,10 +12,19 @@ import torch
 from .. import _build
 from .ref import probe_counts_ref
 
-_FN = {torch.float32: "repro_probe_counts_f32",
-       torch.int32: "repro_probe_counts_i32"}
+_FN = {("probe", torch.float32): "repro_probe_counts_f32",
+       ("probe", torch.int32): "repro_probe_counts_i32",
+       ("probe_general", torch.float32): "repro_probe_general_f32",
+       ("probe_general", torch.int32): "repro_probe_general_i32"}
 # the largest dynamic shared memory a block can take on Hopper
 _SMEM_MAX = 232448
+
+
+def route(n_plus_1: int) -> str:
+    """The kernel route for prefix rows of ``n_plus_1`` 4-byte entries:
+    ``probe`` stages each row in shared memory, ``probe_general`` (rows
+    past :data:`_SMEM_MAX` bytes) reads it from global memory."""
+    return "probe" if n_plus_1 * 4 <= _SMEM_MAX else "probe_general"
 
 
 def probe_counts(p: torch.Tensor, Ls: torch.Tensor, cap: int) -> torch.Tensor:
@@ -25,7 +36,7 @@ def probe_counts(p: torch.Tensor, Ls: torch.Tensor, cap: int) -> torch.Tensor:
     if p.ndim != 2 or Ls.ndim != 2 or Ls.shape[0] != p.shape[0]:
         raise ValueError(f"probe_counts takes p (S, N+1) and Ls (S, K), got "
                          f"{tuple(p.shape)} and {tuple(Ls.shape)}")
-    if p.dtype not in _FN or Ls.dtype != p.dtype:
+    if p.dtype not in (torch.float32, torch.int32) or Ls.dtype != p.dtype:
         raise TypeError(f"probe_counts takes int32 or float32 p and Ls of "
                         f"one dtype, got {p.dtype} and {Ls.dtype}")
     if cap < 0:
@@ -34,11 +45,15 @@ def probe_counts(p: torch.Tensor, Ls: torch.Tensor, cap: int) -> torch.Tensor:
         return probe_counts_ref(p, Ls, cap)
     p, Ls = p.contiguous(), Ls.contiguous()
     _build.check_cuda("probe", p, Ls)
+    return _launch(p, Ls, cap, route(p.shape[1]))
+
+
+def _launch(p: torch.Tensor, Ls: torch.Tensor, cap: int,
+            key: str) -> torch.Tensor:
+    """Launch route ``key`` of the kernel on checked CUDA tensors (the
+    card tests also drive ``probe_general`` on rows that would fit)."""
     S, n_plus_1 = p.shape
-    if n_plus_1 * p.element_size() > _SMEM_MAX:
-        raise ValueError(f"probe kernel stages a row in shared memory: "
-                         f"{n_plus_1} entries do not fit")
     out = torch.empty(Ls.shape, dtype=torch.int32, device=p.device)
-    _build.launch("probe", _FN[p.dtype], p, Ls, out, S, n_plus_1,
+    _build.launch(key, _FN[key, p.dtype], p, Ls, out, S, n_plus_1,
                   Ls.shape[1], cap)
     return out

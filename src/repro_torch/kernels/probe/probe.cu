@@ -32,6 +32,12 @@
 // the H100, 4 lanes a walk were faster at the exact planner's shape than
 // 8, 16 or 32, and several rows or several warps a block no faster than
 // one of each (PERF.md).
+//
+// Rows that shared memory cannot hold (more than 232,448 bytes: long 1D
+// prefixes, very wide Gammas) take the general route, probe_general: the
+// same walk reading the row from global memory (through L1 and L2)
+// instead of staging it.  The wrapper (ops.py) chooses the route by row
+// length.
 
 // int32: the target p[pos] + L is computed in uint32 and wraps as the plain
 // version's int32 add does; callers keep totals below 2**30 so it cannot.
@@ -96,24 +102,35 @@ __device__ __forceinline__ int count_strided(const T* row, int lo, int stride,
   return group_sum(c);
 }
 
-// One block of one warp per row; the grid is the rows.
-template <typename T>
+// One block of one warp per row; the grid is the rows.  kStaged: the row
+// is staged in shared memory (probe); otherwise it is read where it lies
+// (probe_general).
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(32)
 probe_kernel(const T* __restrict__ p, const T* __restrict__ Ls,
              int* __restrict__ out, int n_plus_1, int K, int cap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* row = reinterpret_cast<T*>(smem_raw);
   const long long s = blockIdx.x;
   const T* src = p + s * n_plus_1;
-  for (int i = threadIdx.x; i < n_plus_1; i += 32) cp_async4(row + i, src + i);
+  const T* row;
+  if constexpr (kStaged) {
+    T* staged = reinterpret_cast<T*>(smem_raw);
+    for (int i = threadIdx.x; i < n_plus_1; i += 32)
+      cp_async4(staged + i, src + i);
+    row = staged;
+  } else {
+    row = src;
+  }
 
   const int lane = threadIdx.x;
   const int g = lane / kLanes, gl = lane % kLanes;
   const int n = n_plus_1 - 1;
   // the first candidates' bottlenecks travel while the row arrives
   T L = g < K ? Ls[s * K + g] : T(0);
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
+  if constexpr (kStaged) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
 
   for (int k0 = 0; k0 < K; k0 += kWalks) {  // warp-uniform
     const int k = k0 + g;
@@ -161,12 +178,21 @@ int probe_launch(const T* p, const T* Ls, int* out, int S, int n_plus_1,
   const size_t smem = (size_t)n_plus_1 * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        probe_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        probe_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  probe_kernel<T><<<(unsigned)S, 32, smem, st>>>(p, Ls, out, n_plus_1, K,
-                                                  cap);
+  probe_kernel<T, true><<<(unsigned)S, 32, smem, st>>>(p, Ls, out, n_plus_1,
+                                                        K, cap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int probe_general_launch(const T* p, const T* Ls, int* out, int S,
+                         int n_plus_1, int K, int cap, cudaStream_t st) {
+  if (S == 0 || K == 0) return (int)cudaGetLastError();
+  probe_kernel<T, false><<<(unsigned)S, 32, 0, st>>>(p, Ls, out, n_plus_1,
+                                                      K, cap);
   return (int)cudaGetLastError();
 }
 
@@ -188,4 +214,22 @@ extern "C" int repro_probe_counts_i32(const void* p, const void* Ls, void* out,
                            static_cast<const int*>(Ls), static_cast<int*>(out),
                            S, n_plus_1, K, cap,
                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_probe_general_f32(const void* p, const void* Ls,
+                                       void* out, int S, int n_plus_1, int K,
+                                       int cap, void* stream) {
+  return probe_general_launch<float>(static_cast<const float*>(p),
+                                     static_cast<const float*>(Ls),
+                                     static_cast<int*>(out), S, n_plus_1, K,
+                                     cap, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_probe_general_i32(const void* p, const void* Ls,
+                                       void* out, int S, int n_plus_1, int K,
+                                       int cap, void* stream) {
+  return probe_general_launch<int>(static_cast<const int*>(p),
+                                   static_cast<const int*>(Ls),
+                                   static_cast<int*>(out), S, n_plus_1, K, cap,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,14 @@
-"""Observability for the port: the span tracer of :mod:`.trace` and the
-engine counters of :mod:`.counters`.
+"""Observability for the port: the span tracer of :mod:`.trace`, the
+engine counters of :mod:`.counters` and :class:`PartitionReport`
+(:mod:`.report`), the explain-plan ``registry.explain`` returns.
 
 Typical use::
 
     from repro_torch import obs
+    from repro_torch.core import registry
+
+    report = registry.explain("jag-pq-opt", gamma, 1000, P=25, Q=40)
+    print(report.summary())
 
     with obs.tracing() as tracer:
         ...  # any instrumented work
@@ -11,11 +16,12 @@ Typical use::
 """
 from __future__ import annotations
 
-from . import counters, trace
+from . import counters, report, trace
 from .counters import C, Counters
+from .report import PartitionReport
 from .trace import (TRACER, Tracer, chrome_trace, enabled, instant, span,
                     tracing, validate_chrome_trace, write_chrome_trace)
 
-__all__ = ["C", "Counters", "TRACER", "Tracer", "chrome_trace", "counters",
-           "enabled", "instant", "span", "trace", "tracing",
-           "validate_chrome_trace", "write_chrome_trace"]
+__all__ = ["C", "Counters", "PartitionReport", "TRACER", "Tracer",
+           "chrome_trace", "counters", "enabled", "instant", "report", "span",
+           "trace", "tracing", "validate_chrome_trace", "write_chrome_trace"]

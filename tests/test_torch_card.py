@@ -25,7 +25,7 @@ import torch
 
 from _torch_parity import (FLASH_CASES, FLASH_TOL, int_loads, long_run_case,
                            need_card, probe_case, qkv, rectload_case)
-from repro_torch.core import prefix, sgorp
+from repro_torch.core import device, prefix, registry, sgorp
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.flash import ref as flash_ref
@@ -86,14 +86,14 @@ def test_rectload_kernel_matches_plain(B, n1, n2, P, Q, dtype, batched):
     assert torch.equal(got, rl_ref.jagged_loads_ref(g, rc, cc).float())
 
 
-def _probe_case_on_card(p, Ls, cap, dtype):
-    """K2 on the card launches once under ``probe`` and equals the plain
-    version bit for bit."""
+def _probe_case_on_card(p, Ls, cap, dtype, key="probe"):
+    """K2 on the card launches once under ``key`` (the route its row
+    length chooses) and equals the plain version bit for bit."""
     dev = need_card()
     p, Ls = (torch.from_numpy(x).to(DTYPES[dtype]).to(dev) for x in (p, Ls))
-    c = _build.launches["probe"]
+    c = _build.launches[key]
     got = probe_ops.probe_counts(p, Ls, cap)
-    assert _build.launches["probe"] == c + 1
+    assert _build.launches[key] == c + 1
     assert torch.equal(got, probe_ref.probe_counts_ref(p, Ls, cap))
     return got
 
@@ -118,14 +118,43 @@ def test_probe_kernel_window_edges(case, S, n, K, cap, dtype):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_probe_kernel_row_at_the_shared_memory_limit(dtype):
     """A row of 58,112 entries fills a block's 232,448 bytes of shared
-    memory; one more entry is refused."""
+    memory and is staged (``probe``); one more entry takes the general
+    route (``probe_general``), bit-identical to the plain version too."""
     n = probe_ops._SMEM_MAX // 4 - 1
     _probe_case_on_card(*long_run_case(2, n, 4), 24, dtype)
+    _probe_case_on_card(*long_run_case(2, n + 1, 4), 24, dtype,
+                        key="probe_general")
+
+
+# K2's general route: rows past shared memory (58,113 entries, a 4 MB row
+# of 1,048,577), with the window walk's edges (intervals past 32 and
+# 1,024 entries) and cap = 0
+@pytest.mark.parametrize("case,S,n,K,cap", [
+    ("long", 2, 58112, 6, 24), ("probe", 3, 58112, 9, 40),
+    ("long", 1, 1048576, 15, 1024), ("probe", 2, 1048576, 15, 64),
+    ("probe", 2, 58112, 5, 0)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_probe_general_route_matches_plain(case, S, n, K, cap, dtype):
+    make = long_run_case if case == "long" else probe_case
+    _probe_case_on_card(*make(S, n, K), cap, dtype, key="probe_general")
+
+
+# the general kernel on the staged route's cases, driven on purpose
+# (``ops._launch``): n = 0, cap = 0, K past a block's walks, many rows
+@pytest.mark.parametrize("case,S,n,K,cap", [
+    ("probe", 4, 0, 3, 2), ("probe", 5, 17, 7, 0), ("probe", 9, 60, 200, 5),
+    ("probe", 2047, 512, 8, 32), ("long", 8, 3000, 6, 12),
+    ("long", 4, 20000, 4, 40)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_probe_general_kernel_on_short_rows(case, S, n, K, cap, dtype):
     dev = need_card()
-    with pytest.raises(ValueError):
-        probe_ops.probe_counts(
-            torch.zeros((1, n + 2), dtype=DTYPES[dtype], device=dev),
-            torch.zeros((1, 1), dtype=DTYPES[dtype], device=dev), 4)
+    make = long_run_case if case == "long" else probe_case
+    p, Ls = (torch.from_numpy(x).to(DTYPES[dtype]).to(dev)
+             for x in make(S, n, K))
+    c = _build.launches["probe_general"]
+    got = probe_ops._launch(p, Ls, cap, "probe_general")
+    assert _build.launches["probe_general"] == c + 1
+    assert torch.equal(got, probe_ref.probe_counts_ref(p, Ls, cap))
 
 
 def _rectload_on_card(g, rc, cc):
@@ -382,6 +411,63 @@ def test_sgorp_host_entries_on_card_match_cpu(speeds):
     g2 = prefix.prefix_sum_2d(vol.sum(axis=0))
     assert sgorp.sgorp_2d(g2, 8, speeds=speeds, device=dev).rects == \
         sgorp.sgorp_2d(g2, 8, speeds=speeds, device="cpu").rects
+
+
+def _registry_gamma(kind):
+    A = prefix.pic_like_instance(40, 36, iteration=300, seed=3)
+    g = prefix.prefix_sum_2d(A)
+    return g if kind == "int32" else (g / 7.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["int32", "float32", "speeds"])
+@pytest.mark.parametrize("orient", ["hor", "ver", "best"])
+def test_registry_jag_pq_opt_device_on_card_matches_cpu(kind, orient):
+    """``jag-pq-opt-device`` on the card equals the CPU path rectangle for
+    rectangle (int32, float32 and ``speeds=`` with two dead parts); the
+    homogeneous column probes went through K2 (the speeds branch walks its
+    columns with ``torch.searchsorted``)."""
+    dev = need_card()
+    g = _registry_gamma("int32" if kind == "speeds" else kind)
+    kw = {"P": 4, "Q": 4, "orient": orient}
+    if kind == "speeds":
+        sp = np.random.default_rng(4).uniform(0.25, 4.0, 16)
+        sp[[2, 9]] = 0.0
+        kw["speeds"] = sp
+    before = _build.launches["probe"]
+    got = registry.partition("jag-pq-opt-device", g, 16, device=dev, **kw)
+    want = registry.partition("jag-pq-opt-device", g, 16, device="cpu", **kw)
+    assert got.rects == want.rects
+    assert got.max_load(g) == want.max_load(g)
+    assert (_build.launches["probe"] > before) == (kind != "speeds")
+
+
+@pytest.mark.parametrize("kind", ["int32", "float32"])
+@pytest.mark.parametrize("orient", ["hor", "ver", "best"])
+def test_registry_jag_m_opt_device_on_card_matches_cpu(kind, orient):
+    dev = need_card()
+    g = _registry_gamma(kind)[:25, :21]
+    got = registry.partition("jag-m-opt-device", g, 6, orient=orient,
+                             device=dev)
+    want = registry.partition("jag-m-opt-device", g, 6, orient=orient,
+                              device="cpu")
+    assert got.rects == want.rects
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [4096, 70000])
+def test_nicol_optimal_device_on_card_matches_cpu(dtype, n):
+    """The exact 1D solver on the card, on a row that K2 stages and on one
+    that takes its general route, equals the CPU path."""
+    dev = need_card()
+    p, _ = probe_case(2, n, 1, seed=6)
+    p = torch.from_numpy(p[1:]).to(DTYPES[dtype])
+    key = probe_ops.route(n + 1)
+    before = _build.launches[key]
+    got = device.nicol_optimal_device_impl(p.to(dev), 37)
+    want = device.nicol_optimal_device_impl(p, 37)
+    assert _build.launches[key] > before
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 #: launch keys of K5's kernels by dtype (which one takes a bf16 call is

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import sgorp
+from repro_torch.core import prefix, registry, sgorp
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.rectload import ops as rl_ops
@@ -97,6 +97,52 @@ def test_entry_points_raise_without_cuda(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+DEVICE_NAMES = sorted(n for n in registry.names()
+                      if "device" in n or "sgorp" in n)
+
+
+@pytest.mark.parametrize("name", DEVICE_NAMES)
+def test_registry_device_names_raise_without_cuda(name, monkeypatch):
+    """Each device-backed registry name, called without ``device=``,
+    raises where CUDA is absent; the host names run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    load = (np.arange(512).reshape(8, 8, 8) if name in registry.RANK3
+            else prefix.prefix_sum_2d(np.arange(64).reshape(8, 8)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        registry.partition(name, load, 4)
+    assert registry.partition("jag-pq-opt", prefix.prefix_sum_2d(
+        np.arange(64).reshape(8, 8)), 4).m == 4
+
+
+_REGISTRY_ISOLATED = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path[:0] = [{str(ROOT / 'src')!r}]
+from repro_torch.core import prefix, registry
+g = prefix.prefix_sum_2d(prefix.peak_instance(12, 10, seed=0))
+vol = prefix.pic_like_instance_3d(8, 8, 8, seed=0)
+for name in registry.names():
+    kw = {{"device": "cpu"}} if "device" in name or "sgorp" in name else {{}}
+    m = 4 if name != "hier-opt" else 3
+    part = registry.partition(name, vol if name in registry.RANK3 else g, m,
+                              **kw)
+    assert part.m == m, name
+print(registry.explain("jag-pq-opt-device", g, 4, device="cpu").summary())
+leaked = [m for m, mod in sys.modules.items() if mod is not None and (
+    m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not leaked, leaked
+print("partitioned", len(registry.names()))
+"""
+
+
+def test_registry_runs_without_jax_or_repro():
+    r = subprocess.run([sys.executable, "-c", _REGISTRY_ISOLATED],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) == 46
 
 
 @pytest.mark.parametrize("call", [

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_parity import long_run_case, probe_case, rectload_case
+from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.probe import ref as probe_ref
 from repro_torch.kernels.rectload import ref as rl_ref
 from repro_torch.rebalance.batch_device import Plan
@@ -154,6 +155,27 @@ def test_window_scan_float32_above_2_24(seed):
     Ls = np.stack([np.linspace(p[s, -1] / 40, p[s, -1] / 20, 8)
                    for s in range(16)]).astype(np.float32)
     _check_walk(p, Ls, 32, "float32")
+
+
+@pytest.mark.parametrize("n_plus_1,key", [
+    (1, "probe"), (513, "probe"), (58112, "probe"),
+    (58113, "probe_general"), (1048577, "probe_general")])
+def test_probe_route_by_row_length(n_plus_1, key):
+    """K2 stages a row in shared memory while its 4-byte entries fit a
+    block's 232,448 bytes (58,112 entries); longer rows take the general
+    route, which reads them from global memory with the same walk."""
+    assert probe_ops.route(n_plus_1) == key
+
+
+def test_probe_rows_past_shared_memory_have_a_plain_version():
+    """A row of 58,113 entries (the general route's shape) is taken,
+    not refused: on the CPU the wrapper answers with the plain version,
+    and the walk's replay agrees with it."""
+    p, Ls = long_run_case(2, 58112, 3)
+    got = probe_ops.probe_counts(torch.from_numpy(p.astype(np.int32)),
+                                 torch.from_numpy(Ls.astype(np.int32)), 20)
+    np.testing.assert_array_equal(got.numpy(),
+                                  window_scan_counts(p, Ls, 20))
 
 
 # ---------------------------------------------------------------------------
