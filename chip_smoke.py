@@ -14,10 +14,20 @@ kernels' launch counts set to zero just before it and read just after;
 time the path and the kernels (K1 also at ``plan_iter``'s 16-frame
 slices; the card's launch floor, one one-element ``add_``, beside K2 and
 K3; K2's greedy steps; K3 also on a stream's 64 plans in one launch
-beside its bound; K1, K2 and K3 by kernel).  Then the same for the 3D
-path: T=16 volumes of 128^3 (the 3D PIC series and AMR refinement),
-kernel K4 against its plain version, ``planner.plan_stream`` on rank-4
-frames at m=1024 (a 16 x 8 x 8 processor grid) with its own launch
+beside its bound; K1, K2 and K3 by kernel).  Then the float64 plan path
+(``run_f64``): K1 in float64 on the PIC frames held to its plain version
+and the exact prefix (max_abs_err 0) and timed beside its bound and
+``torch.cumsum``, then ``planner.plan_host(gamma_dtype=float64)`` with its
+own launch counts, held to the CPU path and to the exact int64 bottleneck
+of its plans.  Then the rebalance runtime (``run_runtime``):
+``runtime.compare_policies`` over both streams with five policies, each
+ledger held to the CPU path's, and ``run_stream`` under both fault
+scenarios with migrations executed (executed bytes = priced volume,
+forced replans at failures, no cell on a dead part), with its own launch
+counts.  Then the serve simulator (``run_serve``, host NumPy).  Then the
+same for the 3D path: T=16 volumes of 128^3 (the 3D PIC series and AMR
+refinement), kernel K4 against its plain version, ``planner.plan_stream``
+on rank-4 frames at m=1024 (a 16 x 8 x 8 processor grid) with its own launch
 counts (every launch through K4's ``sat3`` route, none through
 ``sat3_general``), its checks and times (K4 also at B=1); then K4's
 general route on purpose, planes too wide for one block, with its own
@@ -80,6 +90,7 @@ F32_EXACT = 2 ** 24
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+FP64_OPS_PER_S = 34e12      # H100 SXM float64 rate outside the tensor cores
 SEED = 0
 
 
@@ -701,6 +712,328 @@ def run_registry(cuda: torch.device) -> list:
         f"{steps} greedy steps: {entry['ms']:.4f} ms against a bound of "
         f"{b_ms:.4f} ms ({b_by}); plain version {entry['plain_ms']:.4f} ms")
     return [entry]
+
+
+N_SERVE = 100_000   # the README's serving example at a tenth of its requests
+ALPHA = 0.25             # the runtime's cost per unit of migrated load
+#: the runtime phase's planner accumulators by stream: refinement-bursts
+#: stays below 2**24, where float32 is exact; the PIC series lies above
+#: it, where card and CPU float32 sums differ in order (P6) and float64
+#: is exact on both
+RUNTIME_DTYPES = {"refinement-bursts": torch.float32, "pic": torch.float64}
+
+
+def ledger_diff(a, b) -> list:
+    """Where two ``runtime.RunResult`` ledgers differ: every
+    ``StepRecord`` field but ``wall_time`` (a host clock), exactly, and
+    the final plan's arrays."""
+    import dataclasses
+    if len(a.records) != len(b.records):
+        return [f"{len(a.records)} records vs {len(b.records)}"]
+    bad = []
+    for x, y in zip(a.records, b.records):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if f.name == "wall_time":
+                continue
+            if isinstance(u, dict) and isinstance(v, dict):
+                same = u.keys() == v.keys() and all(
+                    np.array_equal(u[k], v[k]) for k in u)
+            else:
+                same = type(u) is type(v) and u == v
+            if not same:
+                bad.append(f"step {x.step} {f.name}")
+    bad += [f"final plan {f}" for f in ("row_cuts", "counts", "col_cuts")
+            if not np.array_equal(getattr(a.final_plan, f),
+                                  getattr(b.final_plan, f))]
+    return bad
+
+
+def run_f64(cuda: torch.device, streams: dict, host_gamma: dict,
+            totals: dict) -> dict:
+    """K1 in float64 against its plain version on the PIC frames (integer
+    totals up to 5.2e8, exact in float64), timed beside its bound and
+    ``torch.cumsum``; then the float64 plan path (``planner.plan_host(
+    gamma_dtype=float64)``) with its own launch counts, held to the CPU
+    path and to the exact int64 bottleneck of its own plans.  Returns K1
+    float64's entry of the kernels' record."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sat import ops as sat_ops
+    from repro_torch.kernels.sat import ref as sat_ref
+    from repro_torch.rebalance import batch_device, planner
+
+    # -- 20. K1 float64 against its plain version on the card -------------
+    fr = streams["pic"]
+    check(int(totals["pic"].max()) < 2 ** 53, "float64 planning needs the "
+          "PIC frame totals below 2**53")
+    rng = np.random.default_rng(SEED + 3)
+    for shape in ((1, 1), (5, 7, 9), (3, 130, 257), (2, 1000, 33)):
+        a = torch.as_tensor(rng.integers(0, 2 ** 30, shape),
+                            device=cuda).double()
+        check(torch.equal(sat_ops.gamma(a), sat_ref.gamma_ref(a)),
+              f"sat float64 {shape}: kernel differs from the plain version")
+    a = torch.as_tensor(fr, device=cuda).double()
+    gk, gp = sat_ops.gamma(a), sat_ref.gamma_ref(a)
+    err = float((gk - gp).abs().max())
+    g_exact = torch.as_tensor(np.stack(host_gamma["pic"]), device=cuda)
+    check(err == 0 and torch.equal(gk, g_exact.double()),
+          f"sat float64 pic: kernel {err} off the plain version, or not the "
+          f"exact int64 prefix")
+    log("sat64", f"odd shapes (1,1), (5,7,9), (3,130,257), (2,1000,33) of "
+        f"integer loads below 2**30, and the PIC frames ({T}, {N1}, {N2}) "
+        f"cast to float64 (totals up to {totals['pic'].max():.3e}): "
+        f"bit-identical to the plain version and to the exact int64 prefix "
+        f"(max_abs_err 0)")
+    del gk, gp, g_exact
+    nbytes = a.numel() * 8 + T * (N1 + 1) * (N2 + 1) * 8
+    b_ms, b_by = bound(nbytes, 2 * a.numel(), FP64_OPS_PER_S)
+    k1 = {
+        "name": "sat_f64", "route": "cuda",
+        "source": "src/repro_torch/kernels/sat/sat.cu",
+        "replaces": "src/repro/kernels/sat/sat.py:64",
+        "launches": 0, "max_abs_err": err,
+        "ms": device_ms(lambda: sat_ops.gamma(a)),
+        "plain_ms": device_ms(lambda: sat_ref.gamma_ref(a)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
+            a, dim=-2), dim=-1))}
+    log("sat64", f"K1 float64 at {tuple(a.shape)}: {k1['ms']:.4f} ms "
+        f"against a bound of {b_ms:.4f} ms ({nbytes} bytes in and out); "
+        f"plain version {k1['plain_ms']:.4f} ms, torch.cumsum twice "
+        f"{k1['library_ms']:.4f} ms; by kernel: "
+        f"{by_kernel(lambda: sat_ops.gamma(a))}")
+    del a
+
+    # -- 21. the float64 plan path -----------------------------------------
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plans = planner.plan_host(fr, P=P, m=M, gamma_dtype=torch.float64)
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    log("plan64", f"plan_host pic T={T} gamma_dtype=float64 in {first_s:.2f} "
+        f"s (host clock, first call); kernel launches {launches}")
+    check(launches.get("sat", 0) >= 1, "kernel sat never ran on the float64 "
+          "plan path")
+    k1["launches"] = launches.get("sat", 0)
+    out = planner.plan_stream(fr, P=P, m=M, gamma_dtype=torch.float64)
+    t0 = time.perf_counter()
+    cpu = planner.plan_stream(fr, P=P, m=M, gamma_dtype=torch.float64,
+                              device="cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_plans = batch_device.unstack_plans(cpu, (N1, N2))
+    same = [all(np.array_equal(getattr(x, f), getattr(y, f))
+                for f in ("row_cuts", "counts", "col_cuts"))
+            for x, y in zip(plans, cpu_plans)]
+    check(all(same), f"float64 plans: card and CPU differ on frames "
+          f"{[t for t, s in enumerate(same) if not s]}")
+    check(torch.equal(out[3].cpu(), cpu[3]), "float64 Lmax: card and CPU "
+          "differ")
+    lmax = out[3].cpu().numpy()
+    exact = np.array([pl.loads(host_gamma["pic"][t]).max()
+                      for t, pl in enumerate(plans)])
+    check(np.array_equal(lmax, exact.astype(np.float64)), "float64 Lmax is "
+          "not the exact int64 bottleneck of its plan on every frame")
+    for t, pl in enumerate(plans):
+        pl.validate(host_gamma["pic"][t], m=M)
+
+    def timed(gd) -> list:
+        runs = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            planner.plan_host(fr, P=P, m=M, gamma_dtype=gd)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return runs[1:]
+
+    r32, r64 = timed(torch.float32), timed(torch.float64)
+    p32 = planner.plan_host(fr, P=P, m=M)
+    q32 = np.array([pl.max_load(host_gamma["pic"][t])
+                    for t, pl in enumerate(p32)]) / (totals["pic"] / M)
+    q64 = exact / (totals["pic"] / M)
+    log("plan64", f"pic T={T}: all {T} float64 plans valid, card = CPU bit "
+        f"for bit (cuts, counts, Lmax; the CPU path took {cpu_s:.2f} s), "
+        f"Lmax = the exact int64 bottleneck of its plan on every frame")
+    log("plan64", f"plan_host pic T={T}, host clock over 3 runs: float32 "
+        f"median {statistics.median(r32):.1f} ms (min {min(r32):.1f}, max "
+        f"{max(r32):.1f}), float64 median {statistics.median(r64):.1f} ms "
+        f"(min {min(r64):.1f}, max {max(r64):.1f}); Lmax / (total/m) on the "
+        f"exact prefix: float32 mean {q32.mean():.6f} (max {q32.max():.6f}), "
+        f"float64 mean {q64.mean():.6f} (max {q64.max():.6f})")
+    return k1
+
+
+def _runtime_policies() -> dict:
+    from repro_torch.rebalance import policy
+    return {"never": policy.NeverRebalance(),
+            "always": policy.AlwaysRebalance(),
+            "every8": policy.EveryK(8),
+            "hysteresis": policy.HysteresisPolicy(),
+            "two-phase": policy.TwoPhaseHysteresis()}
+
+
+def _walls(res) -> str:
+    w = np.array([r.wall_time for r in res.records]) * 1e3
+    return (f"step wall_time median {np.median(w):.2f} ms, max "
+            f"{w.max():.2f} ms")
+
+
+def run_runtime(cuda: torch.device, streams: dict, totals: dict) -> None:
+    """The rebalance runtime on the card: ``runtime.compare_policies`` over
+    both streams with five policies, each ledger held to the CPU path's,
+    then ``run_stream`` with fault-aware hysteresis under both fault
+    scenarios, migrations executed and plans validated, with its own
+    launch counts."""
+    from repro_torch.kernels import _build
+    from repro_torch.rebalance import faults, runtime
+
+    # -- 22. compare_policies on the card against the CPU -----------------
+    _build.launches.clear()
+    card, overhead = {}, {}
+    for name, fr in streams.items():
+        overhead[name] = float(totals[name].mean()) / M
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card[name] = runtime.compare_policies(
+            fr, _runtime_policies(), P=P, m=M, alpha=ALPHA,
+            replan_overhead=overhead[name],
+            gamma_dtype=RUNTIME_DTYPES[name])
+        log("runtime", f"{name}: compare_policies T={T}, 5 policies, "
+            f"gamma_dtype {RUNTIME_DTYPES[name]}, alpha {ALPHA}, "
+            f"replan_overhead {overhead[name]:.1f} (mean frame total / m), "
+            f"in {time.perf_counter() - t0:.2f} s (host clock)")
+    launches = dict(_build.launches)
+    log("runtime", f"kernel launches over both compare_policies: {launches}")
+    check(launches.get("sat", 0) >= 1, "kernel sat never ran in the "
+          "runtime's planning")
+    for name, fr in streams.items():
+        t0 = time.perf_counter()
+        cpu = runtime.compare_policies(
+            fr, _runtime_policies(), P=P, m=M, alpha=ALPHA,
+            replan_overhead=overhead[name],
+            gamma_dtype=RUNTIME_DTYPES[name], device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for pol, res in card[name].items():
+            bad = ledger_diff(res, cpu[pol])
+            check(not bad, f"{name} {pol}: the card's ledger differs from "
+                  f"the CPU path's: {bad[:5]}")
+            log("runtime", f"{name} {pol}: {res.summary()}; "
+                f"{_walls(res)}")
+        log("runtime", f"{name}: every ledger equals the CPU path's (all "
+            f"StepRecord fields but wall_time, and the final plans; the CPU "
+            f"path took {cpu_s:.2f} s)")
+
+    # -- 23. faults, migrations executed ----------------------------------
+    # a tap on the capacity-aware planner keeps every plan it gives the
+    # runtime, with the speeds it was given
+    capacity_plan = faults.capacity_plan
+    adopted = []
+
+    def tap(g, *, P, m, speeds=None, optimal=True):
+        plan = capacity_plan(g, P=P, m=m, speeds=speeds, optimal=optimal)
+        adopted.append((np.asarray(speeds), plan))
+        return plan
+
+    faults.capacity_plan = tap
+    try:
+        for scenario in ("random-failures", "rack-failure"):
+            adopted.clear()
+            _run_faults(scenario, streams["refinement-bursts"],
+                        overhead["refinement-bursts"], adopted)
+    finally:
+        faults.capacity_plan = capacity_plan
+
+
+def _run_faults(scenario: str, fr: np.ndarray, ro: float,
+                adopted: list) -> None:
+    """``run_stream`` with fault-aware hysteresis under one fault scenario,
+    migrations executed and plans validated, with its own launch counts;
+    ``adopted`` holds the capacity-aware planner's plans of the run."""
+    from repro_torch.core import search
+    from repro_torch.kernels import _build
+    from repro_torch.rebalance import faults, policy, runtime
+
+    sched = faults.FAULT_SCENARIOS[scenario](T, M, seed=0)
+    _build.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = runtime.run_stream(fr, policy.FaultAwareHysteresis(), P=P, m=M,
+                             alpha=ALPHA, replan_overhead=ro, faults=sched,
+                             execute=True, validate=True)
+    run_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    for k in ("sat", "rectload"):
+        check(launches.get(k, 0) >= 1, f"kernel {k} never ran in run_stream "
+              f"under {scenario}")
+    replans = [r for r in res.records[1:] if r.replanned]
+    check(replans and all(r.executed_bytes == r.migration_volume
+                          for r in replans),
+          f"{scenario}: executed bytes differ from the priced migration "
+          f"volume")
+    fails = sorted({e.step for e in sched.events if e.kind == "fail"})
+    forced = [r.step for r in res.records if r.forced]
+    check(forced == fails and all(res.records[t].replanned for t in fails),
+          f"{scenario}: forced replans at {forced}, failures at {fails}")
+    check(all(np.isfinite(r.max_load) for r in res.records),
+          f"{scenario}: a dead part kept load")
+    for sp, plan in adopted:
+        dead = np.flatnonzero(sp == 0)
+        check(not np.isin(dead, plan.owner_map()).any(),
+              f"{scenario}: a plan gives cells to dead parts {dead}")
+    check(not np.isin(sched.failed_at(T - 1),
+                      res.final_plan.owner_map()).any(),
+          f"{scenario}: the final plan gives cells to dead parts")
+    degraded = sum(search.normalize_speeds(sched.speeds_at(r.step), M)
+                   is not None for r in replans)
+    check(len(adopted) == degraded, f"{scenario}: {degraded} replans under "
+          f"degraded capacity, {len(adopted)} capacity-aware plans")
+    moved = sum(r.executed_bytes for r in replans)
+    step_ms = {r.step: r.wall_time * 1e3 for r in res.records}
+    log("faults", f"{scenario}: step 0 {step_ms[0]:.1f} ms (it waits for "
+        f"plan_iter to enqueue every slice), forced replans " + ", ".join(
+            f"step {t} {step_ms[t]:.1f} ms" for t in fails)
+        + ", other replans " + ", ".join(
+            f"step {r.step} ({r.mode}) {step_ms[r.step]:.1f} ms"
+            for r in replans if not r.forced))
+    log("faults", f"{scenario} ({len(sched.events)} events: "
+        + ", ".join(f"{e.kind} part {e.part} at {e.step}"
+                    for e in sched.events)
+        + f"): run_stream with fault-aware hysteresis, execute and validate, "
+        f"in {run_s:.2f} s; {res.summary()}; "
+        f"forced at {forced}; evacuated {res.evacuation_volume:.0f}; "
+        f"executed {moved:.0f} = priced on all {len(replans)} replans; "
+        f"{len(adopted)} capacity-aware plans, none with cells on a dead "
+        f"part; {_walls(res)}; launches {launches}")
+
+
+def run_serve() -> None:
+    """The serve simulator (host NumPy, nothing on the card): the README's
+    example at a tenth of its requests."""
+    from repro_torch.rebalance import policy
+    from repro_torch.serve import simulate
+
+    # -- 24. serving ---------------------------------------------------------
+    t0 = time.perf_counter()
+    res = simulate.simulate(
+        simulate.poisson_arrivals(N_SERVE, rate=400.0, seed=SEED),
+        n_replicas=8, service_rate=16000.0, tick=0.1,
+        policy=policy.TwoPhaseHysteresis())
+    host_s = time.perf_counter() - t0
+    check(res.admitted == N_SERVE
+          and res.completed + res.evicted == res.admitted,
+          f"serve: admitted {res.admitted}, completed {res.completed}, "
+          f"evicted {res.evicted}")
+    check(res.hist.count == res.completed > 0, "serve: the latency "
+          "histogram is empty or misses completions")
+    p50, p99 = res.percentile([50, 99])
+    log("serve", f"simulate {N_SERVE} Poisson requests at rate 400, 8 "
+        f"replicas, service rate 16000, tick 0.1, two-phase hysteresis: "
+        f"{res.completed} completed, {res.evicted} evicted; throughput "
+        f"{res.throughput:.1f} requests per simulated time unit; latency "
+        f"p50 {p50:.4f}, p99 {p99:.4f} (histogram p50 "
+        f"{res.hist.percentile(50):.4f}, p99 {res.hist.percentile(99):.4f}); "
+        f"replans {res.replans}; migrated {res.migrated_tokens} tokens; "
+        f"host time {host_s:.2f} s (NumPy on the host, nothing on the card)")
 
 
 # K5's shapes: (name, source, query heads, KV heads, head dim, window,
@@ -1354,6 +1687,9 @@ def main() -> int:
         f"({N1 + 1}, {N2 + 1}) float32 Gamma, {touched} distinct entries "
         f"touched; max_abs_err for sat is the largest over every "
         f"comparison above (float32 PIC frames lie above 2**24)")
+    kernels.append(run_f64(cuda, streams, host_gamma, totals))
+    run_runtime(cuda, streams, totals)
+    run_serve()
     kernels.extend(run_3d(cuda))
     kernels.extend(run_registry(cuda))
     kernels.extend(run_flash(cuda))

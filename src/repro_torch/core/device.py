@@ -17,9 +17,10 @@ tensors, never over frames:
 Solvers:
 
 - :func:`jag_m_heur_device_impl`, the paper's JAG-M-HEUR (the planner's
-  default) on float32 accumulators: results are bit-identical to the
-  reference where every frame total is below 2**24 (the reference's
-  float64 accumulators are not ported: they raise ``NotImplementedError``);
+  default) on float32 accumulators, bit-identical to the reference where
+  every frame total is below 2**24, or on float64 accumulators,
+  bit-identical to the reference under x64 (exact for integer loads
+  below 2**53);
 - :func:`nicol_optimal_device_impl`, the exact 1D solver;
 - :func:`jag_pq_opt_device_impl`, the exact JAG-PQ-OPT;
 - :func:`jag_m_opt_device_impl`, the exact JAG-M-OPT (small instances).
@@ -104,22 +105,91 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor,
     return s.to(torch.float32)
 
 
+# Veltkamp's constant for float64: 2**27 + 1 splits a double into two
+# halves of 26 significant bits whose products are exact
+_SPLIT_F64 = 134217729.0
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """``(s, e)`` with ``s = fl(a + b)`` and ``s + e == a + b`` exactly
+    (Knuth's branch-free two-sum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """``(p, e)`` with ``p = fl(a * b)`` and ``p + e == a * b`` exactly
+    (Dekker's product over Veltkamp splits; no overflow or underflow)."""
+    def split(x):
+        t = x * _SPLIT_F64
+        hi = t - (t - x)
+        return hi, x - hi
+
+    ah, al = split(a)
+    bh, bl = split(b)
+    p = a * b
+    return p, al * bl - (((p - ah * bh) - al * bh) - ah * bl)
+
+
+def _fma_f64(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for float64 tensors, rounded once.
+
+    XLA fuses the float64 candidate schedule as it fuses the float32 one
+    (:func:`_fma_f32`), and torch has no fused multiply-add, so this is
+    Boldo and Melquiond's emulation from separate elementwise operations
+    (none of which a compiler can contract into an FMA of its own): the
+    exact product ``uh + ul``, the exact sum ``th + tl = c + uh``, the sum
+    ``tl + ul`` rounded to odd (its exact error decides the last bit, as
+    in :func:`_fma_f32`), and one final rounded add.  Correct for finite
+    values whose products neither overflow nor underflow.
+    """
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, err = _two_sum(tl, ul)
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(v, math.inf), err)
+    v = torch.where((err != 0) & even, torch.nextafter(v, toward), v)
+    return th + v
+
+
+#: the candidate schedule's fused multiply-add, by accumulator dtype
+_FMA = {torch.float32: _fma_f32, torch.float64: _fma_f64}
+
+
+def _fractions(k: int, like: torch.Tensor) -> torch.Tensor:
+    """The candidate fractions ``i / (k+1)``, i = 1..k, as the reference
+    computes them: XLA turns the division by the constant ``k+1`` into a
+    multiplication by its reciprocal, so each is ``i * fl(1 / (k+1))``,
+    which is one ulp off ``fl(i / (k+1))`` for some i and k (float64 k=8,
+    i=7; float32 k=5)."""
+    recip = torch.ones((), dtype=like.dtype, device=like.device) / (k + 1)
+    return torch.arange(1, k + 1, dtype=like.dtype, device=like.device) * recip
+
+
+def _check_float_dtype(name: str, dtype: torch.dtype) -> None:
+    if dtype not in _FMA:
+        raise NotImplementedError(
+            f"{name} is ported for float32 and float64 accumulators, got "
+            f"{dtype}")
+
+
 def wide_bisect_device(feasible, lo: torch.Tensor, hi: torch.Tensor, *,
                        k: int = 8, rounds: int = 8):
-    """K candidates per round over B independent float32 intervals.
+    """K candidates per round over B independent float32 or float64
+    intervals.
 
     ``feasible(Ls)`` maps an ascending (B, k) candidate matrix to a (B, k)
     bool mask (monotone).  Returns the final (lo, hi), each (B,); hi
     converges to the optimum from above, within (hi0-lo0)/(k+1)^rounds.
     Runs exactly ``rounds`` rounds with no host sync.
     """
-    if lo.dtype != torch.float32:
-        raise NotImplementedError(
-            f"wide_bisect_device is ported for float32 accumulators, got "
-            f"{lo.dtype}")
-    fr = torch.arange(1, k + 1, dtype=lo.dtype, device=lo.device) / (k + 1)
+    _check_float_dtype("wide_bisect_device", lo.dtype)
+    fma = _FMA[lo.dtype]
+    fr = _fractions(k, lo)
     for _ in range(rounds):
-        Ls = _fma_f32((hi - lo)[:, None], fr[None, :], lo[:, None])
+        Ls = fma((hi - lo)[:, None], fr[None, :], lo[:, None])
         feas = feasible(Ls)
         # new hi: smallest feasible candidate (or old hi)
         hi_new = torch.where(feas, Ls, hi[:, None]).amin(dim=1)
@@ -131,8 +201,8 @@ def wide_bisect_device(feasible, lo: torch.Tensor, hi: torch.Tensor, *,
 
 def optimal_1d_device(p: torch.Tensor, m: int, *, k: int = 8,
                       rounds: int = 8):
-    """Optimal 1D partitions of B float32 prefix rows (B, N+1) by wide
-    bisection.  Returns (cuts (B, m+1), bottleneck (B,))."""
+    """Optimal 1D partitions of B float32 or float64 prefix rows (B, N+1)
+    by wide bisection.  Returns (cuts (B, m+1), bottleneck (B,))."""
     n = p.shape[-1] - 1
     total = p[:, n]
     el_max = torch.diff(p, dim=-1).amax(dim=-1)
@@ -190,19 +260,19 @@ def jag_m_heur_device_impl(gamma: torch.Tensor, *, P: int, m: int,
     """JAG-M-HEUR on device for a Gamma or a (T, n1+1, n2+1) stack.
 
     gamma_dtype: the bisection accumulators' dtype (row and stripe prefix
-    arrays); only float32 is ported, which is also the default.  f32 ulps
-    exceed 1 above 2**24, so results there may differ from the reference's
-    in the last places of Gamma.
+    arrays), float32 or float64.  Defaults to the Gamma's own dtype when
+    that is floating, else float32, as the reference's.  f32 ulps exceed
+    1 above 2**24, so results there may differ from the reference's in the
+    last places of Gamma; float64 keeps integer loads exact below 2**53.
     Returns (row_cuts (T, P+1), counts (T, P), col_cuts (T, P, m_max+1),
     Lmax (T,)) with m_max = m - P + 1 (a stripe can never get more than
     that, since every other stripe keeps at least one processor); a 2D
     Gamma gives the same without the T axis.
     """
-    gd = torch.float32 if gamma_dtype is None else gamma_dtype
-    if gd != torch.float32:
-        raise NotImplementedError(
-            f"jag_m_heur_device_impl is ported for float32 accumulators, "
-            f"got {gd}")
+    gd = gamma_dtype
+    if gd is None:
+        gd = gamma.dtype if gamma.dtype.is_floating_point else torch.float32
+    _check_float_dtype("jag_m_heur_device_impl", gd)
     g, squeeze = _as_batch(gamma)
     T, n2 = g.shape[0], g.shape[2] - 1
     row_prefix = g[:, :, n2].to(gd).contiguous()         # (T, n1+1)
@@ -344,7 +414,7 @@ def wide_bisect_float_device(feasible, lo, hi, *, k: int = 15,
         raise TypeError(f"wide_bisect_float_device takes float32 bounds, "
                         f"got {lo.dtype} and {hi.dtype}")
     rel = max(rel_tol, 4 * float(torch.finfo(torch.float32).eps))
-    fr = torch.arange(1, k + 1, dtype=lo.dtype, device=lo.device) / (k + 1)
+    fr = _fractions(k, lo)
     rounds = torch.zeros(lo.shape, dtype=torch.int32, device=lo.device)
 
     def is_open(lo, hi, rounds):

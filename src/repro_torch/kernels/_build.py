@@ -47,6 +47,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "repro_sat_gamma_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_sat_gamma_i32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_sat_gamma_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_sat3_gamma_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_sat3_gamma_i32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_sat3_general_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -5,7 +5,8 @@ A CUDA tensor goes through a kernel, a CPU tensor through the plain
 version in ``ref.py``; there is no other route.  :func:`gamma` takes a
 ``(n1, n2)`` frame or a ``(B, n1, n2)`` stack, :func:`gamma3` a
 ``(n1, n2, n3)`` volume or a ``(B, n1, n2, n3)`` stack (separate names,
-because a rank-3 input is either), of int32 or float32 loads.
+because a rank-3 input is either), of int32 or float32 loads; K1 also
+takes float64 (the heuristic planner's float64 accumulators).
 
 Both kernels cut the frames into bands and run a reduce, then a scan
 (``sat_scan.cuh``); the wrappers allocate the scratch that carries the
@@ -23,13 +24,15 @@ import torch
 from .. import _build
 from .ref import gamma3_ref, gamma_ref
 
-_FN = {torch.float32: "repro_sat_gamma_f32", torch.int32: "repro_sat_gamma_i32"}
+_FN = {torch.float32: "repro_sat_gamma_f32", torch.int32: "repro_sat_gamma_i32",
+       torch.float64: "repro_sat_gamma_f64"}
 _FN3 = {torch.float32: "repro_sat3_gamma_f32",
         torch.int32: "repro_sat3_gamma_i32"}
 _FN3G = {torch.float32: "repro_sat3_general_f32",
          torch.int32: "repro_sat3_general_i32"}
 #: dtype of the carries in scratch: float64 sums, or the bits of uint32 sums
-_ACC = {torch.float32: torch.float64, torch.int32: torch.int32}
+_ACC = {torch.float32: torch.float64, torch.int32: torch.int32,
+        torch.float64: torch.float64}
 
 #: granule of K1's band heights: a sub-band of the reduce, and a multiple
 #: of the scan's 16-row tiles
@@ -78,9 +81,10 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_dtype(name: str, a: torch.Tensor) -> None:
-    if a.dtype not in _FN:
-        raise TypeError(f"{name} takes int32 or float32 loads, got {a.dtype}")
+def _check_dtype(name: str, a: torch.Tensor, fns: dict) -> None:
+    if a.dtype not in fns:
+        kinds = " or ".join(str(d).removeprefix("torch.") for d in fns)
+        raise TypeError(f"{name} takes {kinds} loads, got {a.dtype}")
 
 
 def _sums(x: torch.Tensor, planes: int, rows: int, R: int,
@@ -95,10 +99,10 @@ def _sums(x: torch.Tensor, planes: int, rows: int, R: int,
 
 def gamma(a: torch.Tensor) -> torch.Tensor:
     """The paper's Gamma array: exclusive prefix, shape (..., n1+1, n2+1),
-    in ``a``'s dtype."""
+    in ``a``'s dtype (int32, float32 or float64)."""
     if a.ndim not in (2, 3):
         raise ValueError(f"gamma takes (n1, n2) or (B, n1, n2), got {a.ndim}D")
-    _check_dtype("gamma", a)
+    _check_dtype("gamma", a, _FN)
     if _build.on_cpu("sat", a):
         return gamma_ref(a)
     x = a.contiguous()
@@ -125,7 +129,7 @@ def gamma3(a: torch.Tensor) -> torch.Tensor:
     if a.ndim not in (3, 4):
         raise ValueError(f"gamma3 takes (n1, n2, n3) or (B, n1, n2, n3), "
                          f"got {a.ndim}D")
-    _check_dtype("gamma3", a)
+    _check_dtype("gamma3", a, _FN3)
     if _build.on_cpu("sat3", a):
         return gamma3_ref(a)
     x = a.contiguous()

@@ -19,6 +19,10 @@
 // wrote and read Gamma three times, about 3x.
 // int32: sums in uint32, which wrap mod 2**32 as torch.cumsum does; the
 // int additions before overflowed, undefined behaviour in C++.
+// float64: the same design at 8 bytes an entry, tiles of 16 x 128 (the
+// same bytes as 16 x 256 of 4-byte entries), sums and carries in float64;
+// at (64, 512, 512) it reads 134.2 MB and writes 134.7 MB, 0.0803 ms at
+// 3.35 TB/s.
 
 #include "sat_scan.cuh"
 
@@ -46,6 +50,15 @@ extern "C" int repro_sat_gamma_f32(const void* a, void* g, void* scratch,
   return gamma_launch<float>(static_cast<const float*>(a),
                              static_cast<float*>(g), scratch, B, n1, n2, R,
                              static_cast<cudaStream_t>(stream));
+}
+
+// scratch: as above, float64 sums
+extern "C" int repro_sat_gamma_f64(const void* a, void* g, void* scratch,
+                                   int B, int n1, int n2, int R,
+                                   void* stream) {
+  return gamma_launch<double>(static_cast<const double*>(a),
+                              static_cast<double*>(g), scratch, B, n1, n2, R,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // scratch: as above, uint32 sums

@@ -35,7 +35,14 @@
 // below 2**53 are then exact until that rounding, so below a frame total of
 // 2**24 the result equals torch.cumsum's bit for bit.  int32 sums are taken
 // in uint32: they wrap mod 2**32 as torch.cumsum(dtype=int32) does, in any
-// order, without the undefined behaviour of signed overflow.
+// order, without the undefined behaviour of signed overflow.  float64 (K1
+// only) sums in float64 throughout: integer loads are exact below a frame
+// total of 2**53.
+//
+// Element size.  The tiles are sized in bytes: a 4-byte element takes 8
+// columns a lane (16 x 256 tiles), an 8-byte one 4 (16 x 128 tiles), so a
+// tile, the ring and the staging rows hold the same bytes for both and
+// every 16-byte copy moves 16 / sizeof(T) entries.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -51,6 +58,19 @@ template <> struct Sums<float> {
   static __device__ __forceinline__ float out(double v) {
     return __double2float_rn(v);
   }
+};
+// four doubles, 16-byte aligned (loaded as two 16-byte vectors)
+struct __align__(16) D4 {
+  double x, y, z, w;
+};
+template <> struct Sums<double> {
+  using Row = double;
+  using Acc = double;
+  using V4 = D4;
+  static __device__ __forceinline__ double load(const double* p) {
+    return *p;
+  }
+  static __device__ __forceinline__ double out(double v) { return v; }
 };
 template <> struct Sums<int> {
   using Row = unsigned;
@@ -106,6 +126,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -119,20 +144,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// one entry's copy, by element size
+template <int Bytes> struct CpAsync;
+template <> struct CpAsync<4> {
+  static __device__ __forceinline__ void one(void* d, const void* s) {
+    cp_async4(d, s);
+  }
+};
+template <> struct CpAsync<8> {
+  static __device__ __forceinline__ void one(void* d, const void* s) {
+    cp_async8(d, s);
+  }
+};
+
 // Copy entries c .. c + CPL - 1 of a row to dst, zeros past `cols` or for
 // a row that is not there (`live` false; row is then not read); vec:
-// 16-byte copies (rows and c 16-byte aligned).
+// 16-byte copies of 16 / sizeof(T) entries (rows and c 16-byte aligned).
 template <typename T, int CPL>
 __device__ __forceinline__ void copy_seg(T* dst, const T* row, int c,
                                          int cols, bool live, bool vec) {
+  constexpr int V = 16 / sizeof(T);
   if (CPL % 4 == 0 && vec && live && c + CPL <= cols) {
 #pragma unroll
-    for (int e = 0; e < CPL; e += 4) cp_async16(dst + e, row + c + e);
+    for (int e = 0; e < CPL; e += V) cp_async16(dst + e, row + c + e);
   } else {
 #pragma unroll
     for (int e = 0; e < CPL; ++e) {
       if (live && c + e < cols)
-        cp_async4(dst + e, row + c + e);
+        CpAsync<sizeof(T)>::one(dst + e, row + c + e);
       else
         dst[e] = T(0);
     }
@@ -508,8 +547,13 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// K1's tiles: 16 rows x 256 columns, three in flight
-constexpr int kScanCPL = 8, kScanRPW = 2, kScanNW = 8, kScanNST = 3;
+// K1's tiles: 16 rows x 16 * 64 bytes (256 columns of 4 bytes, 128 of 8),
+// three in flight
+constexpr int kScanRPW = 2, kScanNW = 8, kScanNST = 3;
+template <typename T>
+constexpr int scan_cpl() {
+  return sizeof(T) == 8 ? 4 : 8;
+}
 
 // Gamma of F planes of (rows, cols) by bands of R rows: the reduce, then
 // the scan.  E holds F * (nb - 1) * ceil(R / kSub) * cols sums.  Returns
@@ -525,12 +569,13 @@ cudaError_t gamma_planes(const T* x, Planes xp, T* g, Planes gp, long long F,
   if (F * nb > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   cudaError_t e = band_carries<T>(x, xp, F, cols, R, nb, E, st);
   if (e != cudaSuccess) return e;
-  constexpr int CW = 32 * kScanCPL, TR = kScanNW * kScanRPW;
+  constexpr int CPL = scan_cpl<T>();
+  constexpr int CW = 32 * CPL, TR = kScanNW * kScanRPW;
   const bool multi = cols > CW;
   const size_t smem = sizeof(Acc) * 2 * (kScanNW + 1) * CW +
                       sizeof(T) * (kScanNW + kScanNST * TR) * CW +
                       (multi ? sizeof(Acc) * (size_t)R : 0);
-  auto kernel = sat_band_kernel<T, kScanCPL, kScanRPW, kScanNW, kScanNST>;
+  auto kernel = sat_band_kernel<T, CPL, kScanRPW, kScanNW, kScanNST>;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const long long efs = (long long)(nb - 1) * ((R + kSub - 1) / kSub) * cols;

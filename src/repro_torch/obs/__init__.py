@@ -1,6 +1,8 @@
 """Observability for the port: the span tracer of :mod:`.trace`, the
-engine counters of :mod:`.counters` and :class:`PartitionReport`
-(:mod:`.report`), the explain-plan ``registry.explain`` returns.
+engine counters of :mod:`.counters`, :class:`PartitionReport`
+(:mod:`.report`), the explain-plan ``registry.explain`` returns, and
+:class:`LogHistogram` (:mod:`.hist`), the bounded-memory latency
+histogram the serve simulator streams into.
 
 Typical use::
 
@@ -16,12 +18,14 @@ Typical use::
 """
 from __future__ import annotations
 
-from . import counters, report, trace
+from . import counters, hist, report, trace
 from .counters import C, Counters
+from .hist import LogHistogram
 from .report import PartitionReport
 from .trace import (TRACER, Tracer, chrome_trace, enabled, instant, span,
                     tracing, validate_chrome_trace, write_chrome_trace)
 
-__all__ = ["C", "Counters", "PartitionReport", "TRACER", "Tracer",
-           "chrome_trace", "counters", "enabled", "instant", "report", "span",
-           "trace", "tracing", "validate_chrome_trace", "write_chrome_trace"]
+__all__ = ["C", "Counters", "LogHistogram", "PartitionReport", "TRACER",
+           "Tracer", "chrome_trace", "counters", "enabled", "hist",
+           "instant", "report", "span", "trace", "tracing",
+           "validate_chrome_trace", "write_chrome_trace"]

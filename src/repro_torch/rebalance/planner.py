@@ -27,6 +27,11 @@ caller passes ``device="cpu"``, as the tests do.  The mesh-sharded path
 is enqueued up front (CUDA launches are asynchronous, and the heuristic
 path never waits on the card), so a policy loop consuming slice ``i``
 overlaps with the card still planning slices ``i+1..``.
+
+The graded replan decision (:func:`repro_torch.rebalance.policy.replan_mode`)
+is re-exported here: planning and deciding-when-to-adopt are the two
+halves of the planner API that ``rebalance.runtime`` and ``serve.batcher``
+consume.
 """
 from __future__ import annotations
 
@@ -39,11 +44,12 @@ import torch
 from repro_torch.core import device, sgorp
 from repro_torch.kernels.sat import ops as sat_ops
 from repro_torch.obs import trace as _trace
+from repro_torch.rebalance.policy import replan_mode
 
 __all__ = ["resolve_device", "resolve_gamma_dtype", "ingest_stage",
            "sat_stage", "partition_stage", "plan_frames", "plan_stream",
            "plan_frames_3d", "plan_stream_3d", "iter_plan_slices",
-           "plan_iter", "plan_host", "profile_stages"]
+           "plan_iter", "plan_host", "profile_stages", "replan_mode"]
 
 # How many slices the lazy iterator aims for when none is requested: deep
 # enough that the policy loop starts after ~1/4 of the stream is planned,
@@ -113,10 +119,14 @@ def _check_rank(frames, what: str) -> None:
                          f"{frames.ndim}{hint}")
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
+def _check_mesh(mesh, devices: int | None = None) -> None:
+    """The single-device planner only: ``mesh=None`` and ``devices`` None
+    or 1 (the reference's ``resolve_mesh`` builds a planner mesh from
+    ``devices=N``; the sharded planner is not ported yet)."""
+    if mesh is not None or devices not in (None, 1):
         raise NotImplementedError("the mesh-sharded planner is not ported "
-                                  "yet; pass mesh=None")
+                                  "yet; pass mesh=None and devices=None "
+                                  "or 1")
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +149,9 @@ def ingest_stage(frames: torch.Tensor, *, gamma_dtype=torch.float32,
                  limit: int = _EXACT_LIMIT) -> torch.Tensor:
     """Frame ingest: cast to the accumulator dtype *before* the SAT scan.
 
-    An int32 accumulator needs every frame total below ``limit``: 2**30 on
+    Accumulation happens in ``gamma_dtype``: float32 saturates above 2**24
+    total load; float64 keeps integer loads exact below 2**53 (the SAT
+    kernel K1 takes it).  An int32 accumulator needs every frame total below ``limit``: 2**30 on
     the exact 2D path (its greedy targets p + L must not wrap), 2**31 on
     the 3D path.  Larger frames raise here, before the cast could wrap
     them.

@@ -67,6 +67,35 @@ def assert_same_plans(a, b) -> None:
             np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
 
 
+def ledger_diff(a, b) -> list:
+    """Where two ``runtime.RunResult`` ledgers (from either package, or
+    the card and the CPU) differ: every ``StepRecord`` field but
+    ``wall_time``, exactly (value and type; ``churn``'s arrays by value),
+    and the final plan's arrays.  Empty when they agree."""
+    import dataclasses
+    bad = []
+    if len(a.records) != len(b.records):
+        return [f"{len(a.records)} records vs {len(b.records)}"]
+    for x, y in zip(a.records, b.records):
+        for f in dataclasses.fields(x):
+            if f.name == "wall_time":
+                continue
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, dict) and isinstance(v, dict):
+                same = u.keys() == v.keys() and all(
+                    np.array_equal(u[k], v[k]) and type(u[k]) is type(v[k])
+                    for k in u)
+            else:
+                same = type(u) is type(v) and u == v
+            if not same:
+                bad.append(f"step {x.step} {f.name}: {u!r} != {v!r}")
+    for f in ("row_cuts", "counts", "col_cuts"):
+        if not np.array_equal(getattr(a.final_plan, f),
+                              getattr(b.final_plan, f)):
+            bad.append(f"final plan {f}")
+    return bad
+
+
 def need_card() -> torch.device:
     """The CUDA device, or skip the calling test: a CUDA kernel has no
     interpret mode, so tests of a kernel against its plain version run on

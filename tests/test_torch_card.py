@@ -630,3 +630,143 @@ def test_flash_kernel_matches_chunked_attention(window, dtype):
                               softcap=50.0)
     tol = 3e-5 if dtype == "float32" else FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# K1 in float64: the band and tile edges of the 4-byte kernel (an 8-byte
+# entry takes 128 columns a chunk), many frames, and integer loads up to
+# 2**30 whose sums stay exact in float64 (tolerance: none)
+@pytest.mark.parametrize("shape", [
+    (1, 1), (7, 9), (3, 17, 130), (4, 0, 5), (2, 5, 0), (3, 130, 200),
+    (5, 1, 1), (2, 1, 700), (2, 700, 1), (2, 65, 127), (2, 65, 129),
+    (2, 300, 1030), (1, 4480, 3), (1, 1000, 37), (64, 512, 512),
+    (300, 33, 17)])
+def test_sat_kernel_float64_matches_plain(shape):
+    dev = need_card()
+    a = torch.from_numpy(_small_int_loads(shape, 2 ** 30, seed=3)).to(
+        dev, torch.float64)
+    before = {k: _build.launches[k] for k in SAT_KEYS}
+    got = sat_ops.gamma(a)
+    assert {k: _build.launches[k] - n for k, n in before.items()} == \
+        {k: int(k == "sat") for k in SAT_KEYS}
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64
+    assert torch.equal(got, sat_ref.gamma_ref(a))
+
+
+def test_sat_kernel_float64_off_integers():
+    """Loads that are not integers (multiples of 2**-20): float64 holds
+    every partial sum exactly here too, so the kernel equals the exact
+    prefix taken in int64 and scaled, whatever its order of sums."""
+    dev = need_card()
+    rng = np.random.default_rng(4)
+    ints = rng.integers(0, 2 ** 20, (4, 300, 260))
+    a = torch.from_numpy(ints / 2 ** 20).to(dev)
+    exact = sat_ref.gamma_ref(torch.from_numpy(ints).to(dev)).double()
+    exact /= 2 ** 20
+    assert torch.equal(sat_ops.gamma(a), exact)
+
+
+def test_gamma3_kernel_refuses_float64():
+    dev = need_card()
+    with pytest.raises(TypeError, match="float32 or int32"):
+        sat_ops.gamma3(torch.zeros((2, 3, 4), dtype=torch.float64,
+                                   device=dev))
+
+
+def _pic_above_2_24(T, n1, n2):
+    fr = stream.pic_series(T, n1, n2, seed=1) * 2 ** 10
+    assert fr.reshape(T, -1).sum(axis=1).min() > 2 ** 24
+    return fr
+
+
+@pytest.mark.parametrize("T,n1,n2,P,m", [(3, 40, 48, 4, 16),
+                                         (4, 200, 130, 8, 64)])
+def test_float64_planner_on_card_matches_cpu(T, n1, n2, P, m):
+    """The float64 plan path (K1 in float64, the float64 heuristic) on the
+    card equals the CPU path bit for bit above 2**24, and its Lmax is the
+    exact int64 bottleneck of each plan."""
+    dev = need_card()
+    fr = _pic_above_2_24(T, n1, n2)
+    before = _build.launches["sat"]
+    got = planner.plan_stream(fr, P=P, m=m, gamma_dtype=torch.float64,
+                              device=dev)
+    assert _build.launches["sat"] == before + 1
+    want = planner.plan_stream(fr, P=P, m=m, gamma_dtype=torch.float64,
+                               device="cpu")
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    from repro_torch.rebalance import batch_device
+    for t, pl in enumerate(batch_device.unstack_plans(got, (n1, n2))):
+        g = prefix.prefix_sum_2d(fr[t])
+        assert float(got[3][t]) == float(pl.loads(g).max())
+
+
+def _ledger_policies():
+    from repro_torch.rebalance import policy
+    return {"never": policy.NeverRebalance(),
+            "always": policy.AlwaysRebalance(), "every4": policy.EveryK(4),
+            "hysteresis": policy.HysteresisPolicy(),
+            "two-phase": policy.TwoPhaseHysteresis(),
+            "fault-aware": policy.FaultAwareHysteresis()}
+
+
+@pytest.mark.parametrize("name", ["drifting_hotspot", "pic_series",
+                                  "refinement_bursts"])
+@pytest.mark.parametrize("scenario", [None, "random-failures",
+                                      "rack-failure"])
+def test_runtime_on_card_matches_cpu(name, scenario):
+    """``compare_policies`` (every policy) and a lazy ``run_stream`` on the
+    card: the ledgers equal the CPU path's."""
+    from _torch_parity import ledger_diff
+    from repro_torch.rebalance import faults, policy, runtime
+    dev = need_card()
+    fr = getattr(stream, name)(16, 48, 48, seed=0)
+    sched = None if scenario is None else \
+        faults.FAULT_SCENARIOS[scenario](16, 16, seed=0)
+    kw = dict(P=4, m=16, alpha=0.25, replan_overhead=1000.0, faults=sched,
+              validate=True)
+    got = runtime.compare_policies(fr, _ledger_policies(), device=dev, **kw)
+    want = runtime.compare_policies(fr, _ledger_policies(), device="cpu",
+                                    **kw)
+    for k in got:
+        assert ledger_diff(got[k], want[k]) == [], k
+    one = runtime.run_stream(fr, policy.FaultAwareHysteresis(), device=dev,
+                             **kw)
+    assert ledger_diff(one, want["fault-aware"]) == []
+
+
+@pytest.mark.parametrize("scenario", ["random-failures", "rack-failure",
+                                      "hand"])
+def test_run_stream_executes_on_card_as_priced(scenario):
+    """``run_stream(execute=True)`` on the card under a fault schedule:
+    every replan's executed bytes equal its priced migration volume, the
+    failures force replans, rectangle pricing ran K3, and the ledger
+    equals the CPU path's."""
+    from _torch_parity import ledger_diff
+    from repro_torch.rebalance import faults, policy, runtime
+    dev = need_card()
+    T, m = 16, 16
+    fr = stream.refinement_bursts(T, 48, 48, seed=0)
+    if scenario == "hand":
+        sched = faults.FaultSchedule(m, [
+            faults.FaultEvent(T // 3, 3, "fail"),
+            faults.FaultEvent(T // 2, 11, "fail"),
+            faults.FaultEvent(T // 2, 7, "straggle", speed=0.3),
+            faults.FaultEvent(2 * T // 3, 3, "recover")])
+    else:
+        sched = faults.FAULT_SCENARIOS[scenario](T, m, seed=0)
+    kw = dict(P=4, m=m, alpha=0.25, replan_overhead=1000.0, faults=sched,
+              validate=True, execute=True)
+    before = dict(_build.launches)
+    got = runtime.run_stream(fr, policy.FaultAwareHysteresis(), device=dev,
+                             **kw)
+    assert _build.launches["rectload"] > before.get("rectload", 0)
+    assert _build.launches["sat"] > before.get("sat", 0)
+    replans = [r for r in got.records[1:] if r.replanned]
+    assert replans and all(r.executed_bytes == r.migration_volume
+                           for r in replans)
+    fails = sorted({e.step for e in sched.events if e.kind == "fail"})
+    assert [r.step for r in got.records if r.forced] == fails
+    want = runtime.run_stream(fr, policy.FaultAwareHysteresis(),
+                              device="cpu", **kw)
+    assert ledger_diff(got, want) == []

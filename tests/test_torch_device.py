@@ -122,15 +122,16 @@ def test_exact_helpers_match_jax():
 
 
 def test_unported_branches_raise():
-    """The heuristic's float64 accumulators are the one branch not
-    ported; the exact solvers take int32 or float32 and refuse other
+    """The heuristic takes float32 and float64 accumulators and refuses
+    others; the exact solvers take int32 or float32 and refuse other
     dtypes."""
     _, gi = _gammas("static", exact=True)
     _, gf = _gammas("static", exact=False)
     with pytest.raises(TypeError):
         dev.jag_pq_opt_device_impl(gi.long(), P=2, Q=2)
-    with pytest.raises(NotImplementedError):
-        dev.jag_m_heur_device_impl(gf, P=2, m=4, gamma_dtype=torch.float64)
+    for gd in (torch.float16, torch.int32):
+        with pytest.raises(NotImplementedError):
+            dev.jag_m_heur_device_impl(gf, P=2, m=4, gamma_dtype=gd)
 
 
 def test_exact_refuses_totals_above_2_30():

@@ -1,8 +1,9 @@
 """The port stands alone and never falls back.
 
 - ``repro_torch`` and ``chip_smoke.py`` import without ``jax`` and without
-  ``repro`` (a subprocess where importing either fails), and the planner
-  runs there on the CPU;
+  ``repro`` (a subprocess where importing either fails), and the planner,
+  the rebalance runtime, the capacity-aware planner and the serve
+  simulator run there on the CPU;
 - an entry point with no ``device=`` raises where CUDA is absent instead
   of running on the CPU;
 - no ``except`` clause and no environment read in the port or the smoke
@@ -24,7 +25,8 @@ from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.sat import ops as sat_ops
-from repro_torch.rebalance import batch_device, execute, planner, stream
+from repro_torch.rebalance import (batch_device, execute, planner, policy,
+                                   runtime, stream)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -46,6 +48,22 @@ fr = stream.drifting_hotspot(2, 24, 32, seed=0)
 for exact in (False, True):
     plans = planner.plan_host(fr, P=2, m=4, exact=exact, device="cpu")
     assert len(plans) == 2
+from repro_torch.rebalance import faults, policy, runtime
+from repro_torch.core import prefix
+res = runtime.run_stream(stream.drifting_hotspot(6, 24, 24, seed=0),
+                         policy.FaultAwareHysteresis(), P=2, m=8,
+                         faults=faults.rack_failure(6, 8), execute=True,
+                         validate=True, device="cpu")
+assert res.n_forced == 1 and all(r.executed_bytes == r.migration_volume
+                                 for r in res.records[1:] if r.replanned)
+sp = [1.0] * 7 + [0.0]
+assert faults.capacity_plan(prefix.prefix_sum_2d(fr[0]), P=2, m=8,
+                            speeds=sp).m == 8
+from repro_torch.serve import simulate
+sim = simulate.simulate(simulate.poisson_arrivals(200, rate=50.0, seed=0),
+                        n_replicas=3, service_rate=2000.0, tick=0.1,
+                        policy=policy.TwoPhaseHysteresis())
+assert sim.completed == sim.admitted == 200
 vol = stream.pic_series_3d(2, 8, 8, 8, seed=0)
 assert len(planner.plan_stream(vol, P=0, m=8, device="cpu")) == 6
 import torch
@@ -88,10 +106,14 @@ def _entry_points():
         lambda: planner.plan_stream_3d(vol, m=8),
         lambda: sgorp.sgorp_2d(np.arange(25).reshape(5, 5), 4),
         lambda: sgorp.sgorp_3d(vol[0], 8),
+        lambda: runtime.run_stream(fr, policy.NeverRebalance(), P=2, m=4),
+        lambda: runtime.compare_policies(
+            fr, {"never": policy.NeverRebalance()}, P=2, m=4),
+        lambda: runtime.plan_stream_host(fr, P=2, m=4),
     ]
 
 
-@pytest.mark.parametrize("i", range(13))
+@pytest.mark.parametrize("i", range(16))
 def test_entry_points_raise_without_cuda(i, monkeypatch):
     call = _entry_points()[i]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -192,7 +214,10 @@ def test_flash_wrapper_needs_contiguous_tensors():
 def test_no_fallback_sources_cover_the_port():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES[:-1]}
     assert {"kernels/flash/ops.py", "kernels/flash/ref.py",
-            "models/layers.py", "kernels/_build.py"} <= names
+            "models/layers.py", "kernels/_build.py", "rebalance/policy.py",
+            "rebalance/faults.py", "rebalance/runtime.py", "obs/hist.py",
+            "serve/__init__.py", "serve/queue.py", "serve/batcher.py",
+            "serve/simulate.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)

@@ -50,8 +50,17 @@ def test_batched_gamma_is_per_frame():
     (torch.zeros(5, dtype=torch.int32), ValueError),
     (torch.zeros((2, 2, 2, 2), dtype=torch.int32), ValueError),
     (torch.zeros((3, 4), dtype=torch.int64), TypeError),
-    (torch.zeros((3, 4), dtype=torch.float64), TypeError),
+    (torch.zeros((3, 4), dtype=torch.float16), TypeError),
 ])
 def test_gamma_refuses_what_the_kernel_does_not_take(bad, exc):
     with pytest.raises(exc):
         sat_ops.gamma(bad)
+
+
+def test_gamma3_refuses_float64():
+    """K1 takes float64 (the heuristic's float64 accumulators); K4 does
+    not."""
+    assert sat_ops.gamma(torch.ones((2, 3), dtype=torch.float64))[-1, -1] \
+        == 6
+    with pytest.raises(TypeError, match="gamma3 takes float32 or int32"):
+        sat_ops.gamma3(torch.zeros((2, 3, 4), dtype=torch.float64))

@@ -62,7 +62,8 @@ def test_sat3_plan_gives_one_block_per_sm_on_the_path():
                                          (0, 64, 0), (300, 16, 18)])
 def test_scratch_holds_every_sub_band_above_the_last_band(rows, R, subs):
     for dt, acc in ((torch.float32, torch.float64),
-                    (torch.int32, torch.int32)):
+                    (torch.int32, torch.int32),
+                    (torch.float64, torch.float64)):
         E = sat_ops._sums(torch.zeros(1, dtype=dt), 3, rows, R, 7)
         assert E.shape == (3, subs, 7) and E.dtype == acc
 
