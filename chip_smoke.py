@@ -31,7 +31,21 @@ on rank-4 frames at m=1024 (a 16 x 8 x 8 processor grid) with its own launch
 counts (every launch through K4's ``sat3`` route, none through
 ``sat3_general``), its checks and times (K4 also at B=1); then K4's
 general route on purpose, planes too wide for one block, with its own
-launch counts, held against the plain version.  Then the paper's
+launch counts, held against the plain version.  Then float64 on the 3D
+path (``run_f64_3d``): K4 in float64 held to its plain version and the
+exact int64 prefix at every 8-byte plane class's edges and on the general
+route, ``planner.plan_stream(gamma_dtype=float64)`` on both 3D streams with
+its own launch counts, held to the CPU path bit for bit, its plans'
+Lmax / (total/m) on the exact prefix beside float32's, and K4 float64
+timed beside its bound and ``torch.cumsum``.  Then the sharded planner on
+one card (``run_mesh``): ``dist.ctx.planner_mesh(devices=[cuda] * D)``,
+the 2D heuristic at D = 1, 2, 4 and at a ragged T, the exact path and
+the 3D path ragged, each bit-identical to the single-device plans, and
+``run_stream`` sharded over two entries with migrations executed over
+three, its ledger equal to the single-device run's, with its own launch
+counts and each call's wall time beside the single-device call's.  Then
+``dist.cp_balance`` and ``dist.moe_placement`` on the host (``run_dist``).
+Then the paper's
 algorithm registry (``core.registry``) with its own launch counts: its
 device names at the paper's width (``jag-pq-opt-device`` at 512x512,
 m=1024, on int32, float32 and ``speeds=`` with dead parts;
@@ -213,16 +227,11 @@ def run_rectload_stream(cuda: torch.device, plans: list, gammas: list,
         f"{by_kernel(lambda: rl_ops.jagged_loads(g, rc, cc))}")
 
 
-def run_3d(cuda: torch.device) -> list:
-    """The 3D path: K4 against its plain version, the main path through
-    ``planner.plan_stream`` on rank-4 frames with its own launch counts,
-    its checks and times, then K4's general route on purpose.  Returns K4's
-    two entries of the kernels' record (``sat3``, ``sat3_general``)."""
-    from repro_torch.core import prefix, sgorp, threed
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.sat import ops as sat_ops
-    from repro_torch.kernels.sat import ref as sat_ref
-    from repro_torch.rebalance import planner, stream
+def volumes() -> tuple[dict, dict, dict]:
+    """The 3D paths' data: T3 volumes of N3^3 of each 3D stream, their
+    exact int64 Gamma3s and frame totals."""
+    from repro_torch.core import prefix
+    from repro_torch.rebalance import stream
 
     # -- 8. data -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -233,6 +242,22 @@ def run_3d(cuda: torch.device) -> list:
     log("data3", f"T={T3} {N3}^3 volumes made in "
         f"{time.perf_counter() - t0:.1f} s; frame totals: " + ", ".join(
             f"{k} {int(v.min())}..{int(v.max())}" for k, v in tot3.items()))
+    return vols, g3, tot3
+
+
+def run_3d(cuda: torch.device, vols: dict, g3: dict,
+           tot3: dict) -> tuple[list, dict]:
+    """The 3D path: K4 against its plain version, the main path through
+    ``planner.plan_stream`` on rank-4 frames with its own launch counts,
+    its checks and times, then K4's general route on purpose.  Returns K4's
+    two entries of the kernels' record (``sat3``, ``sat3_general``) and
+    the float32 plans' Lmax / (total/m) on the exact prefix by stream."""
+    from repro_torch.core import sgorp, threed
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sat import ops as sat_ops
+    from repro_torch.kernels.sat import ref as sat_ref
+    from repro_torch.rebalance import planner, stream
+
     grid = sgorp.default_grid(M3, (N3, N3, N3))
 
     # -- 9. K4 against its plain version on the card ----------------------
@@ -440,7 +465,7 @@ def run_3d(cuda: torch.device) -> list:
     log("sat3", f"K4 at {tuple(a.shape)} float32 by kernel: "
         f"{by_kernel(lambda: sat_ops.gamma3(a))}; {copy_rate(a)}")
     del a, a1
-    return [k4, run_sat3_general(cuda)]
+    return [k4, run_sat3_general(cuda)], {k: v[6] for k, v in out3.items()}
 
 
 SHAPE_G = (2, 128, 128, 300)   # n3 > 256: planes too wide for one block
@@ -501,6 +526,301 @@ def run_sat3_general(cuda: torch.device) -> dict:
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
             torch.cumsum(af, dim=-3), dim=-2), dim=-1))}
+
+
+#: K4 float64's edges: each 8-byte plane class's widest and tallest plane
+#: and one entry past it (the general route), band edges, empty slabs and
+#: planes, and the general route's shape
+SHAPES_F64_3D = [(1, 1, 1), (5, 7, 9), (2, 0, 4, 5), (3, 6, 0, 2),
+                 (16, 130, 17, 19), (1, 5, 512, 32), (1, 5, 513, 32),
+                 (2, 9, 256, 64), (2, 9, 257, 64), (2, 3, 128, 128),
+                 (2, 3, 129, 128), SHAPE_G]
+
+
+def exact_gamma3(a64: torch.Tensor) -> torch.Tensor:
+    """The exact exclusive 3D prefix of int64 loads (cumsum in int64)."""
+    s = torch.cumsum(torch.cumsum(torch.cumsum(a64, -3), -2), -1)
+    return torch.nn.functional.pad(s, [1, 0, 1, 0, 1, 0])
+
+
+def run_f64_3d(cuda: torch.device, vols: dict, g3: dict, tot3: dict,
+               ratio32: dict) -> dict:
+    """float64 on the 3D path: K4 in float64 against its plain version and
+    the exact int64 prefix at every 8-byte plane class's edges and on the
+    general route, then ``planner.plan_stream(gamma_dtype=float64)`` on
+    both 3D streams with its own launch counts, held to the CPU path bit
+    for bit and to the float32 plans' quality on the exact prefix, and
+    K4 float64 timed beside its bound and ``torch.cumsum``.  Returns K4
+    float64's entry of the kernels' record."""
+    from repro_torch.core import threed
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sat import ops as sat_ops
+    from repro_torch.kernels.sat import ref as sat_ref
+    from repro_torch.rebalance import planner
+
+    # -- 12. K4 float64 against its plain version and the exact prefix ----
+    rng = np.random.default_rng(SEED + 4)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    routes = []
+    for shape in SHAPES_F64_3D:
+        a64 = torch.as_tensor(rng.integers(0, 2 ** 30, shape), device=cuda)
+        a = a64.double()
+        got = sat_ops.gamma3(a)
+        check(torch.equal(got, sat_ref.gamma3_ref(a))
+              and torch.equal(got, exact_gamma3(a64).double()),
+              f"sat3 float64 {shape}: kernel differs from the plain version "
+              f"or the exact int64 prefix")
+        b = shape if len(shape) == 4 else (1,) + shape
+        route, c, _ = sat_ops.sat3_plan(*b, sms, 8)
+        routes.append(f"{shape} {route}" + (f" class {c}" if c else ""))
+    del a64, a, got
+    log("sat3_f64", "K4 float64 on integer loads up to 2**30 (exact in "
+        "float64), bit-identical to the plain version and the exact int64 "
+        "prefix at: " + "; ".join(routes))
+    err = 0.0
+    for name, fr in vols.items():
+        a = torch.as_tensor(fr, device=cuda).double()
+        gk = sat_ops.gamma3(a)
+        err = max(err, float((gk - sat_ref.gamma3_ref(a)).abs().max()))
+        check(torch.equal(gk, torch.as_tensor(np.stack(g3[name]),
+                                              device=cuda).double()),
+              f"sat3 float64 {name}: kernel is not the exact int64 prefix")
+        del a, gk
+    check(err == 0, f"sat3 float64: kernel {err} off the plain version on "
+          f"the path's volumes")
+    log("sat3_f64", f"the path's volumes ({T3}, {N3}, {N3}, {N3}) of both "
+        f"streams in float64 (frame totals up to "
+        f"{max(int(v.max()) for v in tot3.values()):.3e}): bit-identical to "
+        f"the plain version and the exact int64 prefix (max_abs_err 0)")
+
+    # -- 13. the float64 3D path -------------------------------------------
+    _build.launches.clear()
+    out64 = {}
+    for name, fr in vols.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = planner.plan_stream(fr, P=0, m=M3, gamma_dtype=torch.float64)
+        out64[name] = tuple(x.cpu() for x in out)
+        log("plan3_f64", f"{name}: T={T3} gamma_dtype=float64 planned in "
+            f"{time.perf_counter() - t0:.2f} s (host clock, first call)")
+    launches = dict(_build.launches)
+    log("plan3_f64", f"kernel launches on the float64 3D path: {launches}")
+    check(launches.get("sat3", 0) >= 1, "kernel sat3 never ran on the "
+          "float64 3D path")
+    check(launches.get("sat3_general", 0) == 0, "the float64 3D path took "
+          "K4's general route (sat3_general)")
+    for name, fr in vols.items():
+        check(int(tot3[name].max()) < 2 ** 53, "float64 planning needs "
+              "frame totals below 2**53")
+        t0 = time.perf_counter()
+        cpu = planner.plan_stream(fr, P=0, m=M3, gamma_dtype=torch.float64,
+                                  device="cpu")
+        cpu_s = time.perf_counter() - t0
+        same = [torch.equal(a, b) for a, b in zip(out64[name], cpu)]
+        check(all(same), f"{name} float64: card and CPU differ (cuts1-3, "
+              f"Lmax, iters, projections: {same})")
+        c1, c2, c3 = out64[name][:3]
+        ratios = []
+        for t in range(T3):
+            part = threed.partition3d_from_grid(c1[t], c2[t], c3[t],
+                                                shape=(N3, N3, N3))
+            check(part.is_valid() and len(part.boxes) == M3,
+                  f"{name} float64 frame {t}: cuts are not a valid "
+                  f"{M3}-box partition")
+            ratios.append(part.max_load(fr[t], gamma3=g3[name][t])
+                          / (tot3[name][t] / M3))
+        r64, r32 = np.array(ratios), ratio32[name]
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            [x.cpu() for x in planner.plan_stream(
+                fr, P=0, m=M3, gamma_dtype=torch.float64)]
+            runs.append((time.perf_counter() - t0) * 1e3)
+        log("plan3_f64", f"{name} float64 at {N3}^3 (frame totals up to "
+            f"{tot3[name].max():.3e}; float32 is exact below 2**24): card = "
+            f"CPU bit for bit "
+            f"(cuts, Lmax, iterations, projections; the CPU path took "
+            f"{cpu_s:.2f} s); all {T3} plans valid; Lmax / (total/m) on the "
+            f"exact int64 prefix float64 mean {r64.mean():.6f} (max "
+            f"{r64.max():.6f}), float32 mean {r32.mean():.6f} (max "
+            f"{r32.max():.6f}); plan_stream float64 host clock over 3 runs "
+            f"median {statistics.median(runs):.1f} ms (min {min(runs):.1f}, "
+            f"max {max(runs):.1f}); SGORP iterations "
+            f"{out64[name][4].tolist()}")
+
+    # -- 14. K4 float64 at the path's shape: (16, 128, 128, 128) -----------
+    a = torch.as_tensor(vols["pic3d"], device=cuda).double()
+    nbytes = a.numel() * 8 + T3 * (N3 + 1) ** 3 * 8
+    b_ms, b_by = bound(nbytes, 3 * a.numel(), FP64_OPS_PER_S)
+    k4 = {
+        "name": "sat3_f64", "route": "cuda",
+        "source": "src/repro_torch/kernels/sat/sat3d.cu",
+        "replaces": "src/repro/kernels/sat/sat3d.py:83",
+        "launches": launches.get("sat3", 0), "max_abs_err": err,
+        "ms": device_ms(lambda: sat_ops.gamma3(a)),
+        "plain_ms": device_ms(lambda: sat_ref.gamma3_ref(a)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda: torch.cumsum(torch.cumsum(
+            torch.cumsum(a, dim=-3), dim=-2), dim=-1))}
+    log("sat3_f64", f"K4 float64 at {tuple(a.shape)}: {k4['ms']:.4f} ms "
+        f"against a bound of {b_ms:.4f} ms ({nbytes} bytes in and out, "
+        f"{k4['ms'] / b_ms:.2f}x); plain version {k4['plain_ms']:.4f} ms, "
+        f"torch.cumsum three times {k4['library_ms']:.4f} ms; by kernel: "
+        f"{by_kernel(lambda: sat_ops.gamma3(a))}")
+    del a
+    return k4
+
+
+def run_mesh(cuda: torch.device, streams: dict, totals: dict,
+             vols: dict) -> None:
+    """The sharded planner on one card: ``planner_mesh(devices=[cuda] *
+    D)`` runs every shard on the card, so each sharded call must give the
+    single-device plans bit for bit.  The 2D heuristic at D = 1, 2, 4 and
+    at a ragged T, the exact path and the 3D path ragged, then
+    ``run_stream`` sharded over two entries with migrations executed over
+    three; each call's wall time beside the single-device call's."""
+    from repro_torch.dist import ctx
+    from repro_torch.kernels import _build
+    from repro_torch.rebalance import planner, policy, runtime
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(a, b) -> bool:
+        return all(x.device == y.device and torch.equal(x, y)
+                   for x, y in zip(a, b))
+
+    # -- 15. sharded plans = single-device plans ---------------------------
+    rb = streams["refinement-bursts"]
+    _build.launches.clear()
+    single = {}
+    for D, Tn in ((1, T), (2, T), (4, T), (4, T - 3)):
+        mesh = ctx.planner_mesh(devices=[cuda] * D)
+        if Tn not in single:
+            single[Tn] = timed(lambda: planner.plan_stream(rb[:Tn], P=P,
+                                                           m=M))
+        got, s = timed(lambda: planner.plan_stream(rb[:Tn], P=P, m=M,
+                                                   mesh=mesh))
+        check(same(got, single[Tn][0]), f"mesh D={D} T={Tn} heuristic: "
+              f"sharded plans differ from the single-device plans")
+        log("mesh", f"heuristic refinement-bursts T={Tn} {N1}x{N2} m={M} "
+            f"on [cuda] * {D}: bit-identical to one device (row_cuts, "
+            f"counts, col_cuts, Lmax); {s:.2f} s against {single[Tn][1]:.2f} "
+            f"s on one device (host clock)")
+    fr = rb[:7]
+    want, s1 = timed(lambda: planner.plan_stream(fr, P=P, m=M, exact=True))
+    got, s = timed(lambda: planner.plan_stream(
+        fr, P=P, m=M, exact=True, mesh=ctx.planner_mesh(devices=[cuda] * 2)))
+    check(same(got, want), "mesh D=2 exact: sharded plans differ from the "
+          "single-device plans")
+    log("mesh", f"exact refinement-bursts T=7 (ragged) on [cuda] * 2: "
+        f"bit-identical to one device; {s:.2f} s against {s1:.2f} s")
+    v = vols["pic3d"][:T3 - 1]
+    want, s1 = timed(lambda: planner.plan_stream_3d(v, m=M3))
+    got, s = timed(lambda: planner.plan_stream_3d(
+        v, m=M3, mesh=ctx.planner_mesh(devices=[cuda] * 2)))
+    check(same(got, want), "mesh D=2 3D: sharded plans differ from the "
+          "single-device plans")
+    log("mesh", f"plan_stream_3d pic3d T={T3 - 1} (ragged) {N3}^3 m={M3} on "
+        f"[cuda] * 2: bit-identical to one device (cuts, Lmax, iterations, "
+        f"projections); {s:.2f} s against {s1:.2f} s")
+
+    # -- 16. the runtime sharded, migrations over three entries -----------
+    kw = dict(P=P, m=M, alpha=ALPHA,
+              replan_overhead=float(totals["refinement-bursts"].mean()) / M,
+              execute=True)
+    one, s1 = timed(lambda: runtime.run_stream(rb, policy.EveryK(8), **kw))
+    many, s = timed(lambda: runtime.run_stream(
+        rb, policy.EveryK(8), devices=[cuda] * 2,
+        execute_devices=[cuda] * 3, **kw))
+    bad = ledger_diff(many, one)
+    check(not bad, f"run_stream on [cuda] * 2, execute_devices [cuda] * 3: "
+          f"ledger differs from one device: {bad[:5]}")
+    replans = [r for r in many.records[1:] if r.replanned]
+    check(replans and all(r.executed_bytes == r.migration_volume
+                          for r in replans),
+          "run_stream on several devices: executed bytes differ from the "
+          "priced migration volume")
+    launches = dict(_build.launches)
+    for k in ("sat", "probe", "sat3", "rectload"):
+        check(launches.get(k, 0) >= 1, f"kernel {k} never ran in the mesh "
+              f"phase")
+    log("mesh", f"run_stream refinement-bursts T={T} every-8 with execute on "
+        f"devices=[cuda] * 2, execute_devices=[cuda] * 3: ledger = one "
+        f"device's (every StepRecord field but wall_time, the final plan); "
+        f"executed = priced on all {len(replans)} replans "
+        f"({sum(r.executed_bytes for r in replans):.0f}); {s:.2f} s against "
+        f"{s1:.2f} s on one device; launches over the phase {launches}")
+
+
+def run_dist() -> None:
+    """``dist.cp_balance`` and ``dist.moe_placement`` on the host (NumPy,
+    nothing on the card) at the reference tests' sizes: the plans' validity
+    and the properties those tests state, with host times."""
+    from repro_torch.core import prefix
+    from repro_torch.dist import cp_balance, moe_placement
+    from repro_torch.rebalance import policy
+
+    # -- 17. context-parallel block plans ---------------------------------
+    t0 = time.perf_counter()
+    nb, R = 64, 8
+    base = cp_balance.balanced_plan(nb, R)
+    check(np.array_equal(base, cp_balance.balanced_plan(
+        nb, R, speeds=np.ones(R))), "cp: ones speeds change the plan")
+    naive = cp_balance.plan_imbalance(cp_balance.contiguous_plan(nb, R), nb, R)
+    bal = cp_balance.plan_imbalance(base, nb, R)
+    zig = cp_balance.plan_imbalance(cp_balance.interleaved_assignment(nb, R),
+                                    nb, R, contiguous=False)
+    check(naive > 0.5 and bal < naive / 3 and zig <= bal + 1e-9,
+          f"cp: imbalances naive {naive}, balanced {bal}, zig-zag {zig}")
+    sp = np.array([1, 1, 0, 1, 0.5, 1, 1, 1], dtype=np.float64)
+    cuts = cp_balance.balanced_plan(nb, R, speeds=sp)
+    p = np.concatenate([[0], np.cumsum(cp_balance.block_costs(nb))])
+    imb = cp_balance.plan_imbalance(cuts, nb, R, speeds=sp)
+    check(p[cuts[3]] - p[cuts[2]] == 0 and np.isfinite(imb),
+          "cp: the dead rank got blocks")
+    tp = cp_balance.balanced_plan_two_phase(nb, R)
+    i_tp = cp_balance.plan_imbalance(tp, nb, R)
+    check(tp[0] == 0 and tp[-1] == nb and (np.diff(tp) >= 0).all()
+          and bal - 1e-12 <= i_tp <= naive + 1e-9,
+          f"cp: two-phase plan {tp.tolist()} invalid or out of bounds")
+    out, replanned = cp_balance.replan_contiguous(
+        base, 96, two_phase=True, policy=policy.TwoPhaseHysteresis())
+    check(replanned and np.array_equal(out, cp_balance.balanced_plan(96, R)),
+          "cp: a 50% context growth did not escalate to the exact split")
+    cp_ms = (time.perf_counter() - t0) * 1e3
+
+    # -- 18. MoE expert placement -----------------------------------------
+    t0 = time.perf_counter()
+    counts = moe_placement.simulate_router_counts(16, 32, skew=1.2)
+    plan = moe_placement.plan_expert_placement(counts, 16)
+    check(plan.partition.is_valid()
+          and plan.load_imbalance < plan.uniform_imbalance,
+          "moe: placement invalid or no better than the uniform grid")
+    spm = np.ones(16)
+    spm[5] = 0.0
+    plan_sp = moe_placement.plan_expert_placement(counts, 16, speeds=spm)
+    loads = np.asarray(plan_sp.partition.loads(prefix.prefix_sum_2d(counts)))
+    check(float(loads[5]) == 0.0 and not plan_sp.fell_back
+          and np.isinf(plan_sp.uniform_imbalance)
+          and np.isfinite(plan_sp.load_imbalance),
+          "moe: the dead rank hosts experts, or the plan fell back")
+    moe_ms = (time.perf_counter() - t0) * 1e3
+    log("dist", f"cp_balance {nb} blocks over {R} ranks: imbalance "
+        f"equal-count {naive:.4f}, balanced {bal:.4f}, zig-zag {zig:.4f}, "
+        f"two-phase {i_tp:.4f}, with a dead and a half-speed rank "
+        f"{imb:.4f} (dead rank empty), a grown context escalates to the "
+        f"exact split; {cp_ms:.1f} ms on the host. moe_placement 16 layers "
+        f"x 32 experts over 16 ranks: imbalance {plan.load_imbalance:.4f} "
+        f"against the uniform grid's {plan.uniform_imbalance:.4f}, with "
+        f"rank 5 dead {plan_sp.load_imbalance:.4f} (rank 5 empty, no "
+        f"fallback); {moe_ms:.1f} ms on the host (NumPy, nothing on the "
+        f"card)")
 
 
 N_1D = (4096, 1048576)   # the exact 1D solver's rows: K2 stages the first
@@ -1690,7 +2010,13 @@ def main() -> int:
     kernels.append(run_f64(cuda, streams, host_gamma, totals))
     run_runtime(cuda, streams, totals)
     run_serve()
-    kernels.extend(run_3d(cuda))
+    vols, g3, tot3 = volumes()
+    k3, ratio32 = run_3d(cuda, vols, g3, tot3)
+    kernels.extend(k3)
+    kernels.append(run_f64_3d(cuda, vols, g3, tot3, ratio32))
+    run_mesh(cuda, streams, totals, vols)
+    run_dist()
+    del vols, g3
     kernels.extend(run_registry(cuda))
     kernels.extend(run_flash(cuda))
     card = subprocess.run(

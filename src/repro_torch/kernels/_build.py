@@ -50,8 +50,10 @@ _SIGNATURES = {
     "repro_sat_gamma_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_sat3_gamma_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_sat3_gamma_i32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_sat3_gamma_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_sat3_general_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_sat3_general_i32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_sat3_general_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "repro_probe_counts_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_probe_counts_i32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_probe_general_f32": [_P, _P, _P, _I, _I, _I, _I, _P],

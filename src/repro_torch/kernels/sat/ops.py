@@ -5,8 +5,8 @@ A CUDA tensor goes through a kernel, a CPU tensor through the plain
 version in ``ref.py``; there is no other route.  :func:`gamma` takes a
 ``(n1, n2)`` frame or a ``(B, n1, n2)`` stack, :func:`gamma3` a
 ``(n1, n2, n3)`` volume or a ``(B, n1, n2, n3)`` stack (separate names,
-because a rank-3 input is either), of int32 or float32 loads; K1 also
-takes float64 (the heuristic planner's float64 accumulators).
+because a rank-3 input is either), of int32, float32 or float64 loads
+(the planners' float64 accumulators).
 
 Both kernels cut the frames into bands and run a reduce, then a scan
 (``sat_scan.cuh``); the wrappers allocate the scratch that carries the
@@ -27,9 +27,11 @@ from .ref import gamma3_ref, gamma_ref
 _FN = {torch.float32: "repro_sat_gamma_f32", torch.int32: "repro_sat_gamma_i32",
        torch.float64: "repro_sat_gamma_f64"}
 _FN3 = {torch.float32: "repro_sat3_gamma_f32",
-        torch.int32: "repro_sat3_gamma_i32"}
+        torch.int32: "repro_sat3_gamma_i32",
+        torch.float64: "repro_sat3_gamma_f64"}
 _FN3G = {torch.float32: "repro_sat3_general_f32",
-         torch.int32: "repro_sat3_general_i32"}
+         torch.int32: "repro_sat3_general_i32",
+         torch.float64: "repro_sat3_general_f64"}
 #: dtype of the carries in scratch: float64 sums, or the bits of uint32 sums
 _ACC = {torch.float32: torch.float64, torch.int32: torch.int32,
         torch.float64: torch.float64}
@@ -45,6 +47,9 @@ SUB_ROWS = 32
 #: K4's plane classes: columns per lane c, for planes with n3 <= 32 c and
 #: n2 <= 512 / c (sat3d.cu: a block holds 512 / c plane rows)
 SAT3_CLASSES = (1, 2, 4, 8)
+#: K4's plane classes at 8 bytes an entry (float64): class 8 would need
+#: more shared memory than a block has (sat3d.cu: scan3_max_cpl)
+SAT3_CLASSES_8 = (1, 2, 4)
 #: fewest slabs in a band of K4 (below it the float64 carries outweigh the
 #: slabs; 4 was the fastest at B = 1 on the H100)
 MIN_SLABS = 4
@@ -63,13 +68,14 @@ def band_rows(F: int, rows: int, sms: int) -> int:
     return min(R, BAND_ROWS_MAX)
 
 
-def sat3_plan(B: int, n1: int, n2: int, n3: int,
-              sms: int) -> tuple[str, int, int]:
-    """K4's route for a ``(B, n1, n2, n3)`` stack: ``("sat3", c, S)`` with
-    the plane class ``c`` and ``S`` slabs per band (about one block of the
-    scan per SM, and at least :data:`MIN_SLABS`), or ``("sat3_general", 0,
-    R)`` with K1's band height over the planes."""
-    for c in SAT3_CLASSES:
+def sat3_plan(B: int, n1: int, n2: int, n3: int, sms: int,
+              itemsize: int = 4) -> tuple[str, int, int]:
+    """K4's route for a ``(B, n1, n2, n3)`` stack of ``itemsize``-byte
+    entries: ``("sat3", c, S)`` with the plane class ``c`` and ``S`` slabs
+    per band (about one block of the scan per SM, and at least
+    :data:`MIN_SLABS`), or ``("sat3_general", 0, R)`` with K1's band height
+    over the planes."""
+    for c in SAT3_CLASSES if itemsize == 4 else SAT3_CLASSES_8:
         if n3 <= 32 * c and n2 <= 512 // c:
             n = max(n1, 1)
             S = _cdiv(n, max(1, min(n, sms // max(B, 1))))
@@ -140,7 +146,8 @@ def gamma3(a: torch.Tensor) -> torch.Tensor:
     _build.check_cuda("sat3", x)
     g = torch.empty((B, n1 + 1, n2 + 1, n3 + 1), dtype=x.dtype,
                     device=x.device)
-    route, c, band = sat3_plan(B, n1, n2, n3, _sms(x.device))
+    route, c, band = sat3_plan(B, n1, n2, n3, _sms(x.device),
+                               x.element_size())
     if route == "sat3":
         E = _sums(x, B, n1, band, n2 * n3)
         _build.launch("sat3", _FN3[x.dtype], x, g, E, B, n1, n2, n3, band, c)

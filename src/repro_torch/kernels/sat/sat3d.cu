@@ -35,6 +35,15 @@
 // general route).  int32: sums in uint32, which wrap mod 2**32 as
 // torch.cumsum does; the int additions before overflowed, undefined
 // behaviour in C++.
+// float64: the same design at 8 bytes an entry, sums and carries in
+// float64 (exact for integer loads below a frame total of 2**53).  The
+// scan's ring of two slabs would take 262,144 bytes at 8 bytes, more than
+// a block's 232,448, so it holds one slab at 8 bytes (the next slab's
+// copy overlaps the column exchange and the stores of this one); and the
+// class with 8 columns a lane is left out (its block would need 233,472
+// bytes even then), so at 8 bytes the classes are 1, 2 and 4 and a plane
+// with n3 > 128 takes the general route.  At (16, 128, 128, 128) it reads
+// 268.4 MB and writes 274.8 MB, 0.1621 ms at 3.35 TB/s.
 
 #include "sat_scan.cuh"
 
@@ -46,8 +55,8 @@ namespace {
 // running plane there with each row prefix summed (RPW * CPL = 16 entries
 // a thread, 32 for class 8).  Shared memory: tb [2][NW + 1][CW] (as in
 // sat_band_kernel), stage [NW][CW] (a warp's output row) and ring
-// [2][TR][CW], the next two slabs in flight.
-template <typename T, int CPL, int NW>
+// [NST][TR][CW], the next NST slabs in flight.
+template <typename T, int CPL, int NW, int NST>
 __global__ void __launch_bounds__(32 * NW, 1)
 sat3_band_kernel(const T* __restrict__ x, T* __restrict__ g, int n1, int n2,
                  int n3, int S, int nb,
@@ -71,9 +80,10 @@ sat3_band_kernel(const T* __restrict__ x, T* __restrict__ g, int n1, int n2,
   T* gf = g + f * (n1 + 1) * P3;
   T* sw = stage + w * CW;
 
-  auto issue = [&](int s) {  // slab s into ring slot (s - s0) % 2
+  static_assert(NST == 1 || NST == 2, "one or two slabs in flight");
+  auto issue = [&](int s) {  // slab s into ring slot (s - s0) % NST
     if (s < s1) {
-      T* slot = ring + ((s - s0) & 1) * TR * CW;
+      T* slot = ring + (NST == 1 ? 0 : (s - s0) & 1) * TR * CW;
 #pragma unroll
       for (int t = 0; t < RPW; ++t) {
         const int j = w * RPW + t;
@@ -84,7 +94,7 @@ sat3_band_kernel(const T* __restrict__ x, T* __restrict__ g, int n1, int n2,
     cp_async_commit();
   };
   issue(s0);
-  issue(s0 + 1);
+  if (NST == 2) issue(s0 + 1);
 
   if (c == 0)
     for (long long e = tid; e < P3; e += NT) gf[e] = T(0);
@@ -106,8 +116,8 @@ sat3_band_kernel(const T* __restrict__ x, T* __restrict__ g, int n1, int n2,
   }
 
   for (int s = s0; s < s1; ++s) {
-    cp_async_wait<1>();  // slab s has landed
-    const T* slot = ring + ((s - s0) & 1) * TR * CW;
+    cp_async_wait<NST - 1>();  // slab s has landed
+    const T* slot = ring + (NST == 1 ? 0 : (s - s0) & 1) * TR * CW;
     T* out = gf + (long long)(s + 1) * P3;
     for (int e = tid; e <= n3; e += NT) out[e] = T(0);
     Acc* tb = tot + ((s - s0) & 1) * (NW + 1) * CW;
@@ -127,7 +137,7 @@ sat3_band_kernel(const T* __restrict__ x, T* __restrict__ g, int n1, int n2,
         cs[e] += q[t][e];
       }
     }
-    issue(s + 2);  // into the slot just read (each thread its own entries)
+    issue(s + NST);  // into the slot just read (each thread its own entries)
 #pragma unroll
     for (int e = 0; e < CPL; ++e) tb[w * CW + e * 32 + lane] = cs[e];
     exchange_columns<NW>(tb, CW);
@@ -159,6 +169,18 @@ template <int CPL>
 constexpr int scan3_warps() {
   return CPL == 8 ? 16 : 32;
 }
+// Slabs in flight in the scan's ring: two of 4-byte entries, one of 8-byte
+// entries (two would not fit a block)
+template <typename T>
+constexpr int scan3_ring() {
+  return sizeof(T) == 8 ? 1 : 2;
+}
+// Widest plane class: 8 columns a lane for 4-byte entries, 4 for 8-byte
+// ones (ops.sat3_classes)
+template <typename T>
+constexpr int scan3_max_cpl() {
+  return sizeof(T) == 8 ? 4 : 8;
+}
 
 template <typename T, int CPL>
 cudaError_t launch_band3(const T* a, T* g, int B, int n1, int n2, int n3,
@@ -166,9 +188,10 @@ cudaError_t launch_band3(const T* a, T* g, int B, int n1, int n2, int n3,
                          cudaStream_t st) {
   using Acc = typename Sums<T>::Acc;
   constexpr int NW = scan3_warps<CPL>(), CW = 32 * CPL, TR = 512 / CPL;
+  constexpr int NST = scan3_ring<T>();
   const size_t smem = sizeof(Acc) * 2 * (NW + 1) * CW +
-                      sizeof(T) * (NW + 2 * TR) * CW;
-  auto kernel = sat3_band_kernel<T, CPL, NW>;
+                      sizeof(T) * (NW + NST * TR) * CW;
+  auto kernel = sat3_band_kernel<T, CPL, NW, NST>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const bool vec = reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
@@ -220,7 +243,7 @@ int gamma3_launch(const T* a, T* g, void* scratch, int B, int n1, int n2,
                   int n3, int S, int cpl, cudaStream_t st) {
   using Acc = typename Sums<T>::Acc;
   Acc* E = static_cast<Acc*>(scratch);
-  if (S <= 0 || n3 > 32 * cpl || n2 > 512 / cpl)
+  if (S <= 0 || cpl > scan3_max_cpl<T>() || n3 > 32 * cpl || n2 > 512 / cpl)
     return (int)cudaErrorInvalidConfiguration;
   const int nb = n1 > 0 ? (n1 + S - 1) / S : 1;
   const long long np = (long long)n2 * n3;
@@ -234,7 +257,12 @@ int gamma3_launch(const T* a, T* g, void* scratch, int B, int n1, int n2,
     case 1: e = launch_band3<T, 1>(a, g, B, n1, n2, n3, S, nb, E, st); break;
     case 2: e = launch_band3<T, 2>(a, g, B, n1, n2, n3, S, nb, E, st); break;
     case 4: e = launch_band3<T, 4>(a, g, B, n1, n2, n3, S, nb, E, st); break;
-    case 8: e = launch_band3<T, 8>(a, g, B, n1, n2, n3, S, nb, E, st); break;
+    case 8:
+      if constexpr (scan3_max_cpl<T>() >= 8)
+        e = launch_band3<T, 8>(a, g, B, n1, n2, n3, S, nb, E, st);
+      else
+        e = cudaErrorInvalidConfiguration;
+      break;
     default: e = cudaErrorInvalidConfiguration;
   }
   if (e != cudaSuccess) return (int)e;
@@ -282,6 +310,15 @@ extern "C" int repro_sat3_gamma_i32(const void* a, void* g, void* scratch,
                             static_cast<cudaStream_t>(stream));
 }
 
+// scratch: as above, float64 sums; cpl 1, 2 or 4
+extern "C" int repro_sat3_gamma_f64(const void* a, void* g, void* scratch,
+                                    int B, int n1, int n2, int n3, int S,
+                                    int cpl, void* stream) {
+  return gamma3_launch<double>(static_cast<const double*>(a),
+                               static_cast<double*>(g), scratch, B, n1, n2,
+                               n3, S, cpl, static_cast<cudaStream_t>(stream));
+}
+
 // scratch: as K1's for B * n1 planes of (n2, n3) by bands of R rows
 extern "C" int repro_sat3_general_f32(const void* a, void* g, void* scratch,
                                       int B, int n1, int n2, int n3, int R,
@@ -298,4 +335,13 @@ extern "C" int repro_sat3_general_i32(const void* a, void* g, void* scratch,
   return gamma3_general_launch<int>(
       static_cast<const int*>(a), static_cast<int*>(g), scratch, B, n1, n2,
       n3, R, static_cast<cudaStream_t>(stream));
+}
+
+// scratch: as above, float64 sums
+extern "C" int repro_sat3_general_f64(const void* a, void* g, void* scratch,
+                                      int B, int n1, int n2, int n3, int R,
+                                      void* stream) {
+  return gamma3_general_launch<double>(
+      static_cast<const double*>(a), static_cast<double*>(g), scratch, B, n1,
+      n2, n3, R, static_cast<cudaStream_t>(stream));
 }

@@ -9,13 +9,15 @@ every sum is exact — is::
     receipt.executed_bytes == migrate.migration_volume(old, new, weights)
     receipt.pair_bytes     == migrate.migration_matrix(old, new, weights)
 
-Execution model: one card.  For every (src, dst) processor pair with a
-non-empty owner-change flow, the moved cells' weights are copied host ->
-card -> host with explicit ``tensor.to`` copies and a synchronize, and
-``executed_bytes`` sums the buffers *after* the transfer — the measurement
-comes from the data that actually arrived, not from the plan diff.
-Integer frames travel as ``int32`` (exact sums); anything else as
-``float32``.
+Execution model: processor ``i`` lives on ``devices[i % D]`` (one device
+by default: the card).  For every (src, dst) processor pair with a
+non-empty owner-change flow, the moved cells' weights are placed on the
+source processor's device and copied to the destination processor's
+device (a copy between two devices when they differ) with explicit
+``tensor.to`` copies and a synchronize, and ``executed_bytes`` sums the
+buffers *after* the transfer — the measurement comes from the data that
+actually arrived, not from the plan diff.  Integer frames travel as
+``int32`` (exact sums); anything else as ``float32``.
 
 Per-rectangle accounting rides the rectload kernel (K3) with its leading
 frame axis: one batched launch over the stack ``[Gamma(weights),
@@ -39,10 +41,10 @@ from repro_torch.obs import trace as _trace
 
 from . import migrate
 from .batch_device import Plan
-from .planner import resolve_device
+from .planner import resolve_device, resolve_mesh
 
 __all__ = ["MigrationReceipt", "execute_migration", "plan_rect_loads",
-           "verify_receipt"]
+           "resolve_devices", "verify_receipt"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +63,20 @@ class MigrationReceipt:
     rect_loads: np.ndarray      # (m,) adopted-plan loads (rectload kernel)
     rect_received: np.ndarray   # (m,) weight each rectangle received
     device_of: np.ndarray       # (m,) device index per processor
+
+
+def resolve_devices(devices=None, *, device=None) -> list[torch.device]:
+    """The devices processors live on: ``None`` gives ``[device]`` (``None``:
+    the card) and one device a list of one; a count or a list of devices
+    resolve as the planner's ``devices=`` does (``planner.resolve_mesh``:
+    the first N CUDA devices, or N entries of the CPU when ``device`` is
+    the CPU; a list may repeat a device)."""
+    if devices is None or isinstance(devices, (str, torch.device)):
+        return [resolve_device(device if devices is None else devices)]
+    if isinstance(devices, int) and devices < 1:
+        raise ValueError(f"asked for {devices} devices")
+    mesh = resolve_mesh(None, devices, device=device)
+    return [resolve_device(device)] if mesh is None else list(mesh.devices)
 
 
 def _weight_array(plan: Plan, weights) -> tuple[np.ndarray, np.dtype]:
@@ -111,16 +127,19 @@ def plan_rect_loads(plan: Plan, weights=None, *, device=None) -> np.ndarray:
     return _live_loads(plan, out.cpu().numpy())
 
 
-def execute_migration(old: Plan, new: Plan, weights=None, *,
+def execute_migration(old: Plan, new: Plan, weights=None, *, devices=None,
                       device=None) -> MigrationReceipt:
-    """Move every owner-changed cell's weight through ``device`` (the card
-    by default) and measure what arrived.  See the module docstring for
-    the exactness contract against :mod:`repro_torch.rebalance.migrate`.
+    """Move every owner-changed cell's weight to its new processor's
+    device and measure what arrived.  ``devices`` (see
+    :func:`resolve_devices`; ``None``: ``device``, itself the card by
+    default) holds processor ``i`` on entry ``i % D``.  See the module
+    docstring for the exactness contract against
+    :mod:`repro_torch.rebalance.migrate`.
     """
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device=device)
     w, wire_dtype = _weight_array(old, weights)
     m = max(old.m, new.m)
-    device_of = np.zeros(m, dtype=np.int64)
+    device_of = np.arange(m) % len(devs)
 
     o = old.owner_map().ravel()
     n = new.owner_map().ravel()
@@ -130,7 +149,7 @@ def execute_migration(old: Plan, new: Plan, weights=None, *,
     pair_bytes = np.zeros((m, m))
     executed = 0.0
     n_transfers = 0
-    with _trace.span("rebalance.execute", m=m, device=str(dev),
+    with _trace.span("rebalance.execute", m=m, devices=len(devs),
                      moved_cells=int(moved.sum())) as sp:
         if moved.any():
             src, dst, vals = o[moved], n[moved], wf[moved]
@@ -142,12 +161,12 @@ def execute_migration(old: Plan, new: Plan, weights=None, *,
             bounds = np.r_[starts, key.size]
             for a, b in zip(bounds[:-1], bounds[1:]):
                 i, j = divmod(int(key[a]), m)
-                payload = torch.from_numpy(
-                    np.ascontiguousarray(vals[a:b], dtype=wire_dtype)).to(dev)
-                received = payload.to("cpu")
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                got = float(received.numpy().sum(dtype=np.float64))
+                payload = torch.from_numpy(np.ascontiguousarray(
+                    vals[a:b], dtype=wire_dtype)).to(devs[device_of[i]])
+                received = payload.to(devs[device_of[j]])
+                if received.device.type == "cuda":
+                    torch.cuda.synchronize(received.device)
+                got = float(received.cpu().numpy().sum(dtype=np.float64))
                 pair_bytes[i, j] += got
                 executed += got
                 n_transfers += 1
@@ -160,10 +179,10 @@ def execute_migration(old: Plan, new: Plan, weights=None, *,
         g_kept = prefix.prefix_sum_2d(
             np.where((o == n).reshape(w.shape), w, 0))
         stack = torch.from_numpy(
-            np.stack([g_full, g_kept]).astype(np.float32)).to(dev)
+            np.stack([g_full, g_kept]).astype(np.float32)).to(devs[0])
         rc, cc = _plan_cuts(new)
-        rc2 = torch.from_numpy(np.stack([rc, rc])).to(dev)
-        cc2 = torch.from_numpy(np.stack([cc, cc])).to(dev)
+        rc2 = torch.from_numpy(np.stack([rc, rc])).to(devs[0])
+        cc2 = torch.from_numpy(np.stack([cc, cc])).to(devs[0])
         both = jagged_loads(stack, rc2, cc2).cpu().numpy()
         rect_loads = _live_loads(new, both[0])
         rect_received = _live_loads(new, both[0] - both[1])

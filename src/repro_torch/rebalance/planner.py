@@ -20,8 +20,19 @@ into a ``p1 x p2 x p3`` rectilinear processor grid per frame
 
 Entry points take ``device=None``, which means ``"cuda"``: they raise
 ``RuntimeError`` where CUDA is absent and run on the CPU only when the
-caller passes ``device="cpu"``, as the tests do.  The mesh-sharded path
-(``mesh=``) is not ported yet and raises ``NotImplementedError``.
+caller passes ``device="cpu"``, as the tests do.
+
+With ``mesh=`` (a ``dist.ctx.planner_mesh``) the stream is sharded by time
+over the mesh's data-parallel devices, as the reference's ``shard_map``
+path shards it: the frames are zero-padded along T to a multiple of the
+device count D, cut into D contiguous shards, each shard runs the same
+single-device chain on its own device, and the outputs are gathered onto
+the mesh's first device in time order with the padding trimmed.  No
+per-frame computation crosses the time axis and every batched loop
+freezes a lane once it has converged, so the sharded plans are
+bit-identical to the single-device plans on every mesh and every T.  One
+process drives the devices in turn, as one controller drives the
+reference's mesh.
 
 ``iter_plan_slices`` / ``plan_iter`` expose the stream lazily: every slice
 is enqueued up front (CUDA launches are asynchronous, and the heuristic
@@ -35,6 +46,7 @@ consume.
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
 
@@ -49,7 +61,8 @@ from repro_torch.rebalance.policy import replan_mode
 __all__ = ["resolve_device", "resolve_gamma_dtype", "ingest_stage",
            "sat_stage", "partition_stage", "plan_frames", "plan_stream",
            "plan_frames_3d", "plan_stream_3d", "iter_plan_slices",
-           "plan_iter", "plan_host", "profile_stages", "replan_mode"]
+           "plan_iter", "plan_host", "profile_stages", "resolve_mesh",
+           "replan_mode"]
 
 # How many slices the lazy iterator aims for when none is requested: deep
 # enough that the policy loop starts after ~1/4 of the stream is planned,
@@ -117,16 +130,6 @@ def _check_rank(frames, what: str) -> None:
                 if frames.ndim == 4 else "")
         raise ValueError(f"{what} takes (T, n1, n2) frames, got rank "
                          f"{frames.ndim}{hint}")
-
-
-def _check_mesh(mesh, devices: int | None = None) -> None:
-    """The single-device planner only: ``mesh=None`` and ``devices`` None
-    or 1 (the reference's ``resolve_mesh`` builds a planner mesh from
-    ``devices=N``; the sharded planner is not ported yet)."""
-    if mesh is not None or devices not in (None, 1):
-        raise NotImplementedError("the mesh-sharded planner is not ported "
-                                  "yet; pass mesh=None and devices=None "
-                                  "or 1")
 
 
 # ---------------------------------------------------------------------------
@@ -226,26 +229,108 @@ def plan_frames_3d(frames: torch.Tensor, *, grid: tuple[int, ...],
         rounds=rounds, gamma_dtype=gamma_dtype)
 
 
+# ---------------------------------------------------------------------------
+# mesh execution
+
+
+def resolve_mesh(mesh=None, devices=None, *, device=None):
+    """Planner-mesh resolution for consumer-facing ``devices=`` knobs.
+
+    An explicit mesh wins (it must be a ``dist.ctx.Mesh``, else
+    ``TypeError``).  ``devices=N`` builds the 1-D ``dist.ctx.planner_mesh``
+    over the first N CUDA devices, or over N entries of the CPU when
+    ``device`` is the CPU (the counterpart of the reference's forced host
+    devices); ``devices`` may also be a list of devices.  ``N=1`` or
+    nothing means the single-device path (``None``).
+    """
+    from repro_torch.dist import ctx
+    if mesh is not None:
+        if not isinstance(mesh, ctx.Mesh):
+            raise TypeError(f"mesh must be a repro_torch.dist.ctx.Mesh "
+                            f"(dist.ctx.planner_mesh), got "
+                            f"{type(mesh).__name__}")
+        return mesh
+    if devices is None:
+        return None
+    if isinstance(devices, bool) or not isinstance(devices, int):
+        if isinstance(devices, (str, torch.device)):
+            raise TypeError("devices= takes a device count or a list of "
+                            "devices, not one device")
+        return ctx.planner_mesh(devices=[resolve_device(d) for d in devices])
+    if devices <= 1:
+        return None
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return ctx.planner_mesh(devices=[dev] * devices)
+    return ctx.planner_mesh(devices)
+
+
+def _dp_spec(mesh) -> tuple[torch.device, ...]:
+    """The devices the time axis is sharded over, in order: the mesh's
+    data-parallel axis (checked by ``dist.ctx.planner_axes``)."""
+    from repro_torch.dist import ctx
+    ctx.planner_axes(mesh)
+    return tuple(resolve_device(d) for d in mesh.devices)
+
+
+def _pad_time(frames, T_pad: int):
+    """``frames`` (array or tensor) zero-padded along axis 0 to ``T_pad``."""
+    T = frames.shape[0]
+    if T_pad == T:
+        return frames
+    if isinstance(frames, torch.Tensor):
+        return torch.cat([frames, frames.new_zeros((T_pad - T,)
+                                                   + frames.shape[1:])])
+    arr = np.asarray(frames)
+    return np.concatenate([arr, np.zeros((T_pad - T,) + arr.shape[1:],
+                                         arr.dtype)])
+
+
+def _sharded(frames, mesh, chain) -> tuple:
+    """Run ``chain`` (frames on one device -> tuple of per-frame tensors)
+    over ``mesh``: zero-pad T to a multiple of the device count D, give
+    shard i (frames ``[i T/D, (i+1) T/D)``) to device i, gather the outputs
+    onto the first device in time order and trim the padding."""
+    devs = _dp_spec(mesh)
+    T, D = frames.shape[0], len(devs)
+    per = -(-T // D)
+    padded = _pad_time(frames, per * D)
+    outs = [chain(_to_device(padded[i * per:(i + 1) * per], dev))
+            for i, dev in enumerate(devs)]
+    return tuple(torch.cat([o[j].to(devs[0]) for o in outs])[:T]
+                 for j in range(len(outs[0])))
+
+
+def _run(frames, mesh, device, chain) -> tuple:
+    """``chain`` on ``device``, or sharded over ``mesh`` when there is one."""
+    if mesh is not None:
+        return _sharded(frames, mesh, chain)
+    return chain(_to_device(frames, resolve_device(device)))
+
+
 def plan_stream_3d(frames, *, m: int, grid: tuple[int, ...] | None = None,
                    mesh=None, max_iters: int = 256, patience: int = 32,
                    k: int = 8, rounds: int = 8, gamma_dtype=None,
                    device=None):
-    """SGORP planning for a whole (T, n1, n2, n3) volume stream on one
-    device.
+    """SGORP planning for a whole (T, n1, n2, n3) volume stream.
 
     The rank-3 twin of :func:`plan_stream`.  ``frames`` is a numpy array
-    or a tensor; it is moved to ``device`` (``None``: the card).
-    ``grid=None`` derives the (p1, p2, p3) processor grid from ``m`` via
-    :func:`repro_torch.core.sgorp.default_grid`.  Returns the stacked
-    ``(cuts1, cuts2, cuts3, Lmax, iters, projections)`` tensors on that
-    device.
+    or a tensor; it is moved to ``device`` (``None``: the card), or, with
+    a ``mesh``, sharded by time over the mesh's devices (cuts bit-identical
+    to one device; a zero-padded frame converges trivially and is
+    discarded).  ``grid=None`` derives the (p1, p2, p3) processor grid
+    from ``m`` via :func:`repro_torch.core.sgorp.default_grid`.
+    ``gamma_dtype`` is the accumulator of Gamma3 and the warm start:
+    float32 (default), float64 or int32; the refiner works in float32
+    whatever it is, as the reference's.  Returns the stacked ``(cuts1,
+    cuts2, cuts3, Lmax, iters, projections)`` tensors on that device (the
+    mesh's first).
     """
-    _check_mesh(mesh)
+    mesh = resolve_mesh(mesh)
     if frames.ndim != 4:
         raise ValueError(
             f"plan_stream_3d takes (T, n1, n2, n3) frames, got rank "
             f"{frames.ndim}")
-    dev = resolve_device(device)
     _check_finite(frames, 0, frames.shape[0], what="plan_stream_3d")
     if grid is None:
         grid = sgorp.default_grid(m, tuple(frames.shape[1:]))
@@ -253,20 +338,23 @@ def plan_stream_3d(frames, *, m: int, grid: tuple[int, ...] | None = None,
     if math.prod(grid) != m:
         raise ValueError(f"grid {grid} has {math.prod(grid)} cells, "
                          f"expected m={m}")
-    return plan_frames_3d(_to_device(frames, dev), grid=grid,
-                          max_iters=max_iters, patience=patience, k=k,
-                          rounds=rounds, gamma_dtype=gamma_dtype)
+    return _run(frames, mesh, device, functools.partial(
+        plan_frames_3d, grid=grid, max_iters=max_iters, patience=patience,
+        k=k, rounds=rounds, gamma_dtype=gamma_dtype))
 
 
 def plan_stream(frames, *, P: int, m: int, mesh=None, k: int = 8,
                 rounds: int = 8, gamma_dtype=None, exact: bool = False,
                 device=None):
-    """SAT + partitioner for a whole (T, n1, n2) stream on one device.
+    """SAT + partitioner for a whole (T, n1, n2) stream.
 
     ``frames`` is a numpy array or a tensor; it is moved to ``device``
     (``None``: the card).  Returns the batched (row_cuts, counts,
     col_cuts, Lmax) tensors on that device.  ``exact=True`` plans every
-    frame with the exact JAG-PQ-OPT (``Q = m // P``).
+    frame with the exact JAG-PQ-OPT (``Q = m // P``).  With a ``mesh``
+    the time axis is sharded over the mesh's devices (see the module
+    docstring) and the result lands on its first device, bit-identical to
+    the single-device result.
 
     Rank-4 ``(T, n1, n2, n3)`` frames route to :func:`plan_stream_3d`
     (the SGORP chain): ``P`` — a 2D stripe count — is ignored there; the
@@ -279,12 +367,12 @@ def plan_stream(frames, *, P: int, m: int, mesh=None, k: int = 8,
                 "the SGORP refiner (plan_stream_3d)")
         return plan_stream_3d(frames, m=m, mesh=mesh, k=k, rounds=rounds,
                               gamma_dtype=gamma_dtype, device=device)
-    _check_mesh(mesh)
+    mesh = resolve_mesh(mesh)
     _check_rank(frames, "plan_stream")
-    dev = resolve_device(device)
     _check_finite(frames, 0, frames.shape[0], what="plan_stream")
-    return plan_frames(_to_device(frames, dev), P=P, m=m, k=k,
-                       rounds=rounds, gamma_dtype=gamma_dtype, exact=exact)
+    return _run(frames, mesh, device, functools.partial(
+        plan_frames, P=P, m=m, k=k, rounds=rounds, gamma_dtype=gamma_dtype,
+        exact=exact))
 
 
 # ---------------------------------------------------------------------------
@@ -300,14 +388,19 @@ def iter_plan_slices(frames, *, P: int, m: int, mesh=None,
     All slices are enqueued before the first yield, so a consumer working
     through slice ``i``'s cuts overlaps with the card still planning
     slices ``i+1..`` (the exact path reads one flag per bisection round,
-    so there the enqueue itself waits on the card).
+    so there the enqueue itself waits on the card).  On a mesh of D
+    devices every slice is sharded over the mesh, and ``slice_size`` is
+    rounded up to a multiple of D, as the reference rounds it.
     """
-    _check_mesh(mesh)
+    mesh = resolve_mesh(mesh)
     _check_rank(frames, "iter_plan_slices")
-    dev = resolve_device(device)
     T = frames.shape[0]
+    D = 1 if mesh is None else len(_dp_spec(mesh))
     if slice_size is None:
-        slice_size = max(1, -(-T // _DEFAULT_SLICES))
+        slice_size = max(D, -(-T // _DEFAULT_SLICES))
+    slice_size = -(-slice_size // D) * D
+    chain = functools.partial(plan_frames, P=P, m=m, k=k, rounds=rounds,
+                              gamma_dtype=gamma_dtype, exact=exact)
     pending = []
     for i, t0 in enumerate(range(0, T, slice_size)):
         t1 = min(t0 + slice_size, T)
@@ -315,9 +408,8 @@ def iter_plan_slices(frames, *, P: int, m: int, mesh=None,
         # host-side span: measures the enqueue only, so instrumentation
         # never serializes the slice overlap
         with _trace.span("planner.dispatch", slice=i, t0=t0, t1=t1):
-            pending.append((t0, t1, plan_frames(
-                _to_device(frames[t0:t1], dev), P=P, m=m, k=k,
-                rounds=rounds, gamma_dtype=gamma_dtype, exact=exact)))
+            pending.append((t0, t1, _run(frames[t0:t1], mesh, device,
+                                         chain)))
     yield from pending
 
 
@@ -364,12 +456,13 @@ def profile_stages(frames, *, P: int, m: int, k: int = 8, rounds: int = 8,
     named stages.  Returns ``(plans, timings)``: the same per-frame Plans
     as :func:`plan_host` and a ``{"ingest", "sat", "partition",
     "collect"} -> seconds`` dict.  ``ingest`` includes the upload of the
-    frames to the device.
+    frames to the device.  On a mesh the whole sharded chain is timed as
+    one stage, charged to ``partition``, as the reference charges it.
     """
     from repro_torch.rebalance import batch_device
-    _check_mesh(mesh)
+    mesh = resolve_mesh(mesh)
     _check_rank(frames, "profile_stages")
-    dev = resolve_device(device)
+    devs = (resolve_device(device),) if mesh is None else _dp_spec(mesh)
     _check_finite(frames, 0, frames.shape[0], what="profile_stages")
     shape = tuple(frames.shape[1:])
     timings: dict[str, float] = {}
@@ -378,17 +471,25 @@ def profile_stages(frames, *, P: int, m: int, k: int = 8, rounds: int = 8,
         t0 = time.perf_counter()
         with _trace.span(f"planner.stage.{name}"):
             out = fn(*a)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            for d in set(devs):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
         timings[name] = time.perf_counter() - t0
         return out
 
-    gd = resolve_gamma_dtype(gamma_dtype, exact=exact)
-    ing = timed("ingest", lambda f: ingest_stage(_to_device(f, dev),
-                                                 gamma_dtype=gd), frames)
-    g = timed("sat", sat_stage, ing)
-    out = timed("partition", lambda x: partition_stage(
-        x, P=P, m=m, k=k, rounds=rounds, gamma_dtype=gd, exact=exact), g)
+    if mesh is not None:
+        out = timed("partition", lambda f: plan_stream(
+            f, P=P, m=m, mesh=mesh, k=k, rounds=rounds,
+            gamma_dtype=gamma_dtype, exact=exact), frames)
+    else:
+        dev = devs[0]
+        gd = resolve_gamma_dtype(gamma_dtype, exact=exact)
+        ing = timed("ingest", lambda f: ingest_stage(_to_device(f, dev),
+                                                     gamma_dtype=gd), frames)
+        g = timed("sat", sat_stage, ing)
+        out = timed("partition", lambda x: partition_stage(
+            x, P=P, m=m, k=k, rounds=rounds, gamma_dtype=gd, exact=exact),
+            g)
     t0 = time.perf_counter()
     with _trace.span("planner.stage.collect"):
         plans = batch_device.unstack_plans(out, shape)

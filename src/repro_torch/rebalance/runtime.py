@@ -19,9 +19,10 @@ The port of ``repro.rebalance.runtime``: the same ledger on the same
 frames.  Entry points take ``device=None``, which means the card (see
 ``planner.resolve_device``), and ``gamma_dtype`` for the planner's
 accumulators (float32 by default, as the reference plans; float64 keeps
-integer loads exact below 2**53).  The sharded planner is not ported:
-``mesh`` must be None and ``devices`` None or 1, and migrations execute
-on one device.
+integer loads exact below 2**53).  ``mesh=`` or ``devices=`` (a count or
+a list of devices; see ``planner.resolve_mesh``) shards the planner by
+time, and ``execute_devices`` spreads the executed migrations' processors
+over several devices.
 """
 from __future__ import annotations
 
@@ -138,13 +139,13 @@ class RunResult:
 
 def plan_stream_host(frames: np.ndarray, *, P: int, m: int, k: int = 8,
                      rounds: int = 8, gamma_dtype=torch.float32, mesh=None,
-                     devices: int | None = None,
-                     device=None) -> list[batch_device.Plan]:
-    """Candidate plan per frame via one planner call."""
-    planner._check_mesh(mesh, devices)
-    return planner.plan_host(np.asarray(frames), P=P, m=m, k=k,
-                             rounds=rounds, gamma_dtype=gamma_dtype,
-                             device=device)
+                     devices=None, device=None) -> list[batch_device.Plan]:
+    """Candidate plan per frame via one planner call (sharded over
+    ``mesh``/``devices`` when given)."""
+    return planner.plan_host(
+        np.asarray(frames), P=P, m=m, k=k, rounds=rounds,
+        gamma_dtype=gamma_dtype, device=device,
+        mesh=planner.resolve_mesh(mesh, devices, device=device))
 
 
 def _rel_max(plan: batch_device.Plan, g: np.ndarray, sp) -> float:
@@ -158,26 +159,11 @@ def _rel_max(plan: batch_device.Plan, g: np.ndarray, sp) -> float:
     return float(rel.max(initial=0.0))
 
 
-def _execute_device(execute_devices, dev: torch.device) -> torch.device:
-    """The one device migrations execute on: ``None`` (the run's device)
-    or a single device; more than one needs the multi-device execution,
-    not ported yet."""
-    if execute_devices is None:
-        return dev
-    if isinstance(execute_devices, (list, tuple)):
-        if len(execute_devices) != 1:
-            raise NotImplementedError(
-                "executing migrations across several devices is not "
-                "ported yet; pass execute_devices=None or one device")
-        execute_devices = execute_devices[0]
-    return planner.resolve_device(execute_devices)
-
-
 def run_stream(frames: np.ndarray, policy, *, P: int, m: int,
                alpha: float = 1.0, replan_overhead: float = 0.0,
                weight: str = "load", plans=None,
                gammas: list[np.ndarray] | None = None, k: int = 8,
-               rounds: int = 8, mesh=None, devices: int | None = None,
+               rounds: int = 8, mesh=None, devices=None,
                faults=None, validate: bool = False, execute: bool = False,
                execute_devices=None, gamma_dtype=None,
                device=None) -> RunResult:
@@ -189,8 +175,9 @@ def run_stream(frames: np.ndarray, policy, *, P: int, m: int,
 
     ``plans`` may be a list or any iterable of per-frame Plans; when
     omitted, the planner's lazy slice iterator supplies them on
-    ``device`` (``None``: the card), with ``gamma_dtype`` accumulators,
-    so the policy loop overlaps with later slices' planning.  ``gammas``
+    ``device`` (``None``: the card), or sharded over ``mesh``/``devices``
+    when given, with ``gamma_dtype`` accumulators, so the policy loop
+    overlaps with later slices' planning.  ``gammas``
     are the per-frame host prefix tables used for exact cost accounting;
     pass them (with ``plans``) when replaying the same stream under
     several policies — see :func:`compare_policies`.  When omitted they
@@ -218,20 +205,24 @@ def run_stream(frames: np.ndarray, policy, *, P: int, m: int,
 
     ``execute=True`` *performs* every adopted replan's migration through
     :func:`repro_torch.rebalance.execute.execute_migration` — owner-changed
-    cells' weights are moved through ``execute_devices`` (``None``: the
-    run's device; one device at most) and the measured total lands in
+    cells' weights are moved between devices (``execute_devices``:
+    ``None`` for the run's device, a device, a count or a list; processor
+    i lives on entry ``i % D``) and the measured total lands in
     ``StepRecord.executed_bytes``, auditing the priced
     ``migration_volume`` against real transfers.
     """
     if weight not in ("load", "cells"):
         raise ValueError(f"weight must be 'load' or 'cells', got {weight!r}")
-    planner._check_mesh(mesh, devices)
     dev = planner.resolve_device(device)
-    exec_dev = _execute_device(execute_devices, dev) if execute else None
+    mesh = planner.resolve_mesh(mesh, devices, device=dev)
+    if execute:
+        from . import execute as execute_mod
+        exec_devs = execute_mod.resolve_devices(execute_devices, device=dev)
     frames = np.asarray(frames)
     if plans is None:
         plans = planner.plan_iter(frames, P=P, m=m, k=k, rounds=rounds,
-                                  gamma_dtype=gamma_dtype, device=dev)
+                                  gamma_dtype=gamma_dtype, mesh=mesh,
+                                  device=dev)
     plan_it = iter(plans)
     if faults is not None:
         from . import faults as faults_mod
@@ -318,11 +309,10 @@ def run_stream(frames: np.ndarray, policy, *, P: int, m: int,
                 cost = replan_overhead + alpha * (vol + evac)
                 executed = None
                 if execute:
-                    from . import execute as execute_mod
                     receipt = execute_mod.execute_migration(
                         active, candidate,
                         weights=frames[t] if weight == "load" else None,
-                        device=exec_dev)
+                        devices=exec_devs)
                     executed = receipt.executed_bytes
                 active = candidate
                 if validate:
@@ -345,7 +335,7 @@ def run_stream(frames: np.ndarray, policy, *, P: int, m: int,
 def compare_policies(frames: np.ndarray, policies: dict, *, P: int, m: int,
                      alpha: float = 1.0, replan_overhead: float = 0.0,
                      weight: str = "load", k: int = 8, rounds: int = 8,
-                     mesh=None, devices: int | None = None, faults=None,
+                     mesh=None, devices=None, faults=None,
                      validate: bool = False, gamma_dtype=None,
                      device=None) -> dict[str, RunResult]:
     """Run several policies over shared precomputed plans and gammas.
@@ -356,11 +346,12 @@ def compare_policies(frames: np.ndarray, policies: dict, *, P: int, m: int,
     ``validate`` pass through to :func:`run_stream` (every policy sees
     the same fault schedule).
     """
-    planner._check_mesh(mesh, devices)
     dev = planner.resolve_device(device)
+    mesh = planner.resolve_mesh(mesh, devices, device=dev)
     frames = np.asarray(frames)
     plan_it = planner.plan_iter(frames, P=P, m=m, k=k, rounds=rounds,
-                                gamma_dtype=gamma_dtype, device=dev)
+                                gamma_dtype=gamma_dtype, mesh=mesh,
+                                device=dev)
     first = next(plan_it, None)  # enqueues every slice up front
     gammas = [prefix.prefix_sum_2d(f) for f in frames]
     plans = ([] if first is None else [first]) + list(plan_it)

@@ -96,6 +96,23 @@ def ledger_diff(a, b) -> list:
     return bad
 
 
+@pytest.fixture
+def jax_tracer_kept():
+    """Save and restore the JAX package's process-wide tracer around a
+    test that drives it (``repro.obs.trace.tracing()`` or
+    ``registry.explain``): its events, ``enabled``, ``jax_annotations`` and
+    ``epoch_ns``.  ``tracing()`` clears the events on entry and restores
+    only the flags on exit, so without this the events a test recorded
+    stay behind for whatever test runs next in the same process."""
+    from repro.obs import trace as jax_trace
+    t = jax_trace.TRACER
+    saved = (list(t._events), t.enabled, t.jax_annotations, t.epoch_ns)
+    try:
+        yield t
+    finally:
+        t._events, t.enabled, t.jax_annotations, t.epoch_ns = saved
+
+
 def need_card() -> torch.device:
     """The CUDA device, or skip the calling test: a CUDA kernel has no
     interpret mode, so tests of a kernel against its plain version run on

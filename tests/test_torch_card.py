@@ -12,7 +12,10 @@ kernels are bit-identical for any input.  The SAT kernels (K1, K4) sum
 float32 in another order than ``torch.cumsum``, so the float32 cases here
 keep integer loads with frame totals below 2**24, except
 ``test_sat_float32_above_2_24``, held to 1e-6 of the frame total against
-the exact int64 prefix (``chip_smoke.py``'s limit).  The flash attention
+the exact int64 prefix (``chip_smoke.py``'s limit); float64 (K1, K4) on
+integer loads up to 2**30 is exact and held to the exact prefix.  The
+sharded planner on a mesh that names the card more than once is held to
+the single-device plan bit for bit.  The flash attention
 kernel (K5) sums in tiles with an online softmax, the plain version
 densely: ``tests/test_flash.py``'s tolerances, 2e-5 for float32 and 2e-2
 for bfloat16, compared in float32, with the plain version's float32
@@ -667,10 +670,84 @@ def test_sat_kernel_float64_off_integers():
 
 
 def test_gamma3_kernel_refuses_float64():
+    """Named for the refusal it held until K4 took float64: a float64
+    Gamma3 on the card now equals the exact prefix, and float16 is still
+    refused."""
     dev = need_card()
-    with pytest.raises(TypeError, match="float32 or int32"):
-        sat_ops.gamma3(torch.zeros((2, 3, 4), dtype=torch.float64,
+    a = torch.from_numpy(_small_int_loads((2, 3, 4), 2 ** 30)).to(dev)
+    assert torch.equal(sat_ops.gamma3(a.double()),
+                       _exact_gamma(a, 3).double())
+    with pytest.raises(TypeError, match="float32 or int32 or float64"):
+        sat_ops.gamma3(torch.zeros((2, 3, 4), dtype=torch.float16,
                                    device=dev))
+
+
+# K4 in float64 (8-byte entries: classes 1, 2 and 4, one slab in flight):
+# each class's widest and tallest plane and one past it (the general
+# route), band edges, empty slabs and planes, and the float64 path's
+# 128^3 volumes; integer loads up to 2**30, exact in float64 (tolerance:
+# none, against the plain version and the exact int64 prefix)
+@pytest.mark.parametrize("shape,key", [
+    ((1, 1, 1), "sat3"), ((5, 7, 9), "sat3"), ((2, 40, 29, 3), "sat3"),
+    ((2, 0, 4, 5), "sat3"), ((3, 6, 0, 2), "sat3"), ((1, 200, 3, 70), "sat3"),
+    ((16, 130, 17, 19), "sat3"), ((1, 301, 5, 7), "sat3"),
+    ((1, 5, 512, 32), "sat3"), ((1, 5, 513, 32), "sat3_general"),
+    ((2, 9, 256, 64), "sat3"), ((2, 9, 257, 64), "sat3_general"),
+    ((2, 3, 128, 128), "sat3"), ((2, 3, 129, 128), "sat3_general"),
+    ((2, 3, 16, 129), "sat3_general"), ((3, 17, 33, 130), "sat3_general"),
+    ((2, 3, 64, 256), "sat3_general"), ((2, 5, 20, 300), "sat3_general"),
+    ((16, 128, 128, 128), "sat3"), ((1, 128, 128, 128), "sat3")])
+def test_sat3_kernel_float64_matches_plain(shape, key):
+    dev = need_card()
+    a64 = torch.from_numpy(_small_int_loads(shape, 2 ** 30, seed=5)).to(dev)
+    a = a64.double()
+    before = {k: _build.launches[k] for k in SAT_KEYS}
+    got = sat_ops.gamma3(a)
+    assert {k: _build.launches[k] - n for k, n in before.items()} == \
+        {k: int(k == key) for k in SAT_KEYS}
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64
+    assert torch.equal(got, sat_ref.gamma3_ref(a))
+    assert torch.equal(got, _exact_gamma(a64, 3).double())
+
+
+def test_sharded_planner_on_card_matches_one_device():
+    """A mesh naming the card twice (``[cuda] * 2``, ragged T) plans the
+    2D heuristic, the exact path and the 3D path bit-identically to the
+    single-device call, and the result lands on the card."""
+    from repro_torch.dist import ctx
+    dev = need_card()
+    mesh = ctx.planner_mesh(devices=[dev] * 2)
+    fr = stream.drifting_hotspot(7, 48, 64, seed=5)
+    for exact in (False, True):
+        got = planner.plan_stream(fr, P=4, m=16, exact=exact, mesh=mesh)
+        want = planner.plan_stream(fr, P=4, m=16, exact=exact, device=dev)
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+    vol = stream.pic_series_3d(5, 14, 16, 18, seed=5)
+    for gd in (torch.float32, torch.float64):
+        got = planner.plan_stream_3d(vol, m=12, mesh=mesh, gamma_dtype=gd)
+        want = planner.plan_stream_3d(vol, m=12, device=dev, gamma_dtype=gd)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_execute_migration_on_card_entries_matches_ledger():
+    """Processors on three entries of the card: the receipts equal the
+    one-device receipts and the priced ledger, ``device_of`` is
+    ``arange(m) % 3``."""
+    from repro_torch.rebalance import execute, migrate
+    dev = need_card()
+    fr = stream.drifting_hotspot(3, 40, 40, seed=2)
+    plans = planner.plan_host(fr, P=4, m=12, device=dev)
+    r = execute.execute_migration(plans[0], plans[1], fr[1],
+                                  devices=[dev] * 3)
+    one = execute.execute_migration(plans[0], plans[1], fr[1], device=dev)
+    assert r.executed_bytes == one.executed_bytes == \
+        migrate.migration_volume(plans[0], plans[1], fr[1])
+    np.testing.assert_array_equal(r.pair_bytes, one.pair_bytes)
+    np.testing.assert_array_equal(r.device_of, np.arange(12) % 3)
+    execute.verify_receipt(plans[0], plans[1], fr[1], receipt=r)
 
 
 def _pic_above_2_24(T, n1, n2):

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core import prefix, registry, sgorp
+from repro_torch.dist import ctx
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.rectload import ops as rl_ops
@@ -74,6 +75,21 @@ pos = torch.arange(9)[None]
 assert torch.allclose(flash_ops.attention(q, q, q), layers.chunked_attention(
     q, q, q, pos, pos, causal=True, window=0, softcap=0.0, scale=8 ** -0.5,
     q_chunk=4, kv_chunk=4), atol=1e-5)
+import numpy as np
+from repro_torch.dist import cp_balance, ctx, moe_placement
+assert cp_balance.balanced_plan(64, 8)[-1] == 64
+counts = moe_placement.simulate_router_counts(8, 12, seed=0)
+assert moe_placement.plan_expert_placement(counts, 6).partition.is_valid()
+mesh = ctx.planner_mesh(devices=["cpu"] * 3)
+for exact in (False, True):
+    one = planner.plan_stream(fr, P=2, m=4, exact=exact, device="cpu")
+    three = planner.plan_stream(fr, P=2, m=4, exact=exact, mesh=mesh)
+    assert all(torch.equal(a, b) for a, b in zip(one, three))
+res3 = runtime.run_stream(stream.drifting_hotspot(6, 24, 24, seed=0),
+                          policy.AlwaysRebalance(), P=2, m=8, devices=2,
+                          execute=True, execute_devices=["cpu"] * 3,
+                          device="cpu")
+assert all(r.executed_bytes == r.migration_volume for r in res3.records[1:])
 leaked = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "repro"))]
 assert not leaked, leaked
@@ -85,7 +101,7 @@ def test_port_imports_and_plans_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", _ISOLATED], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 31
+    assert int(r.stdout.split()[-1]) >= 35
 
 
 def _entry_points():
@@ -110,10 +126,17 @@ def _entry_points():
         lambda: runtime.compare_policies(
             fr, {"never": policy.NeverRebalance()}, P=2, m=4),
         lambda: runtime.plan_stream_host(fr, P=2, m=4),
+        lambda: ctx.planner_mesh(),
+        lambda: runtime.plan_stream_host(fr, P=2, m=4, devices=2),
+        lambda: runtime.run_stream(fr, policy.NeverRebalance(), P=2, m=4,
+                                   mesh=ctx.planner_mesh(
+                                       devices=["cuda"] * 2)),
+        lambda: execute.execute_migration(plan, plan, fr[0],
+                                          devices=["cuda"] * 2),
     ]
 
 
-@pytest.mark.parametrize("i", range(16))
+@pytest.mark.parametrize("i", range(20))
 def test_entry_points_raise_without_cuda(i, monkeypatch):
     call = _entry_points()[i]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -217,7 +240,8 @@ def test_no_fallback_sources_cover_the_port():
             "models/layers.py", "kernels/_build.py", "rebalance/policy.py",
             "rebalance/faults.py", "rebalance/runtime.py", "obs/hist.py",
             "serve/__init__.py", "serve/queue.py", "serve/batcher.py",
-            "serve/simulate.py"} <= names
+            "serve/simulate.py", "dist/__init__.py", "dist/ctx.py",
+            "dist/cp_balance.py", "dist/moe_placement.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)

@@ -149,7 +149,7 @@ def test_plan_validate_reports_problems():
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    ({"mesh": object()}, NotImplementedError),
+    ({"mesh": object()}, TypeError),
     ({"exact": True, "m": 15}, ValueError),
 ])
 def test_plan_stream_refuses(kwargs, exc):
@@ -160,12 +160,18 @@ def test_plan_stream_refuses(kwargs, exc):
 
 
 def test_rank3_frames_are_not_ported_yet():
-    """Rank-3 frames plan through ``plan_stream`` on one device (see
-    ``test_torch_planner3d.py``); their mesh-sharded planner is not ported
-    yet, and the 2D-only entry points refuse them."""
+    """Named for the refusals it held before the sharded planner was
+    ported: rank-3 frames plan through ``plan_stream`` on one device and
+    on a mesh (see ``test_torch_planner3d.py`` and ``test_torch_mesh.py``),
+    a malformed mesh raises ``TypeError``, and the 2D-only entry points
+    refuse rank-3 frames (P4)."""
+    from repro_torch.dist import ctx
     vol = np.ones((2, 4, 4, 4))
-    assert len(planner.plan_stream(vol, P=2, m=4, device=CPU)) == 6
-    with pytest.raises(NotImplementedError):
+    one = planner.plan_stream(vol, P=2, m=4, device=CPU)
+    assert len(one) == 6
+    assert_same(one, planner.plan_stream(
+        vol, P=2, m=4, mesh=ctx.planner_mesh(devices=[CPU] * 2)))
+    with pytest.raises(TypeError, match="mesh"):
         planner.plan_stream(vol, P=2, m=4, mesh=object(), device=CPU)
     for call in (planner.plan_host, planner.profile_stages,
                  lambda *a, **k: list(planner.plan_iter(*a, **k))):

@@ -69,6 +69,29 @@ def test_plan_stream_3d_matches_jax(case, dtype):
             assert part.max_load(fr[t], gamma3=g3) == float(got[3][t])
 
 
+@pytest.mark.parametrize("scale", [1, 2 ** 20])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-m{c[2]}")
+def test_plan_stream_3d_float64_matches_jax_under_x64(case, scale):
+    """``gamma_dtype=float64`` against the reference under
+    ``jax.enable_x64()`` (not ``jax.experimental.enable_x64``, F3), on its
+    plain version and its Pallas kernel in interpret mode: float64 Gamma3
+    and warm start, float32 refiner, as in both packages.  ``scale``
+    2**20 lifts the frame totals far above 2**24 (where float32 Gamma3
+    drifts) and below 2**53.  Tolerance: none."""
+    import jax
+    name, shape, m = case
+    fr = _frames(name, shape).astype(np.int64) * scale
+    got = planner.plan_stream_3d(fr, m=m, gamma_dtype=torch.float64,
+                                 device=CPU)
+    with jax.enable_x64():
+        for use_pallas in (False, True):
+            want = jax_planner.plan_stream_3d(
+                fr, m=m, gamma_dtype=jnp.float64, use_pallas=use_pallas,
+                interpret=True)
+            assert_same(tuple(np.asarray(x) for x in want), got)
+    assert int(fr.reshape(fr.shape[0], -1).sum(1).max()) < 2 ** 53
+
+
 def test_plan_stream_3d_matches_jax_pallas_route():
     name, shape, m = CASES[1]
     got = planner.plan_stream(_frames(name, shape), P=0, m=m, device=CPU)
@@ -101,7 +124,7 @@ def test_plan_stream_3d_refuses_like_jax(fn, kwargs, rank, match):
 
 def test_plan_stream_3d_refuses_mesh_poison_and_int32_overflow():
     fr = _frames("pic3d", (12, 12, 12))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         planner.plan_stream_3d(fr, m=8, mesh=object(), device=CPU)
     bad = fr.astype(np.float64)
     bad[2, 1, 2, 3] = np.inf

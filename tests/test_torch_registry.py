@@ -18,6 +18,7 @@ import functools
 import numpy as np
 import pytest
 
+from _torch_parity import jax_tracer_kept  # noqa: F401
 from repro.core import prefix as jax_prefix
 from repro.core import registry as jax_reg
 from repro_torch import obs
@@ -152,6 +153,7 @@ def test_errors_match_the_reference(name, load, kw):
     "rect-nicol", "jag-pq-opt", "jag-m-heur-probe", "jag-m-opt",
     "hier-relaxed", "hybrid", "jag-pq-opt-device", "jag-m-opt-device",
     "sgorp-2d", "jag-m-heur-3d", "project-then-2d"])
+@pytest.mark.usefixtures("jax_tracer_kept")
 def test_explain_matches_the_reference(name):
     """``explain`` gives the same bottleneck, ideal, imbalance and engine
     counters (timings are not compared), and its spans hold the
@@ -170,6 +172,7 @@ def test_explain_matches_the_reference(name):
     assert got.summary().split(" (")[0] == want.summary().split(" (")[0]
 
 
+@pytest.mark.usefixtures("jax_tracer_kept")
 def test_explain_nests_in_an_outer_recording():
     g = _gamma("peak", (24, 20))
     with obs.tracing() as tr:

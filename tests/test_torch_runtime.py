@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_same_plans, ledger_diff
+from _torch_parity import (assert_same_plans, jax_tracer_kept,  # noqa: F401
+                           ledger_diff)
 from repro.obs import trace as jax_trace
 from repro.rebalance import faults as jax_faults
 from repro.rebalance import planner as jax_planner
@@ -99,6 +100,7 @@ def test_policies_decide_as_the_reference(name):
     assert planner.replan_mode is policy.replan_mode
 
 
+@pytest.mark.usefixtures("jax_tracer_kept")
 def test_replan_mode_traces_its_decision():
     state = _states(policy)[200]
     with obs.tracing() as tr:
@@ -304,18 +306,29 @@ def test_run_stream_refuses_what_is_not_ported_or_malformed():
     with pytest.raises(ValueError, match="m=8"):
         runtime.run_stream(fr, pol, P=P, m=M, device="cpu",
                            faults=faults.rack_failure(T, 8))
-    for kw in (dict(mesh=object()), dict(devices=2)):
-        with pytest.raises(NotImplementedError, match="mesh-sharded"):
-            runtime.run_stream(fr, pol, P=P, m=M, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="mesh-sharded"):
-            runtime.compare_policies(fr, {"n": pol}, P=P, m=M,
-                                     device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="mesh-sharded"):
-            runtime.plan_stream_host(fr, P=P, m=M, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="several devices"):
-        runtime.run_stream(fr, policy.AlwaysRebalance(), P=P, m=M,
-                           execute=True, execute_devices=["cpu", "cpu"],
-                           device="cpu")
+    # named for the refusals it held before the sharded planner and the
+    # multi-device migrations were ported: a malformed mesh still raises,
+    # devices=2 (two entries of the CPU) now plans the single-device
+    # ledger, and migrations execute across several devices
+    with pytest.raises(TypeError, match="mesh"):
+        runtime.run_stream(fr, pol, P=P, m=M, device="cpu", mesh=object())
+    with pytest.raises(TypeError, match="mesh"):
+        runtime.compare_policies(fr, {"n": pol}, P=P, m=M, device="cpu",
+                                 mesh=object())
+    with pytest.raises(TypeError, match="mesh"):
+        runtime.plan_stream_host(fr, P=P, m=M, device="cpu", mesh=object())
+    assert ledger_diff(runtime.run_stream(fr, pol, P=P, m=M, device="cpu",
+                                          devices=2),
+                       runtime.run_stream(fr, pol, P=P, m=M,
+                                          device="cpu")) == []
+    assert_same_plans(runtime.plan_stream_host(fr, P=P, m=M, device="cpu",
+                                               devices=2),
+                      runtime.plan_stream_host(fr, P=P, m=M, device="cpu"))
+    two = runtime.run_stream(fr, policy.AlwaysRebalance(), P=P, m=M,
+                             execute=True, execute_devices=["cpu", "cpu"],
+                             device="cpu")
+    assert all(r.executed_bytes == r.migration_volume
+               for r in two.records[1:])
     one = runtime.run_stream(fr[:3], policy.AlwaysRebalance(), P=P, m=M,
                              execute=True, execute_devices=["cpu"],
                              devices=1, device="cpu")

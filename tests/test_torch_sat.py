@@ -15,6 +15,7 @@ from _torch_parity import assert_same, int_loads
 from repro.kernels.sat import ops as jax_sat
 from repro_torch.kernels import _build
 from repro_torch.kernels.sat import ops as sat_ops
+from repro_torch.kernels.sat import ref as sat_ref
 
 # odd shapes, none a multiple of the TPU kernel's (256, 512) tiles; 2D
 # frames and (B, n1, n2) stacks
@@ -58,9 +59,16 @@ def test_gamma_refuses_what_the_kernel_does_not_take(bad, exc):
 
 
 def test_gamma3_refuses_float64():
-    """K1 takes float64 (the heuristic's float64 accumulators); K4 does
-    not."""
+    """Named for the refusal it held until K4 took float64: K1 and K4 both
+    take float64 now (the planners' float64 accumulators), and a float64
+    Gamma3 of integer loads is the exact int64 prefix; float16 is still
+    refused."""
     assert sat_ops.gamma(torch.ones((2, 3), dtype=torch.float64))[-1, -1] \
         == 6
-    with pytest.raises(TypeError, match="gamma3 takes float32 or int32"):
-        sat_ops.gamma3(torch.zeros((2, 3, 4), dtype=torch.float64))
+    a = torch.from_numpy(int_loads((2, 3, 4, 5), np.int64))
+    g = sat_ops.gamma3(a.double())
+    assert g.dtype == torch.float64
+    assert torch.equal(g, sat_ref.gamma3_ref(a).double())
+    with pytest.raises(TypeError, match="gamma3 takes float32 or int32 or "
+                       "float64"):
+        sat_ops.gamma3(torch.zeros((2, 3, 4), dtype=torch.float16))

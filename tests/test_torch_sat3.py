@@ -55,6 +55,22 @@ def test_random_float32_gamma3_within_rtol(shape):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_float64_gamma3_matches_jax_under_x64(shape):
+    """float64 (K4's float64 route on the card) against the reference's
+    plain version and Pallas kernel under ``jax.enable_x64()``: integer
+    loads up to 2**30 a cell, frame totals far above 2**24 and below
+    2**53, so every float64 sum is exact (tolerance: none)."""
+    import jax
+    a = np.random.default_rng(4).integers(0, 2 ** 30, shape).astype(
+        np.float64)
+    got = sat_ops.gamma3(torch.from_numpy(a))
+    with jax.enable_x64():
+        for use_pallas in (True, False):
+            assert_same(jax_sat.gamma3(jnp.asarray(a), use_pallas=use_pallas,
+                                       interpret=True), got)
+
+
 def test_batched_gamma3_is_per_frame():
     a = torch.from_numpy(int_loads((3, 6, 5, 7), np.int32, seed=1))
     g = sat_ops.gamma3(a)
@@ -66,7 +82,7 @@ def test_batched_gamma3_is_per_frame():
     (torch.zeros((4, 5), dtype=torch.int32), ValueError),
     (torch.zeros((2, 2, 2, 2, 2), dtype=torch.int32), ValueError),
     (torch.zeros((3, 4, 5), dtype=torch.int64), TypeError),
-    (torch.zeros((3, 4, 5), dtype=torch.float64), TypeError),
+    (torch.zeros((3, 4, 5), dtype=torch.float16), TypeError),
 ])
 def test_gamma3_refuses_what_the_kernel_does_not_take(bad, exc):
     with pytest.raises(exc):

@@ -52,6 +52,48 @@ def test_sat3_plan_routes_by_plane(shape, route, c):
         assert band == sat_ops.band_rows(B * n1, n2, SMS)
 
 
+@pytest.mark.parametrize("shape,route,c", [
+    ((16, 128, 128, 128), "sat3", 4), ((1, 1, 1, 1), "sat3", 1),
+    ((1, 5, 512, 32), "sat3", 1), ((1, 5, 513, 32), "sat3_general", 0),
+    ((2, 9, 256, 64), "sat3", 2), ((2, 9, 257, 64), "sat3_general", 0),
+    ((1, 200, 3, 70), "sat3", 4), ((2, 3, 128, 128), "sat3", 4),
+    ((2, 3, 129, 128), "sat3_general", 0),
+    ((2, 3, 16, 129), "sat3_general", 0),
+    ((3, 17, 33, 130), "sat3_general", 0),
+    ((2, 3, 64, 256), "sat3_general", 0),
+    ((2, 128, 128, 300), "sat3_general", 0)])
+def test_sat3_plan_routes_float64_by_plane(shape, route, c):
+    """At 8 bytes an entry K4 has the classes 1, 2 and 4 (the widest
+    class's block would not fit the card's shared memory), each with the
+    float32 class's plane rows, so the float64 path's 128^3 volumes keep
+    the fast route and planes with n3 > 128 take the general one."""
+    got, cls, band = sat_ops.sat3_plan(*shape, SMS, itemsize=8)
+    assert (got, cls) == (route, c)
+    assert cls in (0,) + sat_ops.SAT3_CLASSES_8
+    B, n1, n2, n3 = shape
+    if route == "sat3":
+        assert n3 <= 32 * c and n2 <= 512 // c
+        assert band == sat_ops.sat3_plan(*shape, SMS)[2]
+    else:
+        assert band == sat_ops.band_rows(B * n1, n2, SMS)
+
+
+def test_sat3_f64_scan_fits_a_block():
+    """The scan block's shared memory at each class, as sat3d.cu's
+    launch_band3 sizes it: tb [2][NW + 1][CW] float64 carries, stage
+    [NW][CW] and ring [NST][TR][CW] entries, within the H100's 232,448
+    bytes a block; two slabs in flight would not fit at 8 bytes."""
+    def smem(item, c, nst):
+        nw, cw, tr = (16 if c == 8 else 32), 32 * c, 512 // c
+        return 8 * 2 * (nw + 1) * cw + item * (nw + nst * tr) * cw
+    limit = 232448
+    for c in sat_ops.SAT3_CLASSES:
+        assert smem(4, c, 2) <= limit
+    for c in sat_ops.SAT3_CLASSES_8:
+        assert smem(8, c, 1) <= limit < smem(8, c, 2)
+    assert smem(8, 8, 1) > limit
+
+
 def test_sat3_plan_gives_one_block_per_sm_on_the_path():
     """16 volumes of 128^3: 8 bands of 16 slabs, 128 blocks on 132 SMs."""
     assert sat_ops.sat3_plan(16, 128, 128, 128, SMS) == ("sat3", 4, 16)
@@ -127,5 +169,16 @@ def _k4_general(a: torch.Tensor) -> torch.Tensor:
 def test_k4_decompositions_are_gamma3(shape):
     a = _loads(shape, seed=1)
     route, _, band = sat_ops.sat3_plan(*shape, SMS)
+    got = (_k4_by_bands(a, band) if route == "sat3" else _k4_general(a))
+    assert torch.equal(got, sat_ref.gamma3_ref(a))
+
+
+@pytest.mark.parametrize("shape", [(16, 130, 5, 7), (2, 9, 12, 70),
+                                   (2, 5, 20, 300), (2, 3, 16, 129),
+                                   (1, 6, 257, 3), (3, 40, 64, 100)])
+def test_k4_float64_decompositions_are_gamma3(shape):
+    """The float64 plan (``itemsize=8``) replayed like the float32 one."""
+    a = _loads(shape, seed=2)
+    route, _, band = sat_ops.sat3_plan(*shape, SMS, itemsize=8)
     got = (_k4_by_bands(a, band) if route == "sat3" else _k4_general(a))
     assert torch.equal(got, sat_ref.gamma3_ref(a))
