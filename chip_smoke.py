@@ -72,7 +72,15 @@ through ``kernels.flash.ops.flash_attention`` (every shape through
 float32 check at Qwen3 width and S=2048 (2e-5).  The Gemma-2 queries are drawn large enough that
 the softcap changes the logits; ``flex_attention`` (compiled) is timed
 there as the library yardstick, SDPA at Qwen3 and SDPA on float32 beside
-the float32 check.
+the float32 check.  Then the decoder-only model path (``run_models``)
+with its own launch counts: Qwen3-0.6B at full width in bf16, through
+``models.api``, serving two groups of ``serve.batcher.plan``'s replicas
+(left-padded prompts, prefill and greedy decode steps) with times beside
+their bounds, the card's idle share and peak memory; the card against
+the CPU at float32 (Qwen3-0.6B, and every dense and VLM smoke config)
+and teacher forcing at full width (Qwen3-0.6B; gemma2-9b's first two
+layers past its window), each within 1e-4 x max |logits|; and no launch
+of K1-K5, as the reference's models call the plain chunked attention.
 
 Dtype contract checked here: int32 results are bit-identical between the
 kernels and the plain versions, and to the CPU path; so are float32
@@ -1647,6 +1655,288 @@ def run_flash(cuda: torch.device) -> list:
             entry("flash_mma", glaunches.get("flash_mma", 0), gerr, grows)]
 
 
+# The model phase (``run_models``): serving as ``examples/serve_balanced.py``
+# does at the smoke size, here at Qwen3-0.6B's full width
+SERVE_ARCH = "qwen3_0_6b"
+N_REQUESTS, N_REPLICAS, DECODE_STEPS = 64, 8, 32
+MODEL_TOL = 1e-4          # card vs CPU and teacher forcing: x max |reference|
+TF_S = 64                 # Qwen3 teacher forcing and card-vs-CPU prompt
+GEMMA_S = 4608            # gemma2-9b prompt, past its 4096-token window
+#: the configs the model path ports (dense and VLM)
+MODEL_ARCHS = ["qwen3_0_6b", "granite_3_2b", "gemma2_9b", "stablelm_1_6b",
+               "internvl2_2b"]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def busy_ms(fn) -> tuple[float, int]:
+    """Device time (ms) of one call of ``fn`` by ``torch.profiler``: the sum
+    of its kernels' and copies' durations (one stream, so no overlap), and
+    their count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in ev) / 1e3,
+            sum(e.count for e in ev))
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """max |got - want| / max |want|, and max |got - want|."""
+    d = float((got.cpu().double() - want.cpu().double()).abs().max())
+    return d / float(want.abs().max()), d
+
+
+def serve_group(cuda, model, params, group, rng, card: str) -> None:
+    """One replica's requests, left-padded with token 0 to the longest (the
+    pads are attended, as in the reference), prefilled and decoded
+    greedily for ``DECODE_STEPS`` steps; logs times beside their bounds."""
+    from repro_torch.models import lm
+    cfg = model.cfg
+    prompts = [rng.integers(0, cfg.vocab_size, r.prompt_tokens)
+               for r in group.requests]
+    B, S = len(prompts), max(len(q) for q in prompts)
+    toks = np.zeros((B, S), np.int32)
+    for i, q in enumerate(prompts):
+        toks[i, S - len(q):] = q
+    toks = torch.from_numpy(toks).to(cuda)
+    ctx = S + DECODE_STEPS
+    tag = f"replica {group.replica}'s group"
+    log("models", f"{cfg.name} {cfg.dtype} serving {tag}: B={B}, prompt "
+        f"lengths {[len(q) for q in prompts]}, left-padded with token 0 to "
+        f"S={S}, cache {ctx}")
+
+    def prefill(cache):
+        return model.prefill(params, {"tokens": toks}, cache, device=cuda)
+
+    prefill(model.init_cache(B, ctx, device=cuda))      # warm-up, untimed
+    pre_ms = []
+    for _ in range(3):
+        cache = model.init_cache(B, ctx, device=cuda)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cache)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms, out = [], []
+    tok = logits[:, -1].argmax(-1).int()[:, None]
+    for t in range(DECODE_STEPS):
+        out.append(tok)
+        pos = torch.full((B,), S + t, dtype=torch.int32, device=cuda)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, tok, pos, cache, device=cuda)
+        tok = logits[:, -1].argmax(-1).int()[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
+    check(logits.shape == (B, 1, cfg.padded_vocab), f"{tag}: logits of "
+          f"shape {tuple(logits.shape)}")
+    pos_ok = cache["attn"]["pos"][:, :, :ctx].cpu()
+    check(torch.equal(pos_ok, torch.arange(ctx, dtype=torch.int32)
+                      .expand_as(pos_ok)),
+          f"{tag}: the cache does not hold positions 0..{ctx - 1}")
+
+    # bounds: the larger of the operations over the bf16 tensor cores' peak
+    # and the bytes over the memory rate (every weight read once; for
+    # decode also the valid cache entries, the mean step's)
+    mats = sum(t.numel() for t in lm.leaves(params["layers"]) if t.dim() > 2)
+    wbytes = sum(t.numel() * t.element_size() for t in lm.leaves(params))
+    # QK and PV of one query-key pair, over the layers, heads and rows
+    attn = 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * B
+    head = 2 * B * cfg.d_model * cfg.padded_vocab
+    pre_ops = 2 * B * S * mats + head + attn * S * (S + 1) // 2
+    kv_len = S + (DECODE_STEPS + 1) / 2
+    dec_ops = 2 * B * mats + head + attn * kv_len
+    kv_bytes = (B * kv_len * 2 * cfg.n_layers * cfg.n_kv_heads
+                * cfg.head_dim * params["embed"].element_size())
+    pre_bound = bound(wbytes, pre_ops, BF16_TC_OPS_PER_S)
+    dec_bound = bound(wbytes + kv_bytes, dec_ops, BF16_TC_OPS_PER_S)
+    dec_med = statistics.median(step_ms)
+    tps = B * DECODE_STEPS / (sum(step_ms) / 1e3)
+
+    def both(ops, nbytes):
+        return (f"{ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms for {ops:.0f} "
+                f"operations over 989 TFLOP/s bf16, "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms for {nbytes:.0f} "
+                f"bytes over 3.35 TB/s")
+
+    log("models", f"{tag} on {card}: prefill {statistics.median(pre_ms):.2f} "
+        f"ms (median of 3: {', '.join(f'{x:.2f}' for x in pre_ms)}), bound "
+        f"{pre_bound[0]:.4f} ms by {pre_bound[1]} ({both(pre_ops, wbytes)}); "
+        f"decode {dec_med:.2f} ms a step (median of {DECODE_STEPS}; min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), bound "
+        f"{dec_bound[0]:.4f} ms by {dec_bound[1]} ("
+        f"{both(dec_ops, wbytes + kv_bytes)}: the weights and {kv_bytes:.0f} "
+        f"cache bytes); {tps:.1f} decoded tokens/s ({B} x {DECODE_STEPS} "
+        f"tokens); first row's tokens {torch.cat(out, 1)[0, :8].tolist()}")
+    fresh = model.init_cache(B, ctx, device=cuda)
+    for what, fn, wall in (("prefill", lambda: prefill(fresh),
+                            statistics.median(pre_ms)),
+                           ("decode step", lambda: model.decode(
+                               params, tok, pos, cache, device=cuda),
+                            dec_med)):
+        busy, n = busy_ms(fn)
+        log("models", f"{tag}, {what} on {card}: the card is busy "
+            f"{busy:.2f} ms of {wall:.2f} (torch.profiler; idle share "
+            f"{1 - busy / wall:.3f}) in {n} kernels and copies")
+
+
+def run_models(cuda: torch.device) -> None:
+    """The decoder-only model path (``models.api``), with its own launch
+    counts: Qwen3-0.6B at full width in bf16 serving two replica groups of
+    the batcher's plan; card vs CPU at float32 (Qwen3-0.6B at full width,
+    every dense and VLM smoke config); teacher forcing at full width
+    (Qwen3-0.6B, and gemma2-9b's two first layers past its window)."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import api, lm
+    from repro_torch.serve import batcher
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls must run in full float32")
+    _build.launches.clear()
+
+    # -- serving ----------------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    lens = np.minimum((rng.pareto(1.5, N_REQUESTS) * 24 + 8).astype(int), 192)
+    reqs = [batcher.Request(i, int(n)) for i, n in enumerate(lens)]
+    plan = batcher.plan(reqs, N_REPLICAS, algo="optimal")
+    log("models", f"{N_REQUESTS} requests over {N_REPLICAS} replicas "
+        f"(optimal): loads {[a.load for a in plan]}, groups of "
+        f"{[len(a.requests) for a in plan]} requests")
+    cfg = configs.get(SERVE_ARCH)
+    model = api.build(cfg)
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(cuda).manual_seed(SEED), device=cuda)
+    init_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    largest = max(plan, key=lambda a: len(a.requests))
+    for group in (plan[0], largest):
+        serve_group(cuda, model, params, group, rng, card)
+    log("models", f"peak memory (torch.cuda.max_memory_allocated, above the "
+        f"{base} bytes earlier phases hold) on {card}: serving both groups "
+        f"{torch.cuda.max_memory_allocated() - base} bytes, the bf16 weights "
+        f"({2 * api.count_params(cfg)} bytes) included; the seeded init "
+        f"{init_peak} bytes (float32 draws, each layer's tensors beside "
+        f"their stacked copy)")
+    del params
+
+    # -- card vs CPU, float32 ---------------------------------------------
+    def card_vs_cpu(cfg, params, toks, pe, full: bool) -> str:
+        pc = _tree_to(params, "cpu")
+        B, T = toks.shape[0], toks.shape[1] + cfg.vision_len
+        res = {}
+        for side, dev, p in (("card", cuda, params), ("cpu", "cpu", pc)):
+            r = res[side] = {}
+            if full:
+                r["forward"] = lm.forward(p, cfg, toks, pe, device=dev)[0]
+            cache = lm.init_cache(cfg, B, T + 1, device=dev)
+            r["prefill"], cache = lm.prefill(p, cfg, toks, cache, pe,
+                                             device=dev)
+            tok = res["card"]["prefill"][:, -1].argmax(-1).int()[:, None]
+            r["decode"], cache = lm.decode_step(
+                p, cfg, tok, torch.full((B,), T), cache, device=dev)
+            r.update(cache["attn"])
+        got, want = res["card"], res["cpu"]
+        check(torch.equal(got.pop("pos").cpu(), want.pop("pos")),
+              f"{cfg.name}: cache positions differ between card and CPU")
+        errs = {k: _rel_err(got[k], want[k]) for k in got}
+        bad = {k: e for k, e in errs.items() if e[0] > MODEL_TOL}
+        check(not bad, f"{cfg.name}: card vs CPU {bad} (limit {MODEL_TOL} "
+              f"x max|CPU|)")
+        return ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3g})"
+                         for k, e in errs.items())
+
+    cfg32 = cfg.scaled(dtype="float32")
+    p32 = lm.init_params(torch.Generator(cuda).manual_seed(SEED), cfg32,
+                         device=cuda)
+    toks = rng.integers(0, cfg.vocab_size, (1, TF_S)).astype(np.int32)
+    log("models", f"{cfg.name} B=1 S={TF_S} prefill + one decode step: "
+        f"card vs CPU float32, max|d| / max|CPU| (max|d|) "
+        f"{card_vs_cpu(cfg32, p32, toks, None, False)} (limit {MODEL_TOL} x "
+        f"max|CPU|); cache pos equal")
+    for arch in MODEL_ARCHS:
+        sc = configs.get_smoke(arch).scaled(dtype="float32")
+        ps = lm.init_params(torch.Generator(cuda).manual_seed(SEED), sc,
+                            device=cuda)
+        st = rng.integers(0, sc.vocab_size, (2, 21)).astype(np.int32)
+        pe = (rng.standard_normal((2, sc.vision_len, sc.d_model)).astype(
+            np.float32) if sc.family == "vlm" else None)
+        log("models", f"{sc.name} forward, prefill, decode: card vs CPU "
+            f"float32, max|d| / max|CPU| (max|d|) "
+            f"{card_vs_cpu(sc, ps, st, pe, True)} (limit {MODEL_TOL} x "
+            f"max|CPU|); cache pos equal")
+
+    # -- teacher forcing at full width, float32 -----------------------------
+    def teacher_forcing(cfg, params, toks) -> torch.Tensor:
+        """forward's last logits; checks that prefill on S-1 tokens and one
+        decode step give them."""
+        S = toks.shape[1]
+        full = lm.forward(params, cfg, toks, device=cuda)[0][:, -1]
+        cache = lm.init_cache(cfg, 1, S, device=cuda)
+        _, cache = lm.prefill(params, cfg, toks[:, :-1], cache, device=cuda)
+        dec, _ = lm.decode_step(params, cfg, toks[:, -1:],
+                                torch.full((1,), S - 1), cache, device=cuda)
+        rel, d = _rel_err(dec[:, 0], full)
+        check(rel <= MODEL_TOL, f"{cfg.name}: decode vs the whole sequence "
+              f"{rel:.3g} x max (limit {MODEL_TOL})")
+        log("models", f"{cfg.name} ({cfg.n_layers} layers) float32 S={S}: "
+            f"prefill on {S - 1} tokens and one decode step vs forward's "
+            f"last logits, max|d| {d:.3g} = {rel:.3g} x max |logits| "
+            f"(limit {MODEL_TOL})")
+        return full
+
+    teacher_forcing(cfg32, p32, toks)
+    del p32
+    g = configs.get("gemma2_9b").scaled(n_layers=2, dtype="float32")
+    pg = lm.init_params(torch.Generator(cuda).manual_seed(SEED), g,
+                        device=cuda)
+    gt = rng.integers(0, g.vocab_size, (1, GEMMA_S)).astype(np.int32)
+    windowed = teacher_forcing(g, pg, gt)
+    ng = g.scaled(sliding_window=0)
+    unwindowed = lm.prefill(pg, ng, gt, lm.init_cache(ng, 1, GEMMA_S,
+                                                      device=cuda),
+                            device=cuda)[0][:, 0]
+    moved = float((windowed - unwindowed).abs().max())
+    check(moved > 10 * MODEL_TOL * float(windowed.abs().max()),
+          f"gemma2-9b: removing the window moves the last logits by only "
+          f"{moved:.3g}")
+    log("models", f"gemma2-9b (2 layers, softcaps, post-norms, scale_embed, "
+        f"geglu) S={GEMMA_S}: without the window of {g.sliding_window} the "
+        f"last logits move by {moved:.3g} (max |logits| "
+        f"{float(windowed.abs().max()):.3g}), so layer 0's window masks")
+    del pg
+
+    launched = {k: v for k, v in _build.launches.items() if v}
+    check(not launched, f"the model path launched kernels: {launched}")
+    log("models", f"kernel launches on the model path: 0 of K1-K5 "
+        f"({dict(_build.launches)}): the reference's models call the plain "
+        f"chunked_attention (src/repro/models/layers.py:73), never the "
+        f"Pallas K5, and so does the port; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2019,12 +2309,9 @@ def main() -> int:
     del vols, g3
     kernels.extend(run_registry(cuda))
     kernels.extend(run_flash(cuda))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    run_models(cuda)
     print(json.dumps({"kernels": kernels}))
-    print(card)
+    print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

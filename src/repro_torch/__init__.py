@@ -1,8 +1,9 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
 
 The port keeps the reference package's layout (``obs``, ``core``,
-``kernels``, ``rebalance``, ``models``) so each module's counterpart sits
-at the same path under ``src/repro/``.  It imports torch and NumPy only
+``kernels``, ``rebalance``, ``serve``, ``dist``, ``configs``, ``models``)
+so each module's counterpart sits at the same path under ``src/repro/``.
+It imports torch and NumPy only
 — never ``jax`` and nothing of ``repro``.  Every Pallas kernel the
 ported paths run is a hand-written CUDA kernel under
 ``kernels/<name>/<name>.cu``, built at first launch (see
@@ -16,5 +17,9 @@ and executed migration (K3); and the single-device 3D planner, volumes
 the model layer's plain chunked attention (``models.layers``); and the
 paper's algorithm registry (``core.registry``: every partitioner by its
 paper name) over a NumPy copy of the host engine, its exact device
-solvers (``core.device``: 1D, JAG-PQ-OPT, JAG-M-OPT) on the card.
+solvers (``core.device``: 1D, JAG-PQ-OPT, JAG-M-OPT) on the card; the
+rebalance runtime, serving and ``dist``; and the decoder-only model
+stack of the dense and VLM families (``configs``, ``models.api``:
+prefill and decode with the reference's serving semantics, plain
+PyTorch, as the reference's models call no kernel).
 """

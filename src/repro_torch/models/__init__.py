@@ -1,3 +1,4 @@
-"""The model stack of the port.  Ported so far: the attention core of
-``models/layers.py`` (``chunked_attention``, ``repeat_kv``), plain
-PyTorch."""
+"""The model stack of the port: the decoder-only serving path of the
+dense and VLM families (``config``, ``layers``, ``lm``, ``api``), plain
+PyTorch.  Like the reference's models, it calls no Pallas/CUDA kernel:
+attention is the plain ``layers.chunked_attention``."""

@@ -1,12 +1,111 @@
-"""Shared neural layers, plain PyTorch: so far the chunked (flash-style)
-attention of the model stack and grouped-query KV expansion.
+"""Shared neural layers, plain PyTorch: norms, rotary embeddings, the
+chunked (flash-style) attention, the GQA attention block and the MLPs.
 
-Counterpart of ``repro.models.layers``; the norms, rope, MLP, MoE and the
-attention block come with the model stack.
+Counterpart of ``repro.models.layers`` for the dense and VLM decoder
+path: float32 norm and softmax arithmetic with the model dtype's weights
+and activations, as there.  MLA and MoE come with the MoE slice.  The
+parameters are plain dicts of tensors laid out as the reference's trees,
+so a tree converted from the reference (``lm.params_from_numpy``) runs
+here unchanged.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
+
+from repro_torch.core.device import _fma_f32
+
+from .config import ModelConfig
+
+Params = dict
+
+# ---------------------------------------------------------------------------
+# init helpers
+
+
+def normal(generator: torch.Generator | None, shape, device) -> torch.Tensor:
+    """Standard normal float32 draws from ``generator`` (on the
+    generator's own device), moved to ``device``.  On the ``meta`` device
+    nothing is drawn or allocated: only the shape exists."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, device=device)
+    return torch.randn(shape, generator=generator,
+                       device=generator.device).to(device)
+
+
+def dense_init(generator, shape, in_axis_size, dtype, device) -> torch.Tensor:
+    """Normal weights of variance ``1 / in_axis_size``, drawn in float32 and
+    cast to ``dtype``."""
+    scale = 1.0 / math.sqrt(in_axis_size)
+    return (normal(generator, shape, device) * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm in float32 with the ``(1 + scale)`` gain (scales start at
+    zero), cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+
+_F32 = functools.partial(torch.tensor, dtype=torch.float32)
+# XLA's float32 exp on the CPU: Cephes' range reduction and polynomial,
+# every multiply-add fused
+_EXP_CLAMP = 88.723
+_LOG2E, _HALF = _F32(1.44269504088896341), _F32(0.5)
+_EXP_C1, _EXP_C2 = _F32(-0.693359375), _F32(2.12194440e-4)
+_EXP_P = [_F32(c) for c in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+                            4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)]
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of a float32 tensor, bit for bit as XLA computes it on the
+    CPU (P13): the reference's rotary frequencies come from it, and one
+    ulp of a frequency moves the angle at position 2**16 by 4e-3."""
+    x = x.clamp(-_EXP_CLAMP, _EXP_CLAMP)
+    fx = torch.floor(_fma_f32(x, _LOG2E, _HALF))
+    r = _fma_f32(fx, _EXP_C2, _fma_f32(fx, _EXP_C1, x))
+    y = _fma_f32(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = _fma_f32(y, r, c)
+    y = 1.0 + _fma_f32(y, r * r, r)
+    return torch.ldexp(y, fx)
+
+
+@functools.lru_cache(maxsize=16)
+def _inv_freq(half: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies ``exp(-i * log(theta) / half)``, i < half, in
+    float32 as the reference computes them, made once per device."""
+    step = torch.log(_F32(theta)) / half
+    return xla_exp(-torch.arange(half, dtype=torch.float32) * step).to(device)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) integers.  The rotate-half
+    convention, angles in float32."""
+    half = x.shape[-1] // 2
+    freqs = _inv_freq(half, float(theta), x.device)
+    ang = positions.float()[..., None] * freqs              # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked (flash-style) attention, plain PyTorch
 
 
 def _mask_bias(iq: torch.Tensor, jk: torch.Tensor, *, causal: bool,
@@ -116,3 +215,116 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     B, S, Hkv, d = k.shape
     k = k[:, :, :, None, :].expand(B, S, Hkv, n_rep, d)
     return k.reshape(B, S, Hkv * n_rep, d)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (projections + rope + cache handling)
+
+
+def init_attn(generator, cfg: ModelConfig, dtype, device) -> Params:
+    d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(generator, (d, H, dh), d, dtype, device),
+        "wk": dense_init(generator, (d, Hkv, dh), d, dtype, device),
+        "wv": dense_init(generator, (d, Hkv, dh), d, dtype, device),
+        "wo": dense_init(generator, (H, dh, d), H * dh, dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((dh,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((dh,), dtype=dtype, device=device)
+    return p
+
+
+def attn_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
+                 cache=None):
+    """GQA attention.  Returns (out, new_cache).
+
+    cache: dict(k=(B, Sc, Hkv, dh), v=..., pos=(B, Sc)) or None; it is
+    written in place and returned.  A call with S > 1 (prefill) writes its
+    last min(S, Sc) entries, contiguously from slot 0 when they fit or
+    wrap exactly, else at ``pos % Sc``, and attends over its own k/v; a
+    call with S == 1 (decode) writes slot ``pos % Sc`` and attends over
+    the whole cache, empty slots (pos -1) masked.  Every token is attended
+    by position alone: there is no pad mask.
+    """
+    B, S, d = x.shape
+    rep = cfg.n_heads // cfg.n_kv_heads
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    k_all, v_all, kv_pos = k, v, positions
+    if cache is not None:
+        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+        Sc = ck.shape[1]
+        W = min(S, Sc)
+        kw, vw, pw = k[:, S - W:], v[:, S - W:], positions[:, S - W:]
+        if S > 1 and (Sc >= S or (W == Sc and S % Sc == 0)):
+            ck[:, :W], cv[:, :W], cpos[:, :W] = kw, vw, pw
+        else:
+            slots = pw % Sc
+            bidx = torch.arange(B, device=x.device)[:, None]
+            ck[bidx, slots], cv[bidx, slots], cpos[bidx, slots] = kw, vw, pw
+        new_cache = {"k": ck, "v": cv, "pos": cpos}
+        if S == 1:
+            k_all, v_all, kv_pos = ck, cv, cpos
+
+    decode_like = cache is not None and S == 1
+    # banded prefill/train only for uniform sliding-window archs (the
+    # window must be a static layer-independent bound)
+    band_window = (cfg.sliding_window
+                   if cfg.sliding_window > 0 and cfg.global_every == 0
+                   and not decode_like else 0)
+    out = chunked_attention(
+        q, repeat_kv(k_all, rep), repeat_kv(v_all, rep), positions, kv_pos,
+        causal=True, window=window, softcap=cfg.attn_softcap,
+        scale=cfg.head_dim ** -0.5, q_chunk=cfg.q_chunk,
+        kv_chunk=cfg.kv_chunk, band_window=band_window)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+
+
+def init_mlp(generator, cfg: ModelConfig, dtype, device) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act in ("silu", "geglu"):  # gated
+        return {"w1": dense_init(generator, (d, f), d, dtype, device),
+                "w3": dense_init(generator, (d, f), d, dtype, device),
+                "w2": dense_init(generator, (f, d), f, dtype, device)}
+    return {"w1": dense_init(generator, (d, f), d, dtype, device),
+            "w2": dense_init(generator, (f, d), f, dtype, device)}
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: x / (1 + exp(-x)) op
+    by op, each rounded to ``x``'s dtype (P14)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form, as the reference computes
+    it: op by op in ``x``'s dtype, its constants rounded to that dtype
+    (P14; in bf16 sqrt(2/pi) is 0.796875)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def mlp_forward(p: Params, cfg: ModelConfig, x) -> torch.Tensor:
+    """silu and geglu are gated; gelu is plain (whisper)."""
+    if cfg.act == "silu":
+        h = silu(x @ p["w1"]) * (x @ p["w3"])
+    elif cfg.act == "geglu":
+        h = gelu(x @ p["w1"]) * (x @ p["w3"])
+    else:  # plain gelu (whisper)
+        h = gelu(x @ p["w1"])
+    return h @ p["w2"]

@@ -1,0 +1,283 @@
+"""Decoder-only language model: the dense and VLM families.
+
+Counterpart of ``repro.models.lm`` without training (``chunked_ce``,
+``loss_fn``).  The parameter tree is the reference's: per-layer leaves
+stacked on a leading L axis, which the layer loop indexes (the reference
+scans over it).  The decode cache is stacked the same way and written in
+place.
+
+Serving semantics are the reference's, pads included: a left-padded
+prompt is a sequence like any other, its pad tokens at positions
+``0..`` attended by every later token; nothing masks them and no row's
+positions are shifted.
+
+Entry points (``init_params``, ``forward``, ``init_cache``, ``prefill``,
+``decode_step``, ``params_from_numpy``) take ``device=None``, which means
+the card, and raise ``RuntimeError`` where CUDA is absent; pass
+``device="cpu"`` to run on the CPU.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.rebalance.planner import resolve_device
+
+from . import layers as L
+from .config import ModelConfig
+
+Params = dict
+
+#: what each unported part of ``lm.py`` waits for, by ``ROADMAP.md`` item
+_NOT_PORTED = {
+    "mla": "multi-head latent attention (MLA) is not ported yet: "
+           "ROADMAP.md queue 1, item 1b (MoE and MLA)",
+    "moe": "mixture-of-experts layers are not ported yet: ROADMAP.md "
+           "queue 1, item 1b (MoE and MLA)",
+    "ssm": "SSM and hybrid layers are not ported yet: ROADMAP.md queue 1, "
+           "item 1c (SSM and hybrid)",
+    "encdec": "the encoder-decoder model (encdec) is not ported yet: "
+              "ROADMAP.md queue 1, item 1d (encdec)",
+}
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration this slice does
+    not run: MLA, MoE, SSM or hybrid layers, or the encoder-decoder."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(_NOT_PORTED["encdec"])
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(_NOT_PORTED["mla"])
+    if cfg.n_experts > 0:
+        raise NotImplementedError(_NOT_PORTED["moe"])
+    if cfg.uses_ssm or not cfg.uses_attention:
+        raise NotImplementedError(_NOT_PORTED["ssm"])
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def leaves(tree) -> list:
+    """The tensors of a parameter or cache tree."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    return [tree]
+
+
+def _index(tree, i: int):
+    """Layer ``i``'s slice of a tree stacked on a leading L axis (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# init
+
+
+def init_layer(generator, cfg: ModelConfig, device) -> Params:
+    require_ported(cfg)
+    dt = _dtype(cfg)
+    p: Params = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+                 "attn": L.init_attn(generator, cfg, dt, device)}
+    if cfg.d_ff > 0:
+        p["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        p["ffn"] = L.init_mlp(generator, cfg, dt, device)
+    if cfg.post_norms:
+        p["pn1"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        if cfg.d_ff > 0:
+            p["pn2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+    return p
+
+
+def init_params(generator: torch.Generator | None, cfg: ModelConfig,
+                device=None) -> Params:
+    """Random weights drawn from ``generator`` (embedding, then the layers
+    in order, then the head), laid out as the reference's tree.  On the
+    ``meta`` device the generator may be None: shapes only."""
+    dev = resolve_device(device)
+    require_ported(cfg)
+    dt = _dtype(cfg)
+    V = cfg.padded_vocab
+    p: Params = {
+        "embed": (L.normal(generator, (V, cfg.d_model), dev) * 0.02).to(dt),
+        "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
+        "layers": _stack([init_layer(generator, cfg, dev)
+                          for _ in range(cfg.n_layers)]),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = (L.normal(generator, (cfg.d_model, V), dev)
+                     * 0.02).to(dt)
+    return p
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Params:
+    """The reference's parameter tree (nested dicts of NumPy arrays, the
+    ``layers`` leaves stacked on a leading L axis) as the port's, in
+    ``cfg.dtype`` on ``device``.  bfloat16 leaves come as float32 arrays
+    (bf16 -> float32 -> bf16 is lossless), so no bfloat16 NumPy type is
+    needed.  Raises ``ValueError`` where the tree's keys or shapes are not
+    those of ``cfg``."""
+    dev = resolve_device(device)
+    spec = init_params(None, cfg, device="meta")
+
+    def conv(s, a, path):
+        if isinstance(s, dict):
+            if not isinstance(a, dict) or set(a) != set(s):
+                got = sorted(a) if isinstance(a, dict) else type(a).__name__
+                raise ValueError(f"params{path}: keys {got}, expected "
+                                 f"{sorted(s)} for {cfg.name}")
+            return {k: conv(s[k], a[k], f"{path}[{k!r}]") for k in s}
+        t = torch.tensor(np.asarray(a))
+        if tuple(t.shape) != tuple(s.shape):
+            raise ValueError(f"params{path}: shape {tuple(t.shape)}, "
+                             f"expected {tuple(s.shape)} for {cfg.name}")
+        return t.to(device=dev, dtype=s.dtype)
+
+    return conv(spec, tree, "")
+
+
+# ---------------------------------------------------------------------------
+# layer body
+
+
+def _window_for_layer(cfg: ModelConfig, layer_idx: int) -> int:
+    """Layer ``layer_idx``'s attention window (0 = full attention): with
+    ``global_every = k``, layer i is global when i % k == k - 1."""
+    if cfg.sliding_window == 0:
+        return 0
+    if cfg.global_every > 0 and (
+            layer_idx % cfg.global_every == cfg.global_every - 1):
+        return 0
+    return cfg.sliding_window
+
+
+def layer_forward(p: Params, cfg: ModelConfig, x, positions, layer_idx: int,
+                  cache=None):
+    """Returns (x, new_cache)."""
+    require_ported(cfg)
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    mix, nc = L.attn_forward(p["attn"], cfg, h, positions,
+                             window=_window_for_layer(cfg, layer_idx),
+                             cache=None if cache is None else cache["attn"])
+    new_cache = {} if nc is None else {"attn": nc}
+    if cfg.post_norms:
+        mix = L.rmsnorm(mix, p["pn1"], cfg.norm_eps)
+    x = x + mix
+    if cfg.d_ff > 0:
+        f = L.mlp_forward(p["ffn"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+        if cfg.post_norms:
+            f = L.rmsnorm(f, p["pn2"], cfg.norm_eps)
+        x = x + f
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# full forward
+
+
+def _embed(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    x = p["embed"][tokens]
+    if cfg.scale_embed:
+        # sqrt(d) in float32, then in the activation dtype (bf16: 59.75
+        # for d = 3584), as the reference scales
+        x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(x.dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def _head(p: Params, cfg: ModelConfig, x) -> torch.Tensor:
+    """Logits over the padded vocabulary: the product in the model dtype,
+    then float32, then the softcap."""
+    x = L.rmsnorm(x, p["ln_f"], cfg.norm_eps)
+    w = p["embed"].T if cfg.tie_embeddings else p["head"]
+    logits = (x @ w).float()
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+def _layers(p: Params, cfg: ModelConfig, x, positions, cache=None):
+    for i in range(cfg.n_layers):
+        x, _ = layer_forward(_index(p["layers"], i), cfg, x, positions, i,
+                             cache=None if cache is None
+                             else _index(cache, i))
+    return x
+
+
+def _inputs(dev: torch.device, p: Params, cache, *arrays):
+    """The inputs on ``dev`` (NumPy arrays or tensors); the params and the
+    cache must already be there."""
+    dev = torch.empty(0, device=dev).device     # "cuda" -> "cuda:0"
+    for t in leaves(p) + ([] if cache is None else leaves(cache)):
+        if t.device != dev:
+            raise ValueError(f"params and cache must be on {dev}, found a "
+                             f"tensor on {t.device}")
+    return [None if a is None else torch.as_tensor(a, device=dev)
+            for a in arrays]
+
+
+def _positions(B: int, T: int, dev: torch.device) -> torch.Tensor:
+    return torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T)
+
+
+def forward(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None,
+            device=None):
+    """Scoring forward: (logits over the whole sequence, aux).  ``aux`` is
+    the reference's MoE balancing loss, 0 for the families ported."""
+    dev = resolve_device(device)
+    tokens, prefix_embeds = _inputs(dev, p, None, tokens, prefix_embeds)
+    x = _embed(p, cfg, tokens, prefix_embeds)
+    B, T = x.shape[:2]
+    x = _layers(p, cfg, x, _positions(B, T, dev))
+    return _head(p, cfg, x), torch.zeros((), device=dev)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+
+
+def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None) -> dict:
+    """Per-layer cache stacked on a leading L axis; a window-bounded model
+    keeps min(ctx, window) slots (a ring), any other ctx."""
+    dev = resolve_device(device)
+    require_ported(cfg)
+    dt = _dtype(cfg)
+    Lz = cfg.n_layers
+    sc = min(ctx, cfg.sliding_window) if cfg.bounded_kv else ctx
+    shape = (Lz, batch, sc, cfg.n_kv_heads, cfg.head_dim)
+    return {"attn": {
+        "k": torch.zeros(shape, dtype=dt, device=dev),
+        "v": torch.zeros(shape, dtype=dt, device=dev),
+        "pos": torch.full((Lz, batch, sc), -1, dtype=torch.int32, device=dev),
+    }}
+
+
+def prefill(p: Params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
+            device=None):
+    """Fill the cache with a prompt (every row at positions 0..T-1);
+    returns (last logits (B, 1, V), cache)."""
+    dev = resolve_device(device)
+    tokens, prefix_embeds = _inputs(dev, p, cache, tokens, prefix_embeds)
+    x = _embed(p, cfg, tokens, prefix_embeds)
+    B, T = x.shape[:2]
+    x = _layers(p, cfg, x, _positions(B, T, dev), cache=cache)
+    return _head(p, cfg, x[:, -1:]), cache
+
+
+def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache, device=None):
+    """One token per sequence.  tokens: (B, 1); pos: (B,) positions.
+    Returns (logits (B, 1, V), cache)."""
+    dev = resolve_device(device)
+    tokens, pos = _inputs(dev, p, cache, tokens, pos)
+    x = _embed(p, cfg, tokens)
+    x = _layers(p, cfg, x, pos.to(torch.int32)[:, None], cache=cache)
+    return _head(p, cfg, x), cache

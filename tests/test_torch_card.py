@@ -28,6 +28,7 @@ import torch
 
 from _torch_parity import (FLASH_CASES, FLASH_TOL, int_loads, long_run_case,
                            need_card, probe_case, qkv, rectload_case)
+from repro_torch import configs
 from repro_torch.core import device, prefix, registry, sgorp
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash import ops as flash_ops
@@ -38,7 +39,7 @@ from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.rectload import ref as rl_ref
 from repro_torch.kernels.sat import ops as sat_ops
 from repro_torch.kernels.sat import ref as sat_ref
-from repro_torch.models import layers
+from repro_torch.models import layers, lm
 from repro_torch.rebalance import planner, stream
 
 pytestmark = pytest.mark.cuda
@@ -847,3 +848,51 @@ def test_run_stream_executes_on_card_as_priced(scenario):
     want = runtime.run_stream(fr, policy.FaultAwareHysteresis(),
                               device="cpu", **kw)
     assert ledger_diff(got, want) == []
+
+
+@pytest.mark.parametrize("arch", ["gemma2_9b", "internvl2_2b"])
+def test_model_on_card_matches_cpu(arch):
+    """A dense (gemma2: local and global layers, softcaps, post-norms) and
+    a VLM smoke model at float32: ``forward``, ``prefill`` (logits and the
+    cache) and two decode steps on the card against the port's CPU path,
+    within 1e-4 x max |CPU|; the cache's positions equal.  The model path
+    launches none of the port's kernels, as the reference's calls none."""
+    dev = need_card()
+    cfg = configs.get_smoke(arch).scaled(dtype="float32")
+    cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = _to(cpu, dev)
+    rng = np.random.default_rng(0)
+    B, S = 2, 21
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    pe = (rng.standard_normal((B, cfg.vision_len, cfg.d_model)).astype(
+        np.float32) if cfg.family == "vlm" else None)
+    T = S + cfg.vision_len
+
+    def run(params, device):
+        full, _ = lm.forward(params, cfg, toks, pe, device=device)
+        cache = lm.init_cache(cfg, B, T + 4, device=device)
+        pre, cache = lm.prefill(params, cfg, toks, cache, pe, device=device)
+        outs = [full, pre]
+        for t in range(2):
+            tok = outs[-1][:, -1].argmax(-1).int()[:, None]
+            d, cache = lm.decode_step(params, cfg, tok,
+                                      torch.full((B,), T + t), cache,
+                                      device=device)
+            outs.append(d)
+        return outs, cache["attn"]
+
+    before = sum(_build.launches.values())
+    got, got_cache = run(card, dev)
+    assert sum(_build.launches.values()) == before
+    want, want_cache = run(cpu, "cpu")
+    for g, w in zip(got + [got_cache["k"], got_cache["v"]],
+                    want + [want_cache["k"], want_cache["v"]]):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+    assert torch.equal(got_cache["pos"].cpu(), want_cache["pos"])
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

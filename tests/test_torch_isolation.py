@@ -1,9 +1,9 @@
 """The port stands alone and never falls back.
 
-- ``repro_torch`` and ``chip_smoke.py`` import without ``jax`` and without
-  ``repro`` (a subprocess where importing either fails), and the planner,
-  the rebalance runtime, the capacity-aware planner and the serve
-  simulator run there on the CPU;
+- ``repro_torch`` and ``chip_smoke.py`` import without ``jax``, ``repro``
+  and ``ml_dtypes`` (a subprocess where importing any fails), and the
+  planner, the rebalance runtime, the capacity-aware planner, the serve
+  simulator and a smoke model's prefill and decode run there on the CPU;
 - an entry point with no ``device=`` raises where CUDA is absent instead
   of running on the CPU;
 - no ``except`` clause and no environment read in the port or the smoke
@@ -20,12 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import prefix, registry, sgorp
 from repro_torch.dist import ctx
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.sat import ops as sat_ops
+from repro_torch.models import api as models_api
+from repro_torch.models import lm as models_lm
 from repro_torch.rebalance import (batch_device, execute, planner, policy,
                                    runtime, stream)
 
@@ -37,6 +40,7 @@ _ISOLATED = f"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
 sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
@@ -90,8 +94,25 @@ res3 = runtime.run_stream(stream.drifting_hotspot(6, 24, 24, seed=0),
                           execute=True, execute_devices=["cpu"] * 3,
                           device="cpu")
 assert all(r.executed_bytes == r.migration_volume for r in res3.records[1:])
+from repro_torch import configs
+from repro_torch.models import api
+for arch in ("qwen3_0_6b", "internvl2_2b"):
+    cfg = configs.get_smoke(arch)
+    model = api.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = {{"tokens": np.zeros((2, 5), np.int32)}}
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = np.ones((2, cfg.vision_len, cfg.d_model),
+                                         np.float32)
+    cache = model.init_cache(2, 16, device="cpu")
+    logits, cache = model.prefill(params, batch, cache, device="cpu")
+    tok = logits.argmax(-1).int()
+    logits, cache = model.decode(params, tok, np.full(2, 5 + cfg.vision_len),
+                                 cache, device="cpu")
+    assert logits.shape == (2, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
 leaked = [m for m, mod in sys.modules.items() if mod is not None and (
-    m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+    m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))]
 assert not leaked, leaked
 print("imported", len(names))
 """
@@ -101,13 +122,19 @@ def test_port_imports_and_plans_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", _ISOLATED], capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 35
+    assert int(r.stdout.split()[-1]) >= 49
 
 
 def _entry_points():
     fr = stream.static(2, 16, 16)
     vol = stream.amr_series_3d(2, 8, 8, 8)
     plan = planner.plan_host(fr, P=2, m=4, device="cpu")[0]
+    cfg = configs.get_smoke("qwen3_0_6b")
+    model = models_api.build(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, device="cpu")
+    cache = model.init_cache(1, 8, device="cpu")
+    toks = np.zeros((1, 4), np.int32)
     return [
         lambda: planner.plan_stream(fr, P=4, m=16),
         lambda: planner.plan_host(fr, P=4, m=16),
@@ -133,10 +160,17 @@ def _entry_points():
                                        devices=["cuda"] * 2)),
         lambda: execute.execute_migration(plan, plan, fr[0],
                                           devices=["cuda"] * 2),
+        lambda: model.init(gen),
+        lambda: model.init_cache(1, 8),
+        lambda: model.prefill(params, {"tokens": toks}, cache),
+        lambda: model.decode(params, toks[:, :1], np.array([4]), cache),
+        lambda: models_lm.forward(params, cfg, toks),
+        lambda: models_lm.params_from_numpy(
+            {"embed": np.zeros((256, 64), np.float32)}, cfg),
     ]
 
 
-@pytest.mark.parametrize("i", range(20))
+@pytest.mark.parametrize("i", range(26))
 def test_entry_points_raise_without_cuda(i, monkeypatch):
     call = _entry_points()[i]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -241,7 +275,10 @@ def test_no_fallback_sources_cover_the_port():
             "rebalance/faults.py", "rebalance/runtime.py", "obs/hist.py",
             "serve/__init__.py", "serve/queue.py", "serve/batcher.py",
             "serve/simulate.py", "dist/__init__.py", "dist/ctx.py",
-            "dist/cp_balance.py", "dist/moe_placement.py"} <= names
+            "dist/cp_balance.py", "dist/moe_placement.py",
+            "configs/__init__.py", "configs/qwen3_0_6b.py", "models/config.py",
+            "models/lm.py", "models/api.py"} <= names
+    assert "models/_dist_compat.py" not in names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
@@ -258,8 +295,10 @@ def test_no_fallback_routes(path):
             assert path.name in ("ops.py", "chip_smoke.py"), \
                 f"{path}:{node.lineno}: imports a plain version"
         if isinstance(node, ast.Import):
-            assert not any(a.name.split(".")[0] in ("jax", "repro")
+            assert not any(a.name.split(".")[0] in ("jax", "repro",
+                                                    "ml_dtypes")
                            for a in node.names), f"{path}: imports JAX"
         if isinstance(node, ast.ImportFrom) and node.module:
-            assert node.module.split(".")[0] not in ("jax", "repro"), \
+            assert node.module.split(".")[0] not in ("jax", "repro",
+                                                     "ml_dtypes"), \
                 f"{path}:{node.lineno}: imports {node.module}"

@@ -1,0 +1,476 @@
+"""The port's decoder-only model stack against the JAX package, on the CPU.
+
+The same NumPy inputs and the reference's own parameters (from
+``repro.models.lm.init_params``, every norm scale set to non-zero random
+values on both sides, converted by ``lm.params_from_numpy``) go through
+both packages.
+
+Tolerances:
+
+- float32: max |port - reference| <= 1e-4 x max |reference| (``F32``),
+  on logits and on the cache's k and v; the cache's positions equal.  The
+  measured differences are near 1e-6 x: float32 sums in another order.
+  The layer functions are held tighter where their arithmetic is the
+  reference's own (rope's frequencies, the bf16 activations: bit for bit).
+- bfloat16 (the configs' own dtype): ``BF16`` = 4e-2 x max |reference|.
+  Each op rounds to bf16 as in the reference, but the attention's float32
+  softmax sums in another order and flips the last bf16 bit of a few
+  outputs; over two layers and the head the measured differences reach
+  1.8e-2 x (about five bf16 ulps of the largest logit).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jax_configs
+from repro.models import api as jax_api
+from repro.models import layers as jax_layers
+from repro.models import lm as jax_lm
+from repro_torch import configs
+from repro_torch.models import api, layers, lm
+
+CPU = "cpu"
+F32, BF16 = 1e-4, 4e-2
+TOL = {"float32": F32, "bfloat16": BF16}
+#: the dense and VLM configurations this slice ports
+PORTED = ["qwen3_0_6b", "granite_3_2b", "gemma2_9b", "stablelm_1_6b",
+          "internvl2_2b"]
+NOT_PORTED = ["mixtral_8x7b", "deepseek_v2_236b", "whisper_large_v3",
+              "hymba_1_5b", "mamba2_1_3b"]
+NORMS = {"ln1", "ln2", "pn1", "pn2", "ln_f", "q_norm", "k_norm"}
+
+
+def host(x) -> np.ndarray:
+    """A tensor or a JAX array (bf16 included) as a float32/int NumPy
+    copy."""
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.is_floating_point() else x).numpy()
+    x = jnp.asarray(x)
+    return np.array(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
+
+
+def assert_close(port, ref, tol: float, what: str) -> None:
+    a, b = host(port), host(ref)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+    assert err <= tol * scale, \
+        f"{what}: max|d| {err:.3g} > {tol} x max|ref| {scale:.3g}"
+
+
+def assert_cache(port, ref, tol: float) -> None:
+    for k in ("k", "v"):
+        assert_close(port["attn"][k], ref["attn"][k], tol, f"cache {k}")
+    np.testing.assert_array_equal(host(port["attn"]["pos"]),
+                                  host(ref["attn"]["pos"]))
+
+
+def ref_params(cfg, seed: int):
+    """The reference's parameters with every norm scale non-zero."""
+    p = jax_lm.init_params(jax.random.PRNGKey(seed), cfg)
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, x):
+        if path[-1].key in NORMS:
+            return jnp.asarray(rng.standard_normal(x.shape) * 0.5, x.dtype)
+        return x
+
+    return jax.tree_util.tree_map_with_path(perturb, p)
+
+
+def both_params(arch: str, dtype: str, seed: int = 1, **kw):
+    """(reference config, params), (port config, params): the same
+    weights, the port's from the reference's tree as NumPy float32."""
+    jcfg = jax_configs.get_smoke(arch).scaled(dtype=dtype, **kw)
+    tcfg = configs.get_smoke(arch).scaled(dtype=dtype, **kw)
+    jp = ref_params(jcfg, seed)
+    tree = jax.tree.map(lambda x: host(x), jp)
+    return (jcfg, jp), (tcfg, lm.params_from_numpy(tree, tcfg, device=CPU))
+
+
+def inputs(cfg, B: int, S: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    pe = None
+    if cfg.family == "vlm":
+        pe = rng.standard_normal((B, cfg.vision_len, cfg.d_model)).astype(
+            np.float32)
+    return toks, pe
+
+
+def jx(a):
+    return None if a is None else jnp.asarray(a)
+
+
+# ---------------------------------------------------------------------------
+# configs and parameter trees
+
+
+@pytest.mark.parametrize("getter", ["get", "get_smoke"])
+@pytest.mark.parametrize("arch", jax_configs.ARCHS)
+def test_configs_equal_the_reference(arch, getter):
+    assert configs.ARCHS == jax_configs.ARCHS
+    assert configs.canonical(arch.replace("_", "-")) == arch
+    port, ref = getattr(configs, getter)(arch), getattr(jax_configs,
+                                                        getter)(arch)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for prop in ("d_inner", "padded_vocab", "uses_attention", "uses_ssm",
+                 "bounded_kv"):
+        assert getattr(port, prop) == getattr(ref, prop), prop
+    assert dataclasses.asdict(port.scaled(sliding_window=8)) == \
+        dataclasses.asdict(ref.scaled(sliding_window=8))
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_count_params_equals_the_reference(arch):
+    assert api.count_params(configs.get(arch)) == \
+        jax_api.count_params(jax_configs.get(arch))
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_param_tree_is_the_reference_tree(arch):
+    """Keys, shapes and dtypes of the port's seeded init (on the CPU) and
+    of its meta tree equal the reference's param spec."""
+    cfg = configs.get_smoke(arch)
+    spec = jax.tree_util.tree_flatten_with_path(
+        jax_api.param_spec(jax_configs.get_smoke(arch)))[0]
+    want = {jax.tree_util.keystr(k): (tuple(v.shape), str(v.dtype))
+            for k, v in spec}
+    gen = torch.Generator().manual_seed(0)
+    for tree in (lm.init_params(gen, cfg, device=CPU),
+                 lm.init_params(None, cfg, device="meta")):
+        got = {jax.tree_util.keystr(k): (tuple(v.shape),
+                                         str(v.dtype).split(".")[1])
+               for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+        assert got == want
+
+
+def test_params_from_numpy_refuses_another_tree():
+    (jcfg, jp), (tcfg, _) = both_params("qwen3_0_6b", "float32")
+    tree = jax.tree.map(host, jp)
+    tree["layers"]["attn"]["wq"] = tree["layers"]["attn"]["wq"][:, :-1]
+    with pytest.raises(ValueError, match=r"\['wq'\]: shape"):
+        lm.params_from_numpy(tree, tcfg, device=CPU)
+    del tree["ln_f"]
+    with pytest.raises(ValueError, match="keys"):
+        lm.params_from_numpy(tree, tcfg, device=CPU)
+
+
+def test_params_from_numpy_is_lossless_in_bf16():
+    """bf16 leaves cross as float32 and come back bit for bit."""
+    (jcfg, jp), (tcfg, tp) = both_params("gemma2_9b", "bfloat16")
+    got = jax.tree_util.tree_flatten_with_path(tp)[0]
+    want = dict(jax.tree_util.tree_flatten_with_path(jp)[0])
+    for k, v in got:
+        assert v.dtype == torch.bfloat16
+        np.testing.assert_array_equal(host(v), host(want[k]))
+
+
+def test_inputs_must_share_the_params_device():
+    cfg = configs.get_smoke("qwen3_0_6b")
+    meta = lm.init_params(None, cfg, device="meta")
+    with pytest.raises(ValueError, match="must be on cpu"):
+        lm.forward(meta, cfg, np.zeros((1, 3), np.int32), device=CPU)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [3584, 64])
+def test_embed_scale_is_cast_first(d, dtype):
+    """``scale_embed``: sqrt(d) is cast to the activation dtype before the
+    product (bf16: 59.75 for d = 3584), bit for bit."""
+    jcfg = jax_configs.get("gemma2_9b").scaled(d_model=d, dtype=dtype)
+    tcfg = configs.get("gemma2_9b").scaled(d_model=d, dtype=dtype)
+    jdt = jnp.dtype(dtype)
+    table = jnp.asarray(np.random.default_rng(0).standard_normal((8, d)),
+                        jdt)
+    toks = np.array([[3, 0, 7]], np.int32)
+    ref = jax_lm._embed({"embed": table}, jcfg, jnp.asarray(toks))
+    got = lm._embed({"embed": torch.from_numpy(host(table)).to(
+        getattr(torch, dtype))}, tcfg, torch.from_numpy(toks))
+    np.testing.assert_array_equal(host(got), host(ref))
+
+
+# ---------------------------------------------------------------------------
+# layers
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches(dtype):
+    rng = np.random.default_rng(0)
+    jdt = jnp.dtype(dtype)
+    x = jnp.asarray(rng.standard_normal((2, 7, 64)) * 3, jdt)
+    s = jnp.asarray(rng.standard_normal(64) * 0.5, jdt)
+    got = layers.rmsnorm(torch.from_numpy(host(x)).to(getattr(torch, dtype)),
+                         torch.from_numpy(host(s)).to(getattr(torch, dtype)),
+                         1e-6)
+    assert got.dtype == getattr(torch, dtype)
+    assert_close(got, jax_layers.rmsnorm(x, s, 1e-6), 1e-6, "rmsnorm")
+
+
+def test_xla_exp_is_the_reference_exp():
+    """P13: the port's ``xla_exp`` is XLA's float32 exp on the CPU, bit for
+    bit, on the rotary frequencies' arguments and a sweep of [-20, 0]."""
+    rng = np.random.default_rng(0)
+    args = [-rng.uniform(0, 20, 100_000).astype(np.float32)]
+    for theta in (1e4, 1e6):
+        for half in (8, 16, 32, 64, 128):
+            step = np.float32(np.asarray(jnp.log(theta)) / np.float32(half))
+            args.append(-np.arange(half, dtype=np.float32) * step)
+    x = np.concatenate(args)
+    np.testing.assert_array_equal(
+        layers.xla_exp(torch.from_numpy(x)).numpy(),
+        np.asarray(jnp.exp(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+@pytest.mark.parametrize("dh", [16, 32, 128])
+def test_rope_matches(theta, dh):
+    """Positions up to 2**16: float32 angles of bit-identical frequencies,
+    so the outputs differ by the trigonometry's last bit (limit 1e-6)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 9, 3, dh)).astype(np.float32)
+    pos = np.stack([np.arange(9), 2 ** 16 - np.arange(9)]).astype(np.int32)
+    got = layers.rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    ref = jax_layers.rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    np.testing.assert_allclose(host(got), host(ref), rtol=0, atol=1e-6)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    got = layers.rope(torch.from_numpy(host(xb)).bfloat16(),
+                      torch.from_numpy(pos), theta)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(host(got), host(jax_layers.rope(
+        xb, jnp.asarray(pos), theta)))
+
+
+@pytest.mark.parametrize("act", ["silu", "geglu", "gelu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_forward_matches(act, dtype):
+    """float32 within 1e-5 x max; bf16 bit for bit (P14: each op rounded
+    to bf16, gelu's constants in bf16, as the reference)."""
+    cfg = jax_configs.get_smoke("qwen3_0_6b").scaled(act=act, dtype=dtype)
+    jdt = jnp.dtype(dtype)
+    p = jax_layers.init_mlp(jax.random.PRNGKey(0), cfg, jdt)
+    tp = {k: torch.from_numpy(host(v)).to(getattr(torch, dtype))
+          for k, v in p.items()}
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((2, 5, 64)),
+                    jdt)
+    got = layers.mlp_forward(tp, configs.get_smoke("qwen3_0_6b").scaled(
+        act=act, dtype=dtype), torch.from_numpy(host(x)).to(tp["w1"].dtype))
+    ref = jax_layers.mlp_forward(p, cfg, x)
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(host(got), host(ref))
+    else:
+        assert_close(got, ref, 1e-5, act)
+
+
+@pytest.mark.parametrize("mode", ["no cache", "prefill", "prefill ring",
+                                  "decode"])
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "gemma2_9b"])
+def test_attn_forward_matches(arch, mode):
+    """The attention block at float32 with non-zero qk-norm scales: without
+    a cache, a prefill into a cache (contiguous, and a ring of 5 slots
+    written at pos % 5), and a decode step over a part-filled cache."""
+    (jcfg, jp), (tcfg, tp) = both_params(arch, "float32")
+    jpa = jax.tree.map(lambda a: a[0], jp["layers"]["attn"])
+    tpa = lm._index(tp["layers"], 0)["attn"]
+    B, S, Sc = 2, 11, {"prefill ring": 5}.get(mode, 16)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S)).astype(np.int32)
+    window = 6 if arch == "gemma2_9b" else 0
+    jc = tc = None
+    if mode != "no cache":
+        shape = (B, Sc, jcfg.n_kv_heads, jcfg.head_dim)
+        jc = {"k": jnp.zeros(shape), "v": jnp.zeros(shape),
+              "pos": jnp.full((B, Sc), -1, jnp.int32)}
+        tc = {"k": torch.zeros(shape), "v": torch.zeros(shape),
+              "pos": torch.full((B, Sc), -1, dtype=torch.int32)}
+    if mode == "decode":
+        # fill the first 7 slots, then decode at position 7 (row 0) and 9
+        jo, jc = jax_layers.attn_forward(jpa, jcfg, jnp.asarray(x[:, :7]),
+                                         jnp.asarray(pos[:, :7]),
+                                         window=jnp.int32(window), cache=jc)
+        layers.attn_forward(tpa, tcfg, torch.from_numpy(x[:, :7]),
+                            torch.from_numpy(pos[:, :7]), window=window,
+                            cache=tc)
+        x, pos = x[:, 7:8], np.array([[7], [9]], np.int32)
+    ref, jnc = jax_layers.attn_forward(jpa, jcfg, jnp.asarray(x),
+                                       jnp.asarray(pos),
+                                       window=jnp.int32(window), cache=jc)
+    got, tnc = layers.attn_forward(tpa, tcfg, torch.from_numpy(x),
+                                   torch.from_numpy(pos), window=window,
+                                   cache=tc)
+    assert_close(got, ref, F32, mode)
+    if mode == "no cache":
+        assert tnc is None
+    else:
+        assert_cache({"attn": tnc}, {"attn": jnc}, F32)
+
+
+# ---------------------------------------------------------------------------
+# the model
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_lm_matches_the_reference(arch, dtype):
+    """``forward``, ``prefill`` (last logits and the cache) and a decode
+    step, at float32 and at the config's own bf16."""
+    (jcfg, jp), (tcfg, tp) = both_params(arch, dtype)
+    B, S = 2, 24
+    toks, pe = inputs(jcfg, B, S)
+    tol = TOL[dtype]
+    ref, _ = jax_lm.forward(jp, jcfg, jnp.asarray(toks), jx(pe))
+    got, aux = lm.forward(tp, tcfg, toks, pe, device=CPU)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.shape[-1] == tcfg.padded_vocab
+    assert_close(got, ref, tol, "forward")
+
+    jc = jax_lm.init_cache(jcfg, B, 40)
+    tc = lm.init_cache(tcfg, B, 40, device=CPU)
+    ref, jc = jax_lm.prefill(jp, jcfg, jnp.asarray(toks[:, :-1]), jc, jx(pe))
+    got, tc = lm.prefill(tp, tcfg, toks[:, :-1], tc, pe, device=CPU)
+    assert_close(got, ref, tol, "prefill")
+    assert_cache(tc, jc, tol)
+
+    total = S - 1 + (jcfg.vision_len if jcfg.family == "vlm" else 0)
+    pos = np.full((B,), total, np.int32)
+    ref, jc = jax_lm.decode_step(jp, jcfg, jnp.asarray(toks[:, -1:]),
+                                 jnp.asarray(pos), jc)
+    got, tc = lm.decode_step(tp, tcfg, toks[:, -1:], pos, tc, device=CPU)
+    assert_close(got, ref, tol, "decode")
+    assert_cache(tc, jc, tol)
+
+
+def left_padded(cfg, lens, seed: int = 0) -> np.ndarray:
+    """Prompts of the given lengths left-padded with token 0 to the
+    longest, as ``examples/serve_balanced.py`` lays them out."""
+    rng = np.random.default_rng(seed)
+    S = max(lens)
+    toks = np.zeros((len(lens), S), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, S - n:] = rng.integers(0, cfg.vocab_size, n)
+    return toks
+
+
+def serve(prefill, decode, toks, ctx: int, steps: int, chosen=None):
+    """Prefill, then greedy decode: the logits of each call and the tokens
+    chosen.  Given ``chosen`` (the reference's), those tokens are fed
+    instead, so a near tie in the argmax cannot send the packages down
+    different sequences."""
+    B, S = toks.shape
+    logits, cache = prefill(toks, ctx)
+    out, picked = [logits], []
+    for t in range(steps):
+        tok = np.asarray(host(logits)[:, -1].argmax(-1), np.int32)[:, None]
+        if chosen is not None:
+            tok = chosen[t]
+        picked.append(tok)
+        logits, cache = decode(tok, np.full((B,), S + t, np.int32), cache)
+        out.append(logits)
+    return out, picked
+
+
+def serve_both(jcfg, jp, tcfg, tp, toks, ctx, steps):
+    """The same prompts served by the reference and by the port."""
+    ref, picked = serve(
+        lambda t, c: jax_lm.prefill(jp, jcfg, jnp.asarray(t),
+                                    jax_lm.init_cache(jcfg, len(t), c)),
+        lambda t, p, c: jax_lm.decode_step(jp, jcfg, jnp.asarray(t),
+                                           jnp.asarray(p), c),
+        toks, ctx, steps)
+    got, _ = serve(
+        lambda t, c: lm.prefill(tp, tcfg, t,
+                                lm.init_cache(tcfg, len(t), c, device=CPU),
+                                device=CPU),
+        lambda t, p, c: lm.decode_step(tp, tcfg, t, p, c, device=CPU),
+        toks, ctx, steps, chosen=picked)
+    return got, ref
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_left_padded_batch_matches_the_reference(dtype):
+    """A left-padded batch (pads at positions 0.., attended like any
+    token) gives the reference's prefill and greedy decode logits; and
+    the padded row differs from the same prompt alone, by the same amount
+    in both packages."""
+    (jcfg, jp), (tcfg, tp) = both_params("qwen3_0_6b", dtype)
+    lens = [13, 4, 9]
+    toks = left_padded(jcfg, lens)
+    got, ref = serve_both(jcfg, jp, tcfg, tp, toks, 13 + 6, 5)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert_close(g, r, TOL[dtype], f"call {i}")
+    if dtype == "bfloat16":
+        return
+    alone = toks[1:2, 13 - 4:]
+    r_alone, _ = jax_lm.prefill(jp, jcfg, jnp.asarray(alone),
+                                jax_lm.init_cache(jcfg, 1, 8))
+    g_alone, _ = lm.prefill(tp, tcfg, alone,
+                            lm.init_cache(tcfg, 1, 8, device=CPU),
+                            device=CPU)
+    d_ref = host(ref[0])[1] - host(r_alone)[0]
+    d_got = host(got[0])[1] - host(g_alone)[0]
+    assert np.abs(d_ref).max() > 100 * F32 * np.abs(host(r_alone)).max()
+    assert_close(d_got, d_ref, 1e-3, "padded row - row alone")
+
+
+@pytest.mark.parametrize("S", [16, 13])
+def test_bounded_ring_cache_matches_the_reference(S):
+    """qwen3-smoke with an 8-token window keeps 8 slots: a prefill of 16
+    (written contiguously, 16 % 8 == 0) or 13 (at pos % 8), then decode
+    steps past the ring's end, each wrapping onto the oldest slot."""
+    (jcfg, jp), (tcfg, tp) = both_params("qwen3_0_6b", "float32",
+                                         sliding_window=8)
+    assert tcfg.bounded_kv
+    toks, _ = inputs(jcfg, 2, S)
+    got, ref = serve_both(jcfg, jp, tcfg, tp, toks, 64, 10)
+    assert lm.init_cache(tcfg, 2, 64, device=CPU)["attn"]["k"].shape[2] == 8
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert_close(g, r, F32, f"call {i}")
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_build_refuses_the_families_not_ported(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        api.build(configs.get_smoke(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        lm.layer_forward({}, configs.get_smoke(arch), None, None, 0)
+
+
+def test_loss_is_not_ported():
+    model = api.build(configs.get_smoke("qwen3_0_6b"))
+    assert [f.name for f in dataclasses.fields(model)] == [
+        f.name for f in dataclasses.fields(jax_api.Model)]
+    with pytest.raises(NotImplementedError, match="training"):
+        model.loss({}, {})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_decode_matches_forward(arch, dtype):
+    """``tests/test_models.py::test_decode_matches_forward`` on the port,
+    through ``api.build`` and the port's own seeded init: prefill on S-1
+    tokens and one decode step give ``forward``'s last logits (the
+    reference's rtol = atol = 0.15 at bf16; 1e-4 x max at float32)."""
+    cfg = configs.get_smoke(arch).scaled(dtype=dtype)
+    model = api.build(cfg)
+    params = model.init(torch.Generator().manual_seed(1), device=CPU)
+    B, S = 2, 24
+    toks, pe = inputs(cfg, B, S, seed=5)
+    full, _ = lm.forward(params, cfg, toks, pe, device=CPU)
+    pre = {"tokens": toks[:, :S - 1]}
+    if pe is not None:
+        pre["prefix_embeds"] = pe
+    cache = model.init_cache(B, 64, device=CPU)
+    _, cache = model.prefill(params, pre, cache, device=CPU)
+    total = S - 1 + (cfg.vision_len if cfg.family == "vlm" else 0)
+    logits, _ = model.decode(params, toks[:, S - 1:S],
+                             np.full((B,), total, np.int32), cache,
+                             device=CPU)
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(host(logits[:, 0]), host(full[:, -1]),
+                                   rtol=0.15, atol=0.15)
+    else:
+        assert_close(logits[:, 0], full[:, -1], F32, "decode vs forward")
