@@ -81,6 +81,16 @@ the CPU at float32 (Qwen3-0.6B, and every dense and VLM smoke config)
 and teacher forcing at full width (Qwen3-0.6B; gemma2-9b's first two
 layers past its window), each within 1e-4 x max |logits|; and no launch
 of K1-K5, as the reference's models call the plain chunked attention.
+Then the MoE and MLA path (``run_moe``) with its own launch counts:
+Mixtral-8x7B (4 of 32 layers) and DeepSeek-V2-236B (2 of 60) at full
+width in bf16 serving two of the same replica groups, each padded to a
+length the MoE's dispatch groups take (P15), with times beside their
+bounds (operations counted by ``FlopCounterMode``), idle shares and peak
+memory; the card against the CPU at float32 (both smoke models;
+Mixtral's ``moe_forward`` and DeepSeek's ``mla_forward``, prefill and
+absorbed decode, at full width), the experts chosen and their capacity
+slots first (a flip only at a near tie, 1e-6 relative); teacher forcing
+at full width on one layer of each; no launch of K1-K5.
 
 Dtype contract checked here: int32 results are bit-identical between the
 kernels and the plain versions, and to the CPU path; so are float32
@@ -1675,6 +1685,15 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def flops(fn) -> int:
+    """The operations of one call of ``fn``: its matmuls' multiply-adds
+    x 2, as ``torch.utils.flop_counter.FlopCounterMode`` counts them."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
 def busy_ms(fn) -> tuple[float, int]:
     """Device time (ms) of one call of ``fn`` by ``torch.profiler``: the sum
     of its kernels' and copies' durations (one stream, so no overlap), and
@@ -1703,24 +1722,147 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return d / float(want.abs().max()), d
 
 
+class RouteTap:
+    """Records every MoE routing of the port (``layers.moe_route``, a
+    ``Routing``) made inside a with-block, in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.routes, self._route = [], layers.moe_route
+
+        def keep(p, cfg, xg):
+            self.routes.append(self._route(p, cfg, xg))
+            return self.routes[-1]
+
+        layers.moe_route = keep
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.moe_route = self._route
+
+
+def route_flips(card, cpu, B: int, what: str) -> tuple[set, int]:
+    """Hold the card's MoE routings to the CPU's, call by call: the expert
+    ids equal, except tokens whose first differing choice is a near tie
+    (the CPU's probabilities of the two experts within ``ROUTE_TIE`` of each
+    other, relative: float32 sums in another order), and the capacity slots
+    of every group without such a token equal.  A batch row (of B) that
+    holds such a token is another sequence from there on.  Returns those
+    rows and the number of tokens."""
+    check(len(card) == len(cpu), f"{what}: {len(card)} MoE calls on the "
+          f"card, {len(cpu)} on the CPU")
+    rows, n = set(), 0
+    for a, b in zip(card, cpu):
+        ids, slots = a.ids.cpu(), a.slots.cpu()
+        G, g, _ = ids.shape
+        for gi in range(G):
+            bad = (ids[gi] != b.ids[gi]).any(-1).nonzero().flatten().tolist()
+            if not bad:
+                check(torch.equal(slots[gi], b.slots[gi]),
+                      f"{what}: capacity slots differ between card and CPU")
+            for t in bad:
+                row = (gi * g + t) // (G * g // B)
+                if row in rows:
+                    continue
+                j = int((ids[gi, t] != b.ids[gi, t]).nonzero()[0])
+                p = torch.sort(b.probs[gi, t], descending=True).values
+                check(float(p[j] - p[j + 1]) <= ROUTE_TIE * float(p[j]),
+                      f"{what}: token {t} routed to {ids[gi, t].tolist()} on "
+                      f"the card, {b.ids[gi, t].tolist()} on the CPU, no "
+                      f"near tie ({float(p[j]):.9g}, {float(p[j + 1]):.9g})")
+                rows.add(row)
+                n += 1
+    return rows, n
+
+
+def card_vs_cpu(cuda, cfg, params, toks, pe, full: bool) -> str:
+    """The model on the card and on the CPU at float32 (``forward`` when
+    ``full``, ``prefill``, one decode step, the cache): each within
+    ``MODEL_TOL`` x max |CPU|, the cache positions equal and, for a MoE
+    model, the routing equal (``route_flips``; a row a near tie flipped is
+    left out of the comparisons).  Returns the errors."""
+    from repro_torch.models import lm
+    pc = _tree_to(params, "cpu")
+    B, T = toks.shape[0], toks.shape[1] + cfg.vision_len
+    res, routes = {}, {}
+    for side, dev, p in (("card", cuda, params), ("cpu", "cpu", pc)):
+        r = res[side] = {}
+        with RouteTap() as tap:
+            if full:
+                r["forward"] = lm.forward(p, cfg, toks, pe, device=dev)[0]
+            cache = lm.init_cache(cfg, B, T + 1, device=dev)
+            r["prefill"], cache = lm.prefill(p, cfg, toks, cache, pe,
+                                             device=dev)
+            tok = res["card"]["prefill"][:, -1].argmax(-1).int()[:, None]
+            r["decode"], cache = lm.decode_step(
+                p, cfg, tok, torch.full((B,), T), cache, device=dev)
+        routes[side] = tap.routes
+        r.update(cache["attn"])
+    got, want = res["card"], res["cpu"]
+    check(torch.equal(got.pop("pos").cpu(), want.pop("pos")),
+          f"{cfg.name}: cache positions differ between card and CPU")
+    flipped, n = route_flips(routes["card"], routes["cpu"], B, cfg.name)
+    keep = [b for b in range(B) if b not in flipped]
+    check(keep, f"{cfg.name}: near ties flipped the routing of every row")
+
+    def rows(k, t):         # logits (B, ...), cache entries (L, B, ...)
+        return t[:, keep] if k in cache["attn"] else t[keep]
+
+    errs = {k: _rel_err(rows(k, got[k]), rows(k, want[k])) for k in got}
+    bad = {k: e for k, e in errs.items() if e[0] > MODEL_TOL}
+    check(not bad, f"{cfg.name}: card vs CPU {bad} (limit {MODEL_TOL} "
+          f"x max|CPU|)")
+    out = ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3g})" for k, e in errs.items())
+    if routes["cpu"]:
+        out += (f"; routing of {len(routes['cpu'])} MoE calls: ids and slots "
+                f"equal but {n} near-tie tokens (rows {sorted(flipped)} left "
+                f"out)")
+    return out
+
+
+def teacher_forcing(cuda, cfg, params, toks) -> torch.Tensor:
+    """forward's last logits; checks that prefill on S-1 tokens and one
+    decode step give them."""
+    from repro_torch.models import lm
+    S = toks.shape[1]
+    full = lm.forward(params, cfg, toks, device=cuda)[0][:, -1]
+    cache = lm.init_cache(cfg, 1, S, device=cuda)
+    _, cache = lm.prefill(params, cfg, toks[:, :-1], cache, device=cuda)
+    dec, _ = lm.decode_step(params, cfg, toks[:, -1:],
+                            torch.full((1,), S - 1), cache, device=cuda)
+    rel, d = _rel_err(dec[:, 0], full)
+    check(rel <= MODEL_TOL, f"{cfg.name}: decode vs the whole sequence "
+          f"{rel:.3g} x max (limit {MODEL_TOL})")
+    log("models", f"{cfg.name} ({cfg.n_layers} layers) float32 S={S}: "
+        f"prefill on {S - 1} tokens and one decode step vs forward's "
+        f"last logits, max|d| {d:.3g} = {rel:.3g} x max |logits| "
+        f"(limit {MODEL_TOL})")
+    return full
+
+
 def serve_group(cuda, model, params, group, rng, card: str) -> None:
     """One replica's requests, left-padded with token 0 to the longest (the
     pads are attended, as in the reference), prefilled and decoded
     greedily for ``DECODE_STEPS`` steps; logs times beside their bounds."""
-    from repro_torch.models import lm
+    from repro_torch.models import layers, lm
     cfg = model.cfg
     prompts = [rng.integers(0, cfg.vocab_size, r.prompt_tokens)
                for r in group.requests]
     B, S = len(prompts), max(len(q) for q in prompts)
+    S = layers.moe_padded_len(cfg, B, S)     # S itself without experts
     toks = np.zeros((B, S), np.int32)
     for i, q in enumerate(prompts):
         toks[i, S - len(q):] = q
     toks = torch.from_numpy(toks).to(cuda)
     ctx = S + DECODE_STEPS
     tag = f"replica {group.replica}'s group"
+    groups = (f" (P15: B*S = {B * S} tokens, {max(1, B * S // cfg.moe_group)}"
+              f" dispatch group(s) of {min(B * S, cfg.moe_group)})"
+              if cfg.n_experts else "")
     log("models", f"{cfg.name} {cfg.dtype} serving {tag}: B={B}, prompt "
         f"lengths {[len(q) for q in prompts]}, left-padded with token 0 to "
-        f"S={S}, cache {ctx}")
+        f"S={S}{groups}, cache {ctx}")
 
     def prefill(cache):
         return model.prefill(params, {"tokens": toks}, cache, device=cuda)
@@ -1754,18 +1896,33 @@ def serve_group(cuda, model, params, group, rng, card: str) -> None:
           f"{tag}: the cache does not hold positions 0..{ctx - 1}")
 
     # bounds: the larger of the operations over the bf16 tensor cores' peak
-    # and the bytes over the memory rate (every weight read once; for
-    # decode also the valid cache entries, the mean step's)
-    mats = sum(t.numel() for t in lm.leaves(params["layers"]) if t.dim() > 2)
-    wbytes = sum(t.numel() * t.element_size() for t in lm.leaves(params))
-    # QK and PV of one query-key pair, over the layers, heads and rows
-    attn = 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * B
-    head = 2 * B * cfg.d_model * cfg.padded_vocab
-    pre_ops = 2 * B * S * mats + head + attn * S * (S + 1) // 2
+    # and the bytes over the memory rate (every weight read once, an untied
+    # embedding's rows only; for decode also the valid cache entries, the
+    # mean step's)
     kv_len = S + (DECODE_STEPS + 1) / 2
-    dec_ops = 2 * B * mats + head + attn * kv_len
-    kv_bytes = (B * kv_len * 2 * cfg.n_layers * cfg.n_kv_heads
-                * cfg.head_dim * params["embed"].element_size())
+    wbytes = sum(t.numel() * t.element_size() for t in lm.leaves(params))
+    if not cfg.tie_embeddings:
+        wbytes -= (cfg.padded_vocab - B * S) * cfg.d_model * \
+            params["embed"].element_size()
+    kv_bytes = B * kv_len * cfg.n_layers * sum(
+        t[0, 0, 0].numel() * t.element_size()
+        for k, t in cache["attn"].items() if k != "pos")
+    if cfg.n_experts:
+        # the matmuls as they run (FlopCounterMode): the one-hot dispatch
+        # computes every expert's moe_capacity slots, and MLA's and the
+        # chunked attention's shapes are not a closed form
+        pre_ops = flops(lambda: prefill(model.init_cache(B, ctx,
+                                                         device=cuda)))
+        dec_ops = flops(lambda: model.decode(params, tok, pos, cache,
+                                             device=cuda))
+    else:
+        mats = sum(t.numel() for t in lm.leaves(params["layers"])
+                   if t.dim() > 2)
+        # QK and PV of one query-key pair, over the layers, heads and rows
+        attn = 4 * cfg.n_layers * cfg.n_heads * cfg.head_dim * B
+        head = 2 * B * cfg.d_model * cfg.padded_vocab
+        pre_ops = 2 * B * S * mats + head + attn * S * (S + 1) // 2
+        dec_ops = 2 * B * mats + head + attn * kv_len
     pre_bound = bound(wbytes, pre_ops, BF16_TC_OPS_PER_S)
     dec_bound = bound(wbytes + kv_bytes, dec_ops, BF16_TC_OPS_PER_S)
     dec_med = statistics.median(step_ms)
@@ -1838,43 +1995,17 @@ def run_models(cuda: torch.device) -> None:
         f"{base} bytes earlier phases hold) on {card}: serving both groups "
         f"{torch.cuda.max_memory_allocated() - base} bytes, the bf16 weights "
         f"({2 * api.count_params(cfg)} bytes) included; the seeded init "
-        f"{init_peak} bytes (float32 draws, each layer's tensors beside "
-        f"their stacked copy)")
+        f"{init_peak} bytes (the weights and one float32 draw)")
     del params
 
     # -- card vs CPU, float32 ---------------------------------------------
-    def card_vs_cpu(cfg, params, toks, pe, full: bool) -> str:
-        pc = _tree_to(params, "cpu")
-        B, T = toks.shape[0], toks.shape[1] + cfg.vision_len
-        res = {}
-        for side, dev, p in (("card", cuda, params), ("cpu", "cpu", pc)):
-            r = res[side] = {}
-            if full:
-                r["forward"] = lm.forward(p, cfg, toks, pe, device=dev)[0]
-            cache = lm.init_cache(cfg, B, T + 1, device=dev)
-            r["prefill"], cache = lm.prefill(p, cfg, toks, cache, pe,
-                                             device=dev)
-            tok = res["card"]["prefill"][:, -1].argmax(-1).int()[:, None]
-            r["decode"], cache = lm.decode_step(
-                p, cfg, tok, torch.full((B,), T), cache, device=dev)
-            r.update(cache["attn"])
-        got, want = res["card"], res["cpu"]
-        check(torch.equal(got.pop("pos").cpu(), want.pop("pos")),
-              f"{cfg.name}: cache positions differ between card and CPU")
-        errs = {k: _rel_err(got[k], want[k]) for k in got}
-        bad = {k: e for k, e in errs.items() if e[0] > MODEL_TOL}
-        check(not bad, f"{cfg.name}: card vs CPU {bad} (limit {MODEL_TOL} "
-              f"x max|CPU|)")
-        return ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3g})"
-                         for k, e in errs.items())
-
     cfg32 = cfg.scaled(dtype="float32")
     p32 = lm.init_params(torch.Generator(cuda).manual_seed(SEED), cfg32,
                          device=cuda)
     toks = rng.integers(0, cfg.vocab_size, (1, TF_S)).astype(np.int32)
     log("models", f"{cfg.name} B=1 S={TF_S} prefill + one decode step: "
         f"card vs CPU float32, max|d| / max|CPU| (max|d|) "
-        f"{card_vs_cpu(cfg32, p32, toks, None, False)} (limit {MODEL_TOL} x "
+        f"{card_vs_cpu(cuda, cfg32, p32, toks, None, False)} (limit {MODEL_TOL} x "
         f"max|CPU|); cache pos equal")
     for arch in MODEL_ARCHS:
         sc = configs.get_smoke(arch).scaled(dtype="float32")
@@ -1885,35 +2016,17 @@ def run_models(cuda: torch.device) -> None:
             np.float32) if sc.family == "vlm" else None)
         log("models", f"{sc.name} forward, prefill, decode: card vs CPU "
             f"float32, max|d| / max|CPU| (max|d|) "
-            f"{card_vs_cpu(sc, ps, st, pe, True)} (limit {MODEL_TOL} x "
+            f"{card_vs_cpu(cuda, sc, ps, st, pe, True)} (limit {MODEL_TOL} x "
             f"max|CPU|); cache pos equal")
 
     # -- teacher forcing at full width, float32 -----------------------------
-    def teacher_forcing(cfg, params, toks) -> torch.Tensor:
-        """forward's last logits; checks that prefill on S-1 tokens and one
-        decode step give them."""
-        S = toks.shape[1]
-        full = lm.forward(params, cfg, toks, device=cuda)[0][:, -1]
-        cache = lm.init_cache(cfg, 1, S, device=cuda)
-        _, cache = lm.prefill(params, cfg, toks[:, :-1], cache, device=cuda)
-        dec, _ = lm.decode_step(params, cfg, toks[:, -1:],
-                                torch.full((1,), S - 1), cache, device=cuda)
-        rel, d = _rel_err(dec[:, 0], full)
-        check(rel <= MODEL_TOL, f"{cfg.name}: decode vs the whole sequence "
-              f"{rel:.3g} x max (limit {MODEL_TOL})")
-        log("models", f"{cfg.name} ({cfg.n_layers} layers) float32 S={S}: "
-            f"prefill on {S - 1} tokens and one decode step vs forward's "
-            f"last logits, max|d| {d:.3g} = {rel:.3g} x max |logits| "
-            f"(limit {MODEL_TOL})")
-        return full
-
-    teacher_forcing(cfg32, p32, toks)
+    teacher_forcing(cuda, cfg32, p32, toks)
     del p32
     g = configs.get("gemma2_9b").scaled(n_layers=2, dtype="float32")
     pg = lm.init_params(torch.Generator(cuda).manual_seed(SEED), g,
                         device=cuda)
     gt = rng.integers(0, g.vocab_size, (1, GEMMA_S)).astype(np.int32)
-    windowed = teacher_forcing(g, pg, gt)
+    windowed = teacher_forcing(cuda, g, pg, gt)
     ng = g.scaled(sliding_window=0)
     unwindowed = lm.prefill(pg, ng, gt, lm.init_cache(ng, 1, GEMMA_S,
                                                       device=cuda),
@@ -1934,6 +2047,169 @@ def run_models(cuda: torch.device) -> None:
         f"({dict(_build.launches)}): the reference's models call the plain "
         f"chunked_attention (src/repro/models/layers.py:73), never the "
         f"Pallas K5, and so does the port; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# The MoE and MLA phase (``run_moe``): the same requests and plan as
+# ``run_models``, served at full width with the depth cut to fit the card
+MOE_DEPTH = {"mixtral_8x7b": 4, "deepseek_v2_236b": 2}   # of 32 and 60
+MOE_REPLICAS = (0, 5)      # B=1 (192 tokens) and B=8 (up to 55 tokens)
+ROUTE_TIE = 1e-6           # a card/CPU routing flip is a near tie below this
+MOE_S = 256                # mixtral's moe_forward alone: one dispatch group
+MLA_S = 64                 # deepseek's mla_forward alone and teacher forcing
+
+
+def run_moe(cuda: torch.device) -> None:
+    """The MoE and MLA model path (``models.api``), with its own launch
+    counts: Mixtral-8x7B (4 of 32 layers) and DeepSeek-V2-236B (2 of 60) at
+    full width in bf16, each serving replicas 0 and 5 of the batcher's plan
+    (padded to a length the MoE takes, P15); card vs CPU at float32 (both
+    smoke configs; mixtral's ``moe_forward`` and deepseek's ``mla_forward``,
+    prefill and absorbed decode, at full width), routing first; teacher
+    forcing at full width on one layer each (deepseek: the absorbed decode
+    against the expanded prefill)."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import api, layers, lm
+    from repro_torch.serve import batcher
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    _build.launches.clear()
+
+    # -- serving ----------------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    lens = np.minimum((rng.pareto(1.5, N_REQUESTS) * 24 + 8).astype(int), 192)
+    plan = batcher.plan([batcher.Request(i, int(n)) for i, n in
+                         enumerate(lens)], N_REPLICAS, algo="optimal")
+    largest = max(plan, key=lambda a: len(a.requests))
+    Bl = len(largest.requests)
+    Sl = max(r.prompt_tokens for r in largest.requests)
+    pads = {a: 1 - largest.load / (Bl * layers.moe_padded_len(
+        configs.get(a), Bl, Sl)) for a in MOE_DEPTH}
+    log("moe", f"{N_REQUESTS} requests over {N_REPLICAS} replicas (optimal, "
+        f"as run_models): groups of {[len(a.requests) for a in plan]} "
+        f"requests; serving replicas {MOE_REPLICAS}; replica "
+        f"{largest.replica} (B={Bl}, S={Sl}: {Bl * Sl} tokens) is not "
+        f"served: no moe_group exceeds or divides that, and padding to "
+        f"a length the MoE takes would make "
+        f"{', '.join(f'{p:.1%}' for p in pads.values())} of it pads")
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    for arch, depth in MOE_DEPTH.items():
+        full = configs.get(arch)
+        cfg = full.scaled(n_layers=depth)
+        model = api.build(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(cuda).manual_seed(SEED),
+                            device=cuda)
+        init_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        n = api.count_params(cfg)
+        log("moe", f"{full.name}: {depth} of {full.n_layers} layers at full "
+            f"width (cut for the card's 80 GB: the whole model has "
+            f"{api.count_params(full)} parameters), {n} parameters, "
+            f"{2 * n} bf16 bytes")
+        for r in MOE_REPLICAS:
+            serve_group(cuda, model, params, plan[r], rng, card)
+        log("moe", f"{full.name} peak memory (torch.cuda.max_memory_"
+            f"allocated, above the {base} bytes earlier phases hold) on "
+            f"{card}: serving both groups "
+            f"{torch.cuda.max_memory_allocated() - base} bytes, the bf16 "
+            f"weights ({2 * n} bytes) included; the seeded init {init_peak} "
+            f"bytes (the weights and one float32 draw)")
+        del params
+
+    # -- card vs CPU, float32 ---------------------------------------------
+    for arch in MOE_DEPTH:
+        sc = configs.get_smoke(arch).scaled(dtype="float32")
+        ps = lm.init_params(torch.Generator(cuda).manual_seed(SEED), sc,
+                            device=cuda)
+        st = rng.integers(0, sc.vocab_size, (2, 21)).astype(np.int32)
+        log("moe", f"{sc.name} forward, prefill, decode: card vs CPU "
+            f"float32, max|d| / max|CPU| (max|d|) "
+            f"{card_vs_cpu(cuda, sc, ps, st, None, True)} (limit "
+            f"{MODEL_TOL} x max|CPU|); cache pos equal")
+
+    gen = torch.Generator(cuda).manual_seed(SEED)
+    mx = configs.get("mixtral_8x7b").scaled(dtype="float32")
+    pm = layers.init_moe(gen, mx, torch.float32, cuda)
+    x = torch.randn((1, MOE_S, mx.d_model), generator=gen, device=cuda)
+    side = []                                    # card, then CPU
+    for dev, p in ((cuda, pm), ("cpu", _tree_to(pm, "cpu"))):
+        with RouteTap() as tap:
+            side.append((layers.moe_forward(p, mx, x.to(dev)), tap.routes))
+    del pm
+    ((yc, ac), rc), ((yp, ap), rp) = side
+    flipped, n_tie = route_flips(rc, rp, MOE_S, "mixtral moe_forward")
+    # a token's output follows from its own experts and whether each kept
+    # its slot: compare the tokens where both agree
+    keep = ((rc[0].slots.cpu() < rc[0].capacity)
+            == (rp[0].slots < rp[0].capacity)).all(-1).flatten()
+    keep[sorted(flipped)] = False
+    rel, d = _rel_err(yc[0].cpu()[keep], yp[0, keep])
+    arel = abs(float(ac) - float(ap)) / float(ap)
+    check(rel <= MODEL_TOL and arel <= MODEL_TOL,
+          f"mixtral moe_forward: card vs CPU {rel:.3g}, aux {arel:.3g}")
+    log("moe", f"mixtral-8x7b moe_forward alone at full width (8 experts of "
+        f"d_ff 14336, {mx.d_model * mx.n_experts * (3 * mx.d_ff + 1)} float32 "
+        f"weights), x (1, {MOE_S}, {mx.d_model}): routing ids and slots card "
+        f"= CPU but {n_tie} near-tie tokens (relative gap < {ROUTE_TIE}), "
+        f"{rp[0].dropped} of {rp[0].ids.numel()} choices dropped (capacity "
+        f"{rp[0].capacity}); out max|d| {d:.3g} = {rel:.3g} x max|CPU| over "
+        f"{int(keep.sum())} tokens, aux {arel:.3g} relative (limit "
+        f"{MODEL_TOL})")
+
+    ds = configs.get("deepseek_v2_236b").scaled(dtype="float32")
+    pa = layers.init_mla(gen, ds, torch.float32, cuda)
+    x = torch.randn((1, MLA_S + 1, ds.d_model), generator=gen, device=cuda)
+    pos = torch.arange(MLA_S + 1, dtype=torch.int32)[None]
+    res = []                                     # card, then CPU
+    for dev, p in ((cuda, pa), ("cpu", _tree_to(pa, "cpu"))):
+        cache = {"c": torch.zeros((1, MLA_S + 1, ds.kv_lora_rank),
+                                  device=dev),
+                 "kr": torch.zeros((1, MLA_S + 1, ds.qk_rope_dim),
+                                   device=dev),
+                 "pos": torch.full((1, MLA_S + 1), -1, dtype=torch.int32,
+                                   device=dev)}
+        xd, pd = x.to(dev), pos.to(dev)
+        pre, _ = layers.mla_forward(p, ds, xd[:, :MLA_S], pd[:, :MLA_S],
+                                    window=0, cache=cache)
+        dec, _ = layers.mla_forward(p, ds, xd[:, MLA_S:], pd[:, MLA_S:],
+                                    window=0, cache=cache, absorb=True)
+        res.append({"prefill": pre, "absorbed decode": dec, **cache})
+    del pa
+    got, want = res
+    check(torch.equal(got.pop("pos").cpu(), want.pop("pos")),
+          "deepseek mla_forward: cache positions differ")
+    errs = {k: _rel_err(got[k], want[k]) for k in got}
+    bad = {k: e for k, e in errs.items() if e[0] > MODEL_TOL}
+    check(not bad, f"deepseek mla_forward: card vs CPU {bad}")
+    log("moe", f"deepseek-v2-236b mla_forward alone at full width (128 "
+        f"heads, q_lora 1536, kv_lora 512), prefill of {MLA_S} tokens then "
+        f"the absorbed decode: card vs CPU float32, max|d| / max|CPU| "
+        f"(max|d|) " + ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3g})"
+                                 for k, e in errs.items())
+        + f" (limit {MODEL_TOL}); cache pos equal")
+
+    # -- teacher forcing at full width, float32, one layer each ------------
+    for arch in MOE_DEPTH:
+        c1 = configs.get(arch).scaled(n_layers=1, dtype="float32")
+        p1 = lm.init_params(gen, c1, device=cuda)
+        with RouteTap() as tap:
+            teacher_forcing(cuda, c1, p1, rng.integers(
+                0, c1.vocab_size, (1, MLA_S)).astype(np.int32))
+        # the same routing only if the whole sequence dropped no choice
+        check(not any(r.dropped for r in tap.routes),
+              f"{c1.name}: forward dropped choices at capacity")
+        del p1
+
+    launched = {k: v for k, v in _build.launches.items() if v}
+    check(not launched, f"the MoE path launched kernels: {launched}")
+    log("moe", f"kernel launches on the MoE and MLA path: 0 of K1-K5 "
+        f"({dict(_build.launches)}): the reference's mla_forward calls the "
+        f"plain chunked_attention and its moe_forward plain einsums "
+        f"(src/repro/models/layers.py:370-387, :474-478), no Pallas kernel, "
+        f"and so does the port; phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2310,6 +2586,7 @@ def main() -> int:
     kernels.extend(run_registry(cuda))
     kernels.extend(run_flash(cuda))
     run_models(cuda)
+    run_moe(cuda)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

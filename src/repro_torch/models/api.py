@@ -8,8 +8,9 @@ functions.
   decode(params, tokens, pos, cache, device=None) -> (logits, cache)
   init_cache(batch_size, ctx, device=None) -> cache
 
-The port's counterpart of ``repro.models.api`` for the dense and VLM
-families; ``build`` raises ``NotImplementedError`` for the others.
+The port's counterpart of ``repro.models.api`` for the decoder-only
+dense, VLM and MoE families (GQA or MLA attention); ``build`` raises
+``NotImplementedError`` for the SSM, hybrid and encoder-decoder ones.
 ``device=None`` means the card (see ``lm``).
 """
 from __future__ import annotations

@@ -1,15 +1,21 @@
 """Shared neural layers, plain PyTorch: norms, rotary embeddings, the
-chunked (flash-style) attention, the GQA attention block and the MLPs.
+chunked (flash-style) attention, the GQA and MLA attention blocks, the
+MLPs and the mixture of experts.
 
-Counterpart of ``repro.models.layers`` for the dense and VLM decoder
-path: float32 norm and softmax arithmetic with the model dtype's weights
-and activations, as there.  MLA and MoE come with the MoE slice.  The
+Counterpart of ``repro.models.layers``: float32 norm, softmax and router
+arithmetic with the model dtype's weights and activations, as there.  The
 parameters are plain dicts of tensors laid out as the reference's trees,
 so a tree converted from the reference (``lm.params_from_numpy``) runs
 here unchanged.
+
+Every initialiser takes ``out=None``: given a tree of tensors of its
+leaves' shapes (a layer's slice of the stacked parameters), it writes
+each leaf there as it is drawn and returns that tree, so a stack of
+layers is filled without per-layer copies.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -36,11 +42,25 @@ def normal(generator: torch.Generator | None, shape, device) -> torch.Tensor:
                        device=generator.device).to(device)
 
 
-def dense_init(generator, shape, in_axis_size, dtype, device) -> torch.Tensor:
+def dense_init(generator, shape, in_axis_size, dtype, device,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """Normal weights of variance ``1 / in_axis_size``, drawn in float32 and
-    cast to ``dtype``."""
-    scale = 1.0 / math.sqrt(in_axis_size)
-    return (normal(generator, shape, device) * scale).to(dtype)
+    cast to ``dtype`` (into ``out`` when given)."""
+    w = normal(generator, shape, device).mul_(1.0 / math.sqrt(in_axis_size))
+    return w.to(dtype) if out is None else out.copy_(w)
+
+
+def zeros(shape, dtype, device, out: torch.Tensor | None = None):
+    """A leaf that starts at zero (a norm's scale), into ``out`` when
+    given."""
+    if out is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return out.zero_()
+
+
+def subtree(out, key: str):
+    """``out[key]``, or None where there is no ``out`` tree."""
+    return None if out is None else out[key]
 
 
 # ---------------------------------------------------------------------------
@@ -221,17 +241,41 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 # GQA attention block (projections + rope + cache handling)
 
 
-def init_attn(generator, cfg: ModelConfig, dtype, device) -> Params:
+def write_cache(cache: dict, new: dict, positions: torch.Tensor) -> dict:
+    """Write one call's entries (``new``: (B, S, ...) tensors by cache key)
+    and their positions into ``cache`` in place, as the reference does, and
+    return it.  A call with S > 1 (prefill) writes its last min(S, Sc)
+    entries, contiguously from slot 0 when they fit or wrap exactly, else
+    at ``pos % Sc``; a call with S == 1 (decode) writes slot ``pos % Sc``."""
+    B, S = positions.shape
+    Sc = cache["pos"].shape[1]
+    W = min(S, Sc)
+    new = {**new, "pos": positions}
+    if S > 1 and (Sc >= S or (W == Sc and S % Sc == 0)):
+        for key, v in new.items():
+            cache[key][:, :W] = v[:, S - W:]
+    else:
+        slots = positions[:, S - W:] % Sc
+        bidx = torch.arange(B, device=positions.device)[:, None]
+        for key, v in new.items():
+            cache[key][bidx, slots] = v[:, S - W:]
+    return cache
+
+
+def init_attn(generator, cfg: ModelConfig, dtype, device,
+              out=None) -> Params:
     d, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    o = functools.partial(subtree, out)
     p = {
-        "wq": dense_init(generator, (d, H, dh), d, dtype, device),
-        "wk": dense_init(generator, (d, Hkv, dh), d, dtype, device),
-        "wv": dense_init(generator, (d, Hkv, dh), d, dtype, device),
-        "wo": dense_init(generator, (H, dh, d), H * dh, dtype, device),
+        "wq": dense_init(generator, (d, H, dh), d, dtype, device, o("wq")),
+        "wk": dense_init(generator, (d, Hkv, dh), d, dtype, device, o("wk")),
+        "wv": dense_init(generator, (d, Hkv, dh), d, dtype, device, o("wv")),
+        "wo": dense_init(generator, (H, dh, d), H * dh, dtype, device,
+                         o("wo")),
     }
     if cfg.qk_norm:
-        p["q_norm"] = torch.zeros((dh,), dtype=dtype, device=device)
-        p["k_norm"] = torch.zeros((dh,), dtype=dtype, device=device)
+        p["q_norm"] = zeros((dh,), dtype, device, o("q_norm"))
+        p["k_norm"] = zeros((dh,), dtype, device, o("k_norm"))
     return p
 
 
@@ -240,10 +284,8 @@ def attn_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
     """GQA attention.  Returns (out, new_cache).
 
     cache: dict(k=(B, Sc, Hkv, dh), v=..., pos=(B, Sc)) or None; it is
-    written in place and returned.  A call with S > 1 (prefill) writes its
-    last min(S, Sc) entries, contiguously from slot 0 when they fit or
-    wrap exactly, else at ``pos % Sc``, and attends over its own k/v; a
-    call with S == 1 (decode) writes slot ``pos % Sc`` and attends over
+    written in place (``write_cache``) and returned.  A call with S > 1
+    (prefill) attends over its own k/v; a call with S == 1 (decode) over
     the whole cache, empty slots (pos -1) masked.  Every token is attended
     by position alone: there is no pad mask.
     """
@@ -261,19 +303,9 @@ def attn_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
     new_cache = None
     k_all, v_all, kv_pos = k, v, positions
     if cache is not None:
-        ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-        Sc = ck.shape[1]
-        W = min(S, Sc)
-        kw, vw, pw = k[:, S - W:], v[:, S - W:], positions[:, S - W:]
-        if S > 1 and (Sc >= S or (W == Sc and S % Sc == 0)):
-            ck[:, :W], cv[:, :W], cpos[:, :W] = kw, vw, pw
-        else:
-            slots = pw % Sc
-            bidx = torch.arange(B, device=x.device)[:, None]
-            ck[bidx, slots], cv[bidx, slots], cpos[bidx, slots] = kw, vw, pw
-        new_cache = {"k": ck, "v": cv, "pos": cpos}
+        new_cache = write_cache(cache, {"k": k, "v": v}, positions)
         if S == 1:
-            k_all, v_all, kv_pos = ck, cv, cpos
+            k_all, v_all, kv_pos = cache["k"], cache["v"], cache["pos"]
 
     decode_like = cache is not None and S == 1
     # banded prefill/train only for uniform sliding-window archs (the
@@ -291,17 +323,101 @@ def attn_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (deepseek-v2)
+
+
+def init_mla(generator, cfg: ModelConfig, dtype, device, out=None) -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    r, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    o = functools.partial(subtree, out)
+    return {
+        "wq_a": dense_init(generator, (d, r), d, dtype, device, o("wq_a")),
+        "q_norm": zeros((r,), dtype, device, o("q_norm")),
+        "wq_b": dense_init(generator, (r, H, qk), r, dtype, device,
+                           o("wq_b")),
+        "wkv_a": dense_init(generator, (d, kvr + cfg.qk_rope_dim), d, dtype,
+                            device, o("wkv_a")),
+        "kv_norm": zeros((kvr,), dtype, device, o("kv_norm")),
+        "wkv_b": dense_init(generator,
+                            (kvr, H, cfg.qk_nope_dim + cfg.v_head_dim), kvr,
+                            dtype, device, o("wkv_b")),
+        "wo": dense_init(generator, (H, cfg.v_head_dim, d),
+                         H * cfg.v_head_dim, dtype, device, o("wo")),
+    }
+
+
+def mla_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
+                cache=None, absorb: bool = False):
+    """Multi-head latent attention.  Returns (out, new_cache).
+
+    cache: dict(c=(B, Sc, kv_lora_rank), kr=(B, Sc, qk_rope_dim),
+    pos=(B, Sc)) or None: only the normed latent and the one shared rope
+    key, written in place as the GQA cache is (``write_cache``).  Both
+    paths scale the logits by ``(qk_nope_dim + qk_rope_dim) ** -0.5``.
+    ``absorb=True`` (the reference's decode: a cache and S == 1) folds
+    ``wkv_b``'s key half into the queries (``q_lat``, rounded to the model
+    dtype) and attends in the latent space, one key head shared by every
+    query head, then expands through ``wkv_b``'s value half; otherwise
+    ``wkv_b`` expands the latents into per-head keys and values and the
+    rope key is broadcast over the heads.
+    """
+    B, S, d = x.shape
+    nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
+    kvr = cfg.kv_lora_rank
+    scale = (nope + rdim) ** -0.5
+
+    q = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", q, p["wq_b"])
+    q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions,
+                                         cfg.rope_theta)
+    kv = x @ p["wkv_a"]
+    c = rmsnorm(kv[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(kv[..., kvr:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0]                  # one head
+
+    new_cache = None
+    c_all, kr_all, kv_pos = c, k_rope, positions
+    if cache is not None:
+        new_cache = write_cache(cache, {"c": c, "kr": k_rope}, positions)
+        if S == 1:
+            c_all, kr_all, kv_pos = cache["c"], cache["kr"], cache["pos"]
+
+    attend = functools.partial(
+        chunked_attention, q_pos=positions, kv_pos=kv_pos, causal=True,
+        window=window, softcap=0.0, scale=scale, q_chunk=cfg.q_chunk,
+        kv_chunk=cfg.kv_chunk)
+    if absorb:
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope,
+                             p["wkv_b"][..., :nope])          # (B, S, H, r)
+        k_cat = torch.cat([c_all, kr_all], dim=-1)[:, :, None, :]
+        out_lat = attend(torch.cat([q_lat, q_rope], dim=-1), k_cat,
+                         c_all[:, :, None, :])
+        out = torch.einsum("bshr,rhv->bshv", out_lat, p["wkv_b"][..., nope:])
+    else:
+        kvu = torch.einsum("bsr,rhk->bshk", c_all, p["wkv_b"])
+        k_nope, v = kvu[..., :nope], kvu[..., nope:]
+        k_full = torch.cat([k_nope, kr_all[:, :, None, :].expand(
+            *k_nope.shape[:3], rdim)], dim=-1)
+        out = attend(torch.cat([q_nope, q_rope], dim=-1), k_full, v)
+    return torch.einsum("bshv,hvd->bsd", out, p["wo"]), new_cache
+
+
+# ---------------------------------------------------------------------------
 # MLPs
 
 
-def init_mlp(generator, cfg: ModelConfig, dtype, device) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(generator, cfg: ModelConfig, dtype, device,
+             d_ff: int | None = None, out=None) -> Params:
+    d = cfg.d_model
+    f = cfg.d_ff if d_ff is None else d_ff
+    o = functools.partial(subtree, out)
     if cfg.act in ("silu", "geglu"):  # gated
-        return {"w1": dense_init(generator, (d, f), d, dtype, device),
-                "w3": dense_init(generator, (d, f), d, dtype, device),
-                "w2": dense_init(generator, (f, d), f, dtype, device)}
-    return {"w1": dense_init(generator, (d, f), d, dtype, device),
-            "w2": dense_init(generator, (f, d), f, dtype, device)}
+        return {"w1": dense_init(generator, (d, f), d, dtype, device, o("w1")),
+                "w3": dense_init(generator, (d, f), d, dtype, device, o("w3")),
+                "w2": dense_init(generator, (f, d), f, dtype, device, o("w2"))}
+    return {"w1": dense_init(generator, (d, f), d, dtype, device, o("w1")),
+            "w2": dense_init(generator, (f, d), f, dtype, device, o("w2"))}
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -328,3 +444,128 @@ def mlp_forward(p: Params, cfg: ModelConfig, x) -> torch.Tensor:
     else:  # plain gelu (whisper)
         h = gelu(x @ p["w1"])
     return h @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (GShard-style one-hot dispatch, small token groups)
+
+
+def moe_capacity(cfg: ModelConfig) -> int:
+    """Slots per expert and dispatch group, from ``cfg.moe_group`` (not from
+    the group a call actually has), rounded up to a multiple of 8."""
+    slots = cfg.moe_group * cfg.top_k / cfg.n_experts * cfg.capacity_factor
+    return max(8, int(-(-slots // 8) * 8))
+
+
+def moe_padded_len(cfg: ModelConfig, B: int, S: int) -> int:
+    """The smallest length >= S to pad a batch of B prompts to so that
+    ``moe_forward`` takes it (P15): B*S <= moe_group, or moe_group divides
+    B*S.  S itself for a model without experts."""
+    n = S
+    while cfg.n_experts and not (B * n <= cfg.moe_group
+                                 or B * n % cfg.moe_group == 0):
+        n += 1
+    return n
+
+
+def init_moe(generator, cfg: ModelConfig, dtype, device, out=None) -> Params:
+    """The router is float32 whatever ``dtype`` is, as the reference's."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    o = functools.partial(subtree, out)
+    p = {
+        "router": dense_init(generator, (d, E), d, torch.float32, device,
+                             o("router")),
+        "w1": dense_init(generator, (E, d, f), d, dtype, device, o("w1")),
+        "w3": dense_init(generator, (E, d, f), d, dtype, device, o("w3")),
+        "w2": dense_init(generator, (E, f, d), f, dtype, device, o("w2")),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(generator, cfg, dtype, device,
+                               d_ff=cfg.d_ff * cfg.n_shared_experts,
+                               out=o("shared"))
+    return p
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of the last axis and their indices, in
+    descending order, ties to the lower index (``jax.lax.top_k``'s order;
+    ``torch.topk`` promises none): a stable descending sort."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+@dataclasses.dataclass
+class Routing:
+    """One MoE call's routing, by dispatch group (G groups of g tokens):
+    ``probs`` (G, g, E) the router's float32 softmax; ``ids`` (G, g, k) the
+    experts chosen, most probable first; ``vals`` (G, g, k) their weights,
+    renormalised over the k; ``slots`` (G, g, k) each choice's place in its
+    expert's queue, token-major then choice rank (kept where below
+    ``capacity``); ``aux`` the load-balancing loss."""
+    probs: torch.Tensor
+    ids: torch.Tensor
+    vals: torch.Tensor
+    slots: torch.Tensor
+    capacity: int
+    aux: torch.Tensor
+
+    @property
+    def dropped(self) -> int:
+        """Choices past their expert's capacity: computed, weighted 0."""
+        return int((self.slots >= self.capacity).sum())
+
+
+def moe_route(p: Params, cfg: ModelConfig, xg: torch.Tensor) -> Routing:
+    """Route the tokens ``xg`` (G, g, d): float32 router logits and softmax,
+    the top k, capacity slots and the Switch balancing loss
+    ``E * sum_e mean(probs_e) * mean(count_e)``."""
+    E, k = cfg.n_experts, cfg.top_k
+    G, g, _ = xg.shape
+    probs = torch.softmax(torch.einsum("gtd,de->gte", xg.float(),
+                                       p["router"]), dim=-1)
+    vals, ids = top_k(probs, k)
+    vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
+    oh = torch.nn.functional.one_hot(ids, E)                  # (G, g, k, E)
+    aux = E * torch.sum(probs.mean(dim=(0, 1))
+                        * oh.sum(dim=2).float().mean(dim=(0, 1)))
+    ohf = oh.reshape(G, g * k, E)
+    slots = ((torch.cumsum(ohf, dim=1) - ohf) * ohf).sum(-1).reshape(G, g, k)
+    return Routing(probs, ids, vals, slots, moe_capacity(cfg), aux)
+
+
+def moe_forward(p: Params, cfg: ModelConfig, x) -> tuple[torch.Tensor,
+                                                          torch.Tensor]:
+    """Returns (out, aux_loss).  x: (B, S, d), cut into groups of
+    g = min(moe_group, B*S) tokens; ``ValueError`` where g does not divide
+    B*S (the reference asserts).  Every expert computes all of its
+    ``moe_capacity`` slots, empty and dropped ones included (the one-hot
+    dispatch), and the shared experts' MLP is added after."""
+    B, S, d = x.shape
+    T = B * S
+    g = min(cfg.moe_group, T)
+    G = T // g
+    if G * g != T:
+        raise ValueError(f"moe_group {g} must divide tokens {T} (B={B}, "
+                         f"S={S}): pad S so that B*S <= moe_group or "
+                         f"moe_group divides B*S")
+    xg = x.reshape(G, g, d)
+    r = moe_route(p, cfg, xg)
+    C = r.capacity
+    cdt = (torch.bfloat16 if cfg.moe_combine_dtype == "bfloat16"
+           else torch.float32)
+    oh = torch.nn.functional.one_hot(r.ids, cfg.n_experts).to(cdt)
+    wk = r.vals.to(cdt) * (r.slots < C).to(cdt)               # (G, g, k)
+    slot_oh = (r.slots[..., None] == torch.arange(
+        C, device=x.device)).to(cdt)                          # (G, g, k, C)
+    combine = torch.einsum("gske,gsk,gskc->gsec", oh, wk, slot_oh)
+    dispatch = (combine > 0).to(x.dtype)                      # (G, g, E, C)
+
+    ein = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+    h = silu(torch.einsum("gecd,edf->gecf", ein, p["w1"]))
+    h = h * torch.einsum("gecd,edf->gecf", ein, p["w3"])
+    out_e = torch.einsum("gecf,efd->gecd", h, p["w2"])
+    y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), out_e)
+    y = y.reshape(B, S, d)
+    if cfg.n_shared_experts:
+        y = y + mlp_forward(p["shared"], cfg, x)
+    return y, r.aux

@@ -1,10 +1,11 @@
-"""Decoder-only language model: the dense and VLM families.
+"""Decoder-only language model: the dense, VLM and MoE families, with
+GQA or MLA attention.
 
 Counterpart of ``repro.models.lm`` without training (``chunked_ce``,
-``loss_fn``).  The parameter tree is the reference's: per-layer leaves
-stacked on a leading L axis, which the layer loop indexes (the reference
-scans over it).  The decode cache is stacked the same way and written in
-place.
+``loss_fn``) and without SSM layers.  The parameter tree is the
+reference's: per-layer leaves stacked on a leading L axis, which the
+layer loop indexes (the reference scans over it).  The decode cache is
+stacked the same way and written in place.
 
 Serving semantics are the reference's, pads included: a left-padded
 prompt is a sequence like any other, its pad tokens at positions
@@ -18,6 +19,8 @@ the card, and raise ``RuntimeError`` where CUDA is absent; pass
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -30,10 +33,6 @@ Params = dict
 
 #: what each unported part of ``lm.py`` waits for, by ``ROADMAP.md`` item
 _NOT_PORTED = {
-    "mla": "multi-head latent attention (MLA) is not ported yet: "
-           "ROADMAP.md queue 1, item 1b (MoE and MLA)",
-    "moe": "mixture-of-experts layers are not ported yet: ROADMAP.md "
-           "queue 1, item 1b (MoE and MLA)",
     "ssm": "SSM and hybrid layers are not ported yet: ROADMAP.md queue 1, "
            "item 1c (SSM and hybrid)",
     "encdec": "the encoder-decoder model (encdec) is not ported yet: "
@@ -42,14 +41,10 @@ _NOT_PORTED = {
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration this slice does
-    not run: MLA, MoE, SSM or hybrid layers, or the encoder-decoder."""
+    """Raise ``NotImplementedError`` for a configuration the port does not
+    run yet: SSM or hybrid layers, or the encoder-decoder."""
     if cfg.family == "encdec":
         raise NotImplementedError(_NOT_PORTED["encdec"])
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(_NOT_PORTED["mla"])
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_NOT_PORTED["moe"])
     if cfg.uses_ssm or not cfg.uses_attention:
         raise NotImplementedError(_NOT_PORTED["ssm"])
 
@@ -72,49 +67,63 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked(tree, n: int, device):
+    """Empty tensors of ``tree``'s leaves' shapes and dtypes with a leading
+    axis of ``n``, on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v, n, device) for k, v in tree.items()}
+    return torch.empty((n, *tree.shape), dtype=tree.dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
 # init
 
 
-def init_layer(generator, cfg: ModelConfig, device) -> Params:
+def init_layer(generator, cfg: ModelConfig, device, out=None) -> Params:
+    """One layer's weights drawn from ``generator`` (attention, then the
+    MLP or the experts), written into ``out`` (a tree of its leaves'
+    shapes) when given."""
     require_ported(cfg)
     dt = _dtype(cfg)
-    p: Params = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-                 "attn": L.init_attn(generator, cfg, dt, device)}
+    o = functools.partial(L.subtree, out)
+    d = cfg.d_model
+    init_attn = L.init_mla if cfg.attn_kind == "mla" else L.init_attn
+    p: Params = {"ln1": L.zeros((d,), dt, device, o("ln1")),
+                 "attn": init_attn(generator, cfg, dt, device, out=o("attn"))}
     if cfg.d_ff > 0:
-        p["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
-        p["ffn"] = L.init_mlp(generator, cfg, dt, device)
+        p["ln2"] = L.zeros((d,), dt, device, o("ln2"))
+        init_ffn = L.init_moe if cfg.n_experts > 0 else L.init_mlp
+        p["ffn"] = init_ffn(generator, cfg, dt, device, out=o("ffn"))
     if cfg.post_norms:
-        p["pn1"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        p["pn1"] = L.zeros((d,), dt, device, o("pn1"))
         if cfg.d_ff > 0:
-            p["pn2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+            p["pn2"] = L.zeros((d,), dt, device, o("pn2"))
     return p
 
 
 def init_params(generator: torch.Generator | None, cfg: ModelConfig,
                 device=None) -> Params:
     """Random weights drawn from ``generator`` (embedding, then the layers
-    in order, then the head), laid out as the reference's tree.  On the
-    ``meta`` device the generator may be None: shapes only."""
+    in order, then the head), laid out as the reference's tree.  Each
+    layer's leaves are written into the stacked tensors as they are drawn,
+    so the peak is the weights plus one float32 draw.  On the ``meta``
+    device the generator may be None: shapes only."""
     dev = resolve_device(device)
     require_ported(cfg)
     dt = _dtype(cfg)
     V = cfg.padded_vocab
+    layers = _stacked(init_layer(None, cfg, "meta"), cfg.n_layers, dev)
     p: Params = {
-        "embed": (L.normal(generator, (V, cfg.d_model), dev) * 0.02).to(dt),
+        "embed": L.normal(generator, (V, cfg.d_model), dev).mul_(0.02).to(dt),
         "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
-        "layers": _stack([init_layer(generator, cfg, dev)
-                          for _ in range(cfg.n_layers)]),
+        "layers": layers,
     }
+    if dev.type != "meta":
+        for i in range(cfg.n_layers):
+            init_layer(generator, cfg, dev, out=_index(layers, i))
     if not cfg.tie_embeddings:
-        p["head"] = (L.normal(generator, (cfg.d_model, V), dev)
-                     * 0.02).to(dt)
+        p["head"] = L.normal(generator, (cfg.d_model, V),
+                             dev).mul_(0.02).to(dt)
     return p
 
 
@@ -161,22 +170,35 @@ def _window_for_layer(cfg: ModelConfig, layer_idx: int) -> int:
 
 def layer_forward(p: Params, cfg: ModelConfig, x, positions, layer_idx: int,
                   cache=None):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux): ``aux`` is the MoE balancing loss (a
+    float32 tensor), 0.0 for a layer without experts.  MLA attends in its
+    latent space (absorbed) exactly when there is a cache and S == 1."""
     require_ported(cfg)
+    aux = 0.0
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    mix, nc = L.attn_forward(p["attn"], cfg, h, positions,
-                             window=_window_for_layer(cfg, layer_idx),
-                             cache=None if cache is None else cache["attn"])
+    window = _window_for_layer(cfg, layer_idx)
+    acache = None if cache is None else cache["attn"]
+    if cfg.attn_kind == "mla":
+        mix, nc = L.mla_forward(p["attn"], cfg, h, positions, window=window,
+                                cache=acache,
+                                absorb=acache is not None and h.shape[1] == 1)
+    else:
+        mix, nc = L.attn_forward(p["attn"], cfg, h, positions, window=window,
+                                 cache=acache)
     new_cache = {} if nc is None else {"attn": nc}
     if cfg.post_norms:
         mix = L.rmsnorm(mix, p["pn1"], cfg.norm_eps)
     x = x + mix
     if cfg.d_ff > 0:
-        f = L.mlp_forward(p["ffn"], cfg, L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+        h2 = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+        if cfg.n_experts > 0:
+            f, aux = L.moe_forward(p["ffn"], cfg, h2)
+        else:
+            f = L.mlp_forward(p["ffn"], cfg, h2)
         if cfg.post_norms:
             f = L.rmsnorm(f, p["pn2"], cfg.norm_eps)
         x = x + f
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -206,11 +228,14 @@ def _head(p: Params, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 def _layers(p: Params, cfg: ModelConfig, x, positions, cache=None):
+    """The layer stack: (x, the mean of the layers' aux losses)."""
+    aux = 0.0
     for i in range(cfg.n_layers):
-        x, _ = layer_forward(_index(p["layers"], i), cfg, x, positions, i,
-                             cache=None if cache is None
-                             else _index(cache, i))
-    return x
+        x, _, a = layer_forward(_index(p["layers"], i), cfg, x, positions, i,
+                                cache=None if cache is None
+                                else _index(cache, i))
+        aux = aux + a
+    return x, aux / cfg.n_layers
 
 
 def _inputs(dev: torch.device, p: Params, cache, *arrays):
@@ -232,13 +257,15 @@ def _positions(B: int, T: int, dev: torch.device) -> torch.Tensor:
 def forward(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None,
             device=None):
     """Scoring forward: (logits over the whole sequence, aux).  ``aux`` is
-    the reference's MoE balancing loss, 0 for the families ported."""
+    the reference's MoE balancing loss averaged over the layers (0 without
+    experts)."""
     dev = resolve_device(device)
     tokens, prefix_embeds = _inputs(dev, p, None, tokens, prefix_embeds)
     x = _embed(p, cfg, tokens, prefix_embeds)
     B, T = x.shape[:2]
-    x = _layers(p, cfg, x, _positions(B, T, dev))
-    return _head(p, cfg, x), torch.zeros((), device=dev)
+    x, aux = _layers(p, cfg, x, _positions(B, T, dev))
+    return _head(p, cfg, x), torch.as_tensor(aux, dtype=torch.float32,
+                                             device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -247,18 +274,24 @@ def forward(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None,
 
 def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None) -> dict:
     """Per-layer cache stacked on a leading L axis; a window-bounded model
-    keeps min(ctx, window) slots (a ring), any other ctx."""
+    keeps min(ctx, window) slots (a ring), any other ctx.  GQA keeps k and
+    v per KV head; MLA keeps the latent ``c`` and the shared rope key
+    ``kr``."""
     dev = resolve_device(device)
     require_ported(cfg)
     dt = _dtype(cfg)
     Lz = cfg.n_layers
     sc = min(ctx, cfg.sliding_window) if cfg.bounded_kv else ctx
-    shape = (Lz, batch, sc, cfg.n_kv_heads, cfg.head_dim)
-    return {"attn": {
-        "k": torch.zeros(shape, dtype=dt, device=dev),
-        "v": torch.zeros(shape, dtype=dt, device=dev),
-        "pos": torch.full((Lz, batch, sc), -1, dtype=torch.int32, device=dev),
-    }}
+    if cfg.attn_kind == "mla":
+        entries = {"c": (cfg.kv_lora_rank,), "kr": (cfg.qk_rope_dim,)}
+    else:
+        entries = {"k": (cfg.n_kv_heads, cfg.head_dim),
+                   "v": (cfg.n_kv_heads, cfg.head_dim)}
+    attn = {k: torch.zeros((Lz, batch, sc, *shape), dtype=dt, device=dev)
+            for k, shape in entries.items()}
+    attn["pos"] = torch.full((Lz, batch, sc), -1, dtype=torch.int32,
+                             device=dev)
+    return {"attn": attn}
 
 
 def prefill(p: Params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
@@ -269,7 +302,7 @@ def prefill(p: Params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,
     tokens, prefix_embeds = _inputs(dev, p, cache, tokens, prefix_embeds)
     x = _embed(p, cfg, tokens, prefix_embeds)
     B, T = x.shape[:2]
-    x = _layers(p, cfg, x, _positions(B, T, dev), cache=cache)
+    x, _ = _layers(p, cfg, x, _positions(B, T, dev), cache=cache)
     return _head(p, cfg, x[:, -1:]), cache
 
 
@@ -279,5 +312,5 @@ def decode_step(p: Params, cfg: ModelConfig, tokens, pos, cache, device=None):
     dev = resolve_device(device)
     tokens, pos = _inputs(dev, p, cache, tokens, pos)
     x = _embed(p, cfg, tokens)
-    x = _layers(p, cfg, x, pos.to(torch.int32)[:, None], cache=cache)
+    x, _ = _layers(p, cfg, x, pos.to(torch.int32)[:, None], cache=cache)
     return _head(p, cfg, x), cache

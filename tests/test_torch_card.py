@@ -850,13 +850,17 @@ def test_run_stream_executes_on_card_as_priced(scenario):
     assert ledger_diff(got, want) == []
 
 
-@pytest.mark.parametrize("arch", ["gemma2_9b", "internvl2_2b"])
-def test_model_on_card_matches_cpu(arch):
-    """A dense (gemma2: local and global layers, softcaps, post-norms) and
-    a VLM smoke model at float32: ``forward``, ``prefill`` (logits and the
-    cache) and two decode steps on the card against the port's CPU path,
-    within 1e-4 x max |CPU|; the cache's positions equal.  The model path
-    launches none of the port's kernels, as the reference's calls none."""
+@pytest.mark.parametrize("arch", ["gemma2_9b", "internvl2_2b",
+                                  "mixtral_8x7b", "deepseek_v2_236b"])
+def test_model_on_card_matches_cpu(arch, monkeypatch):
+    """A dense (gemma2: local and global layers, softcaps, post-norms), a
+    VLM and the two MoE smoke models (mixtral: GQA with a window of 8;
+    deepseek: MLA, absorbed decode, shared experts) at float32:
+    ``forward`` (logits and ``aux``), ``prefill`` (logits and the cache)
+    and two decode steps on the card against the port's CPU path, within
+    1e-4 x max |CPU|; the cache's positions, and every MoE call's expert
+    ids and capacity slots, equal.  The model path launches none of the
+    port's kernels, as the reference's calls none."""
     dev = need_card()
     cfg = configs.get_smoke(arch).scaled(dtype="float32")
     cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -867,12 +871,15 @@ def test_model_on_card_matches_cpu(arch):
     pe = (rng.standard_normal((B, cfg.vision_len, cfg.d_model)).astype(
         np.float32) if cfg.family == "vlm" else None)
     T = S + cfg.vision_len
+    routes, route = [], layers.moe_route
+    monkeypatch.setattr(layers, "moe_route", lambda p, c, xg: routes.append(
+        route(p, c, xg)) or routes[-1])
 
     def run(params, device):
-        full, _ = lm.forward(params, cfg, toks, pe, device=device)
+        full, aux = lm.forward(params, cfg, toks, pe, device=device)
         cache = lm.init_cache(cfg, B, T + 4, device=device)
         pre, cache = lm.prefill(params, cfg, toks, cache, pe, device=device)
-        outs = [full, pre]
+        outs = [full, aux, pre]
         for t in range(2):
             tok = outs[-1][:, -1].argmax(-1).int()[:, None]
             d, cache = lm.decode_step(params, cfg, tok,
@@ -884,9 +891,15 @@ def test_model_on_card_matches_cpu(arch):
     before = sum(_build.launches.values())
     got, got_cache = run(card, dev)
     assert sum(_build.launches.values()) == before
+    n = len(routes)
     want, want_cache = run(cpu, "cpu")
-    for g, w in zip(got + [got_cache["k"], got_cache["v"]],
-                    want + [want_cache["k"], want_cache["v"]]):
+    assert len(routes) == 2 * n == (8 * cfg.n_layers if cfg.n_experts else 0)
+    for a, b in zip(routes[:n], routes[n:]):
+        assert torch.equal(a.ids.cpu(), b.ids)
+        assert torch.equal(a.slots.cpu(), b.slots)
+    assert set(got_cache) == set(want_cache)
+    for g, w in zip(got + [got_cache[k] for k in got_cache if k != "pos"],
+                    want + [want_cache[k] for k in got_cache if k != "pos"]):
         err = float((g.cpu() - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max()), err
     assert torch.equal(got_cache["pos"].cpu(), want_cache["pos"])

@@ -3,7 +3,8 @@
 - ``repro_torch`` and ``chip_smoke.py`` import without ``jax``, ``repro``
   and ``ml_dtypes`` (a subprocess where importing any fails), and the
   planner, the rebalance runtime, the capacity-aware planner, the serve
-  simulator and a smoke model's prefill and decode run there on the CPU;
+  simulator and the dense, VLM and MoE smoke models' prefill and decode
+  run there on the CPU;
 - an entry point with no ``device=`` raises where CUDA is absent instead
   of running on the CPU;
 - no ``except`` clause and no environment read in the port or the smoke
@@ -96,7 +97,8 @@ res3 = runtime.run_stream(stream.drifting_hotspot(6, 24, 24, seed=0),
 assert all(r.executed_bytes == r.migration_volume for r in res3.records[1:])
 from repro_torch import configs
 from repro_torch.models import api
-for arch in ("qwen3_0_6b", "internvl2_2b"):
+for arch in ("qwen3_0_6b", "internvl2_2b", "mixtral_8x7b",
+             "deepseek_v2_236b"):
     cfg = configs.get_smoke(arch)
     model = api.build(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -135,6 +137,8 @@ def _entry_points():
     params = model.init(gen, device="cpu")
     cache = model.init_cache(1, 8, device="cpu")
     toks = np.zeros((1, 4), np.int32)
+    moe_cfg = configs.get_smoke("deepseek_v2_236b")
+    moe_params = models_lm.init_params(gen, moe_cfg, device="cpu")
     return [
         lambda: planner.plan_stream(fr, P=4, m=16),
         lambda: planner.plan_host(fr, P=4, m=16),
@@ -167,10 +171,13 @@ def _entry_points():
         lambda: models_lm.forward(params, cfg, toks),
         lambda: models_lm.params_from_numpy(
             {"embed": np.zeros((256, 64), np.float32)}, cfg),
+        lambda: models_lm.init_params(gen, moe_cfg),
+        lambda: models_lm.init_cache(moe_cfg, 1, 8),
+        lambda: models_lm.forward(moe_params, moe_cfg, toks),
     ]
 
 
-@pytest.mark.parametrize("i", range(26))
+@pytest.mark.parametrize("i", range(29))
 def test_entry_points_raise_without_cuda(i, monkeypatch):
     call = _entry_points()[i]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

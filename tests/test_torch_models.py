@@ -13,10 +13,18 @@ Tolerances:
   The layer functions are held tighter where their arithmetic is the
   reference's own (rope's frequencies, the bf16 activations: bit for bit).
 - bfloat16 (the configs' own dtype): ``BF16`` = 4e-2 x max |reference|.
-  Each op rounds to bf16 as in the reference, but the attention's float32
-  softmax sums in another order and flips the last bf16 bit of a few
-  outputs; over two layers and the head the measured differences reach
-  1.8e-2 x (about five bf16 ulps of the largest logit).
+  Each op rounds to bf16 as in the reference, but the norms' float32 sums
+  (XLA sums in windows of 32) and XLA's rsqrt (not correctly rounded)
+  differ from torch's in the last float32 bit, which flips the bf16
+  rounding of a few activations; over two layers and the head the
+  measured differences reach 1.8e-2 x (about five bf16 ulps of the
+  largest logit).
+- MoE routing (``Routings``): the expert ids and capacity slots of every
+  MoE call equal the reference's, except where a near tie flips (``TIE``:
+  1e-6 relative at float32; at bf16, where the router's inputs differ by
+  those few ulps, 4e-2).  A batch row that holds such a token is left out
+  of the comparisons that follow it: one other expert is another output.
+- ``aux``: 1e-6 x the reference's at float32, ``BF16`` x at bf16.
 """
 import dataclasses
 
@@ -33,76 +41,14 @@ from repro.models import lm as jax_lm
 from repro_torch import configs
 from repro_torch.models import api, layers, lm
 
-CPU = "cpu"
-F32, BF16 = 1e-4, 4e-2
-TOL = {"float32": F32, "bfloat16": BF16}
-#: the dense and VLM configurations this slice ports
+from _torch_models_parity import (BF16, CPU, F32, TIE, TOL, Routings,
+                                  assert_cache, assert_close, both_params,
+                                  host, inputs, jx)
+
+#: the configurations the port runs: dense, VLM and (with MLA) MoE
 PORTED = ["qwen3_0_6b", "granite_3_2b", "gemma2_9b", "stablelm_1_6b",
-          "internvl2_2b"]
-NOT_PORTED = ["mixtral_8x7b", "deepseek_v2_236b", "whisper_large_v3",
-              "hymba_1_5b", "mamba2_1_3b"]
-NORMS = {"ln1", "ln2", "pn1", "pn2", "ln_f", "q_norm", "k_norm"}
-
-
-def host(x) -> np.ndarray:
-    """A tensor or a JAX array (bf16 included) as a float32/int NumPy
-    copy."""
-    if isinstance(x, torch.Tensor):
-        return (x.float() if x.is_floating_point() else x).numpy()
-    x = jnp.asarray(x)
-    return np.array(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
-
-
-def assert_close(port, ref, tol: float, what: str) -> None:
-    a, b = host(port), host(ref)
-    assert a.shape == b.shape, (what, a.shape, b.shape)
-    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
-    assert err <= tol * scale, \
-        f"{what}: max|d| {err:.3g} > {tol} x max|ref| {scale:.3g}"
-
-
-def assert_cache(port, ref, tol: float) -> None:
-    for k in ("k", "v"):
-        assert_close(port["attn"][k], ref["attn"][k], tol, f"cache {k}")
-    np.testing.assert_array_equal(host(port["attn"]["pos"]),
-                                  host(ref["attn"]["pos"]))
-
-
-def ref_params(cfg, seed: int):
-    """The reference's parameters with every norm scale non-zero."""
-    p = jax_lm.init_params(jax.random.PRNGKey(seed), cfg)
-    rng = np.random.default_rng(seed)
-
-    def perturb(path, x):
-        if path[-1].key in NORMS:
-            return jnp.asarray(rng.standard_normal(x.shape) * 0.5, x.dtype)
-        return x
-
-    return jax.tree_util.tree_map_with_path(perturb, p)
-
-
-def both_params(arch: str, dtype: str, seed: int = 1, **kw):
-    """(reference config, params), (port config, params): the same
-    weights, the port's from the reference's tree as NumPy float32."""
-    jcfg = jax_configs.get_smoke(arch).scaled(dtype=dtype, **kw)
-    tcfg = configs.get_smoke(arch).scaled(dtype=dtype, **kw)
-    jp = ref_params(jcfg, seed)
-    tree = jax.tree.map(lambda x: host(x), jp)
-    return (jcfg, jp), (tcfg, lm.params_from_numpy(tree, tcfg, device=CPU))
-
-
-def inputs(cfg, B: int, S: int, seed: int = 0):
-    rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    pe = None
-    if cfg.family == "vlm":
-        pe = rng.standard_normal((B, cfg.vision_len, cfg.d_model)).astype(
-            np.float32)
-    return toks, pe
-
-
-def jx(a):
-    return None if a is None else jnp.asarray(a)
+          "internvl2_2b", "mixtral_8x7b", "deepseek_v2_236b"]
+NOT_PORTED = ["whisper_large_v3", "hymba_1_5b", "mamba2_1_3b"]
 
 
 # ---------------------------------------------------------------------------
@@ -315,40 +261,63 @@ def test_attn_forward_matches(arch, mode):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", PORTED)
-def test_lm_matches_the_reference(arch, dtype):
-    """``forward``, ``prefill`` (last logits and the cache) and a decode
-    step, at float32 and at the config's own bf16."""
+def test_lm_matches_the_reference(arch, dtype, monkeypatch):
+    """``forward`` (logits and ``aux``), ``prefill`` (last logits and the
+    cache) and a decode step, at float32 and at the config's own bf16; on
+    the MoE configs every MoE call's routing too."""
     (jcfg, jp), (tcfg, tp) = both_params(arch, dtype)
+    routes = Routings().install(monkeypatch)
     B, S = 2, 24
     toks, pe = inputs(jcfg, B, S)
     tol = TOL[dtype]
-    ref, _ = jax_lm.forward(jp, jcfg, jnp.asarray(toks), jx(pe))
-    got, aux = lm.forward(tp, tcfg, toks, pe, device=CPU)
-    assert got.dtype == torch.float32 and float(aux) == 0.0
-    assert got.shape[-1] == tcfg.padded_vocab
-    assert_close(got, ref, tol, "forward")
+    flipped = set()
 
+    def rows():
+        """The rows no routing flip has reached yet."""
+        flipped.update(routes.flipped_rows(B, TIE[dtype], flipped))
+        return [b for b in range(B) if b not in flipped]
+
+    ref, raux = jax_lm.forward(jp, jcfg, jnp.asarray(toks), jx(pe))
+    got, aux = lm.forward(tp, tcfg, toks, pe, device=CPU)
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    assert got.shape[-1] == tcfg.padded_vocab
+    if tcfg.n_experts:
+        assert float(aux) > 0
+        assert abs(float(aux) - float(raux)) <= \
+            (1e-6 if dtype == "float32" else BF16) * float(raux)
+    else:
+        assert float(aux) == float(raux) == 0.0
+    assert_close(got, ref, tol, "forward", rows=rows())
+
+    flipped.clear()
     jc = jax_lm.init_cache(jcfg, B, 40)
     tc = lm.init_cache(tcfg, B, 40, device=CPU)
     ref, jc = jax_lm.prefill(jp, jcfg, jnp.asarray(toks[:, :-1]), jc, jx(pe))
     got, tc = lm.prefill(tp, tcfg, toks[:, :-1], tc, pe, device=CPU)
-    assert_close(got, ref, tol, "prefill")
-    assert_cache(tc, jc, tol)
+    keep = rows()
+    assert_close(got, ref, tol, "prefill", rows=keep)
+    assert_cache(tc, jc, tol, rows=keep)
 
     total = S - 1 + (jcfg.vision_len if jcfg.family == "vlm" else 0)
     pos = np.full((B,), total, np.int32)
     ref, jc = jax_lm.decode_step(jp, jcfg, jnp.asarray(toks[:, -1:]),
                                  jnp.asarray(pos), jc)
     got, tc = lm.decode_step(tp, tcfg, toks[:, -1:], pos, tc, device=CPU)
-    assert_close(got, ref, tol, "decode")
-    assert_cache(tc, jc, tol)
+    keep = rows()
+    assert_close(got, ref, tol, "decode", rows=keep)
+    assert_cache(tc, jc, tol, rows=keep)
+    assert routes.checked == (3 * tcfg.n_layers if tcfg.n_experts else 0)
+    if dtype == "float32":
+        assert not flipped
 
 
-def left_padded(cfg, lens, seed: int = 0) -> np.ndarray:
+def left_padded(cfg, lens, seed: int = 0, S: int | None = None
+                ) -> np.ndarray:
     """Prompts of the given lengths left-padded with token 0 to the
-    longest, as ``examples/serve_balanced.py`` lays them out."""
+    longest (or to ``S``), as ``examples/serve_balanced.py`` lays them
+    out."""
     rng = np.random.default_rng(seed)
-    S = max(lens)
+    S = max(lens) if S is None else S
     toks = np.zeros((len(lens), S), np.int32)
     for i, n in enumerate(lens):
         toks[i, S - n:] = rng.integers(0, cfg.vocab_size, n)
@@ -414,6 +383,58 @@ def test_left_padded_batch_matches_the_reference(dtype):
     d_got = host(got[0])[1] - host(g_alone)[0]
     assert np.abs(d_ref).max() > 100 * F32 * np.abs(host(r_alone)).max()
     assert_close(d_got, d_ref, 1e-3, "padded row - row alone")
+
+
+def test_left_padded_moe_batch_matches_the_reference(monkeypatch):
+    """P15: mixtral-smoke's MoE takes B*S tokens only where moe_group (64)
+    exceeds or divides them, so a batch of 4 prompts of up to 19 tokens
+    (76) is refused by both packages and padded to the next length both
+    take, 32 (two dispatch groups); then prefill and greedy decode (g = 4)
+    give the reference's logits and routing at float32."""
+    (jcfg, jp), (tcfg, tp) = both_params("mixtral_8x7b", "float32")
+    lens = [19, 4, 9, 11]
+    with pytest.raises(ValueError, match="moe_group 64 must divide"):
+        lm.prefill(tp, tcfg, left_padded(jcfg, lens),
+                   lm.init_cache(tcfg, 4, 25, device=CPU), device=CPU)
+    with pytest.raises(AssertionError, match="moe_group"):
+        jax_lm.prefill(jp, jcfg, jnp.asarray(left_padded(jcfg, lens)),
+                       jax_lm.init_cache(jcfg, 4, 25))
+    S = layers.moe_padded_len(tcfg, len(lens), max(lens))
+    assert S == 32
+    routes = Routings().install(monkeypatch)
+    toks = left_padded(jcfg, lens, S=S)
+    got, ref = serve_both(jcfg, jp, tcfg, tp, toks, S + 6, 5)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert_close(g, r, F32, f"call {i}")
+    assert not routes.flipped_rows(len(lens), TIE["float32"])
+    assert routes.checked == 6 * tcfg.n_layers
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_seeded_init_keeps_its_draws(arch):
+    """``init_params`` writes each layer's leaves into the stacked tensors
+    as it draws them: the same parameters, bit for bit, as drawing every
+    layer on its own (``init_layer``) in the same order and stacking, for
+    every smoke config and Qwen3-0.6B at full width (cut to 2 layers)."""
+    for cfg in (configs.get_smoke(arch),) + (
+            (configs.get(arch).scaled(n_layers=2),)
+            if arch == "qwen3_0_6b" else ()):
+        got = lm.init_params(torch.Generator().manual_seed(3), cfg,
+                             device=CPU)
+        gen = torch.Generator().manual_seed(3)
+        dt = got["embed"].dtype
+        V, d = cfg.padded_vocab, cfg.d_model
+        want = {"embed": (layers.normal(gen, (V, d), CPU) * 0.02).to(dt)}
+        per_layer = [lm.init_layer(gen, cfg, CPU)
+                     for _ in range(cfg.n_layers)]
+        want["layers"] = jax.tree.map(lambda *x: torch.stack(x), *per_layer)
+        if not cfg.tie_embeddings:
+            want["head"] = (layers.normal(gen, (d, V), CPU) * 0.02).to(dt)
+        flat = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+        for k, w in jax.tree_util.tree_flatten_with_path(want)[0]:
+            assert flat[k].dtype == w.dtype
+            assert torch.equal(flat[k], w), jax.tree_util.keystr(k)
+        assert len(flat) == len(jax.tree_util.tree_leaves(want)) + 1  # ln_f
 
 
 @pytest.mark.parametrize("S", [16, 13])
