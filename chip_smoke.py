@@ -90,7 +90,19 @@ memory; the card against the CPU at float32 (both smoke models;
 Mixtral's ``moe_forward`` and DeepSeek's ``mla_forward``, prefill and
 absorbed decode, at full width), the experts chosen and their capacity
 slots first (a flip only at a near tie, 1e-6 relative); teacher forcing
-at full width on one layer of each; no launch of K1-K5.
+at full width on one layer of each; no launch of K1-K5.  Then the SSM,
+hybrid and encoder-decoder path (``run_ssm_encdec``) with its own launch
+counts: Mamba2-1.3B, Hymba-1.5B and Whisper-large-v3 at full width and
+full depth in bf16 serving the same two groups as ``run_models`` (SSD
+chunks of the largest divisor of S not above ``ssm_chunk``; Whisper on
+seeded stub frames), with times beside their bounds (operations by
+dtype: the SSD scan's float32 contractions over the float32 rate), idle
+shares and peak memory; the card against the CPU at float32 (the three
+smoke models and each model cut to 2 layers at full width: the
+whole-sequence logits, prefill, two decode steps and every cache tensor,
+the SSM's state and conv tail and Whisper's encoder states included);
+teacher forcing on the same cut (prefill on 192 tokens, then 4 decode
+steps against the whole sequence); no launch of K1-K5.
 
 Dtype contract checked here: int32 results are bit-identical between the
 kernels and the plain versions, and to the CPU path; so are float32
@@ -1697,17 +1709,18 @@ def flops(fn) -> int:
 def busy_ms(fn) -> tuple[float, int]:
     """Device time (ms) of one call of ``fn`` by ``torch.profiler``: the sum
     of its kernels' and copies' durations (one stream, so no overlap), and
-    their count."""
+    their count.  Only the device's activity is traced, and its events are
+    read as the profiler recorded them: parsing every host-side op of a
+    call of 10,000-20,000 kernels into a tree took seconds a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in ev) / 1e3,
-            sum(e.count for e in ev))
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    return sum(e.duration_ns() for e in ev) / 1e6, len(ev)
 
 
 def _tree_to(tree, dev):
@@ -1843,9 +1856,10 @@ def teacher_forcing(cuda, cfg, params, toks) -> torch.Tensor:
 
 def serve_group(cuda, model, params, group, rng, card: str) -> None:
     """One replica's requests, left-padded with token 0 to the longest (the
-    pads are attended, as in the reference), prefilled and decoded
-    greedily for ``DECODE_STEPS`` steps; logs times beside their bounds."""
-    from repro_torch.models import layers, lm
+    pads are attended, as in the reference; an SSM scans them), prefilled
+    and decoded greedily for ``DECODE_STEPS`` steps; logs times beside their
+    bounds.  An encoder-decoder gets seeded stub frames."""
+    from repro_torch.models import layers, lm, ssm
     cfg = model.cfg
     prompts = [rng.integers(0, cfg.vocab_size, r.prompt_tokens)
                for r in group.requests]
@@ -1855,17 +1869,27 @@ def serve_group(cuda, model, params, group, rng, card: str) -> None:
     for i, q in enumerate(prompts):
         toks[i, S - len(q):] = q
     toks = torch.from_numpy(toks).to(cuda)
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (B, cfg.encoder_len, cfg.d_model), device=cuda,
+            generator=torch.Generator(cuda).manual_seed(SEED))
     ctx = S + DECODE_STEPS
     tag = f"replica {group.replica}'s group"
     groups = (f" (P15: B*S = {B * S} tokens, {max(1, B * S // cfg.moe_group)}"
               f" dispatch group(s) of {min(B * S, cfg.moe_group)})"
               if cfg.n_experts else "")
+    if cfg.uses_ssm:
+        groups += (f", SSD chunks of {ssm.chunk_size(cfg, S)} (the largest "
+                   f"divisor of S not above {cfg.ssm_chunk})")
+    if cfg.family == "encdec":
+        groups += f", stub frames ({B}, {cfg.encoder_len}, {cfg.d_model})"
     log("models", f"{cfg.name} {cfg.dtype} serving {tag}: B={B}, prompt "
         f"lengths {[len(q) for q in prompts]}, left-padded with token 0 to "
         f"S={S}{groups}, cache {ctx}")
 
     def prefill(cache):
-        return model.prefill(params, {"tokens": toks}, cache, device=cuda)
+        return model.prefill(params, batch, cache, device=cuda)
 
     prefill(model.init_cache(B, ctx, device=cuda))      # warm-up, untimed
     pre_ms = []
@@ -1890,16 +1914,68 @@ def serve_group(cuda, model, params, group, rng, card: str) -> None:
     check(bool(torch.isfinite(logits).all()), f"{tag}: non-finite logits")
     check(logits.shape == (B, 1, cfg.padded_vocab), f"{tag}: logits of "
           f"shape {tuple(logits.shape)}")
-    pos_ok = cache["attn"]["pos"][:, :, :ctx].cpu()
-    check(torch.equal(pos_ok, torch.arange(ctx, dtype=torch.int32)
-                      .expand_as(pos_ok)),
-          f"{tag}: the cache does not hold positions 0..{ctx - 1}")
+    attn = cache.get("attn", cache.get("self"))
+    if attn is not None:
+        # slot j of a ring of Sc slots holds the last position p < ctx with
+        # p % Sc == j; without a ring (Sc >= ctx) that is j itself
+        Sc = attn["pos"].shape[2]
+        j = torch.arange(min(Sc, ctx), dtype=torch.int32)
+        pos_ok = attn["pos"][:, :, :ctx].cpu()
+        check(torch.equal(pos_ok, (j + Sc * ((ctx - 1 - j) // Sc))
+                          .expand_as(pos_ok)),
+              f"{tag}: the cache does not hold positions 0..{ctx - 1}")
+    if "ssm" in cache:
+        state = cache["ssm"]["state"]
+        check(bool(torch.isfinite(state).all()) and
+              float(state.abs().max()) > 0,
+              f"{tag}: the SSM state is not finite and non-zero")
 
     # bounds: the larger of the operations over the bf16 tensor cores' peak
     # and the bytes over the memory rate (every weight read once, an untied
     # embedding's rows only; for decode also the valid cache entries, the
     # mean step's)
     kv_len = S + (DECODE_STEPS + 1) / 2
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        pre_bound, pre_desc, dec_bound, dec_desc = recurrent_bounds(
+            model, params, cache, B, S, kv_len,
+            lambda: prefill(model.init_cache(B, ctx, device=cuda)),
+            lambda: model.decode(params, tok, pos, cache, device=cuda))
+    else:
+        pre_bound, pre_desc, dec_bound, dec_desc = attention_bounds(
+            model, params, cache, B, S, kv_len,
+            lambda: prefill(model.init_cache(B, ctx, device=cuda)),
+            lambda: model.decode(params, tok, pos, cache, device=cuda))
+    dec_med = statistics.median(step_ms)
+    tps = B * DECODE_STEPS / (sum(step_ms) / 1e3)
+    log("models", f"{tag} on {card}: prefill {statistics.median(pre_ms):.2f} "
+        f"ms (median of 3: {', '.join(f'{x:.2f}' for x in pre_ms)}), bound "
+        f"{pre_bound[0]:.4f} ms by {pre_bound[1]} ({pre_desc}); "
+        f"decode {dec_med:.2f} ms a step (median of {DECODE_STEPS}; min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), bound "
+        f"{dec_bound[0]:.4f} ms by {dec_bound[1]} ({dec_desc}); {tps:.1f} "
+        f"decoded tokens/s ({B} x {DECODE_STEPS} tokens); first row's "
+        f"tokens {torch.cat(out, 1)[0, :8].tolist()}")
+    fresh = model.init_cache(B, ctx, device=cuda)
+    for what, fn, wall in (("prefill", lambda: prefill(fresh),
+                            statistics.median(pre_ms)),
+                           ("decode step", lambda: model.decode(
+                               params, tok, pos, cache, device=cuda),
+                            dec_med)):
+        busy, n = busy_ms(fn)
+        log("models", f"{tag}, {what} on {card}: the card is busy "
+            f"{busy:.2f} ms of {wall:.2f} (torch.profiler; idle share "
+            f"{1 - busy / wall:.3f}) in {n} kernels and copies")
+
+
+def attention_bounds(model, params, cache, B: int, S: int, kv_len: float,
+                     prefill, decode):
+    """The prefill and decode bounds of a dense, VLM or MoE model (each the
+    larger of its operations over the bf16 tensor cores' peak and its bytes
+    over the memory rate) and how each was reckoned: every weight read
+    once, an untied embedding's rows only; for decode also the valid cache
+    entries, the mean step's (``kv_len`` of them)."""
+    from repro_torch.models import lm
+    cfg = model.cfg
     wbytes = sum(t.numel() * t.element_size() for t in lm.leaves(params))
     if not cfg.tie_embeddings:
         wbytes -= (cfg.padded_vocab - B * S) * cfg.d_model * \
@@ -1911,10 +1987,8 @@ def serve_group(cuda, model, params, group, rng, card: str) -> None:
         # the matmuls as they run (FlopCounterMode): the one-hot dispatch
         # computes every expert's moe_capacity slots, and MLA's and the
         # chunked attention's shapes are not a closed form
-        pre_ops = flops(lambda: prefill(model.init_cache(B, ctx,
-                                                         device=cuda)))
-        dec_ops = flops(lambda: model.decode(params, tok, pos, cache,
-                                             device=cuda))
+        pre_ops = flops(prefill)
+        dec_ops = flops(decode)
     else:
         mats = sum(t.numel() for t in lm.leaves(params["layers"])
                    if t.dim() > 2)
@@ -1925,8 +1999,6 @@ def serve_group(cuda, model, params, group, rng, card: str) -> None:
         dec_ops = 2 * B * mats + head + attn * kv_len
     pre_bound = bound(wbytes, pre_ops, BF16_TC_OPS_PER_S)
     dec_bound = bound(wbytes + kv_bytes, dec_ops, BF16_TC_OPS_PER_S)
-    dec_med = statistics.median(step_ms)
-    tps = B * DECODE_STEPS / (sum(step_ms) / 1e3)
 
     def both(ops, nbytes):
         return (f"{ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms for {ops:.0f} "
@@ -1934,25 +2006,90 @@ def serve_group(cuda, model, params, group, rng, card: str) -> None:
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms for {nbytes:.0f} "
                 f"bytes over 3.35 TB/s")
 
-    log("models", f"{tag} on {card}: prefill {statistics.median(pre_ms):.2f} "
-        f"ms (median of 3: {', '.join(f'{x:.2f}' for x in pre_ms)}), bound "
-        f"{pre_bound[0]:.4f} ms by {pre_bound[1]} ({both(pre_ops, wbytes)}); "
-        f"decode {dec_med:.2f} ms a step (median of {DECODE_STEPS}; min "
-        f"{min(step_ms):.2f}, max {max(step_ms):.2f}), bound "
-        f"{dec_bound[0]:.4f} ms by {dec_bound[1]} ("
-        f"{both(dec_ops, wbytes + kv_bytes)}: the weights and {kv_bytes:.0f} "
-        f"cache bytes); {tps:.1f} decoded tokens/s ({B} x {DECODE_STEPS} "
-        f"tokens); first row's tokens {torch.cat(out, 1)[0, :8].tolist()}")
-    fresh = model.init_cache(B, ctx, device=cuda)
-    for what, fn, wall in (("prefill", lambda: prefill(fresh),
-                            statistics.median(pre_ms)),
-                           ("decode step", lambda: model.decode(
-                               params, tok, pos, cache, device=cuda),
-                            dec_med)):
-        busy, n = busy_ms(fn)
-        log("models", f"{tag}, {what} on {card}: the card is busy "
-            f"{busy:.2f} ms of {wall:.2f} (torch.profiler; idle share "
-            f"{1 - busy / wall:.3f}) in {n} kernels and copies")
+    return (pre_bound, both(pre_ops, wbytes), dec_bound,
+            f"{both(dec_ops, wbytes + kv_bytes)}: the weights and "
+            f"{kv_bytes:.0f} cache bytes")
+
+
+def flops_by_dtype(fn) -> dict:
+    """The operations of one call of ``fn`` by the dtype of each counted
+    op's first operand: ``FlopCounterMode``'s count of each op (its
+    matmuls' multiply-adds x 2), read in a dispatch mode of our own."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+    counts: dict = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            packet = func._overloadpacket
+            if packet in flop_registry:
+                dt = args[0].dtype
+                counts[dt] = counts.get(dt, 0) + flop_registry[packet](
+                    *args, **kwargs, out_val=out)
+            return out
+
+    with Count():
+        fn()
+    return counts
+
+
+def recurrent_bounds(model, params, cache, B: int, S: int, kv_len: float,
+                     prefill, decode):
+    """The prefill and decode bounds of an SSM, hybrid or encoder-decoder
+    model and how each was reckoned.  Operations: what the call's matmuls
+    do (``flops_by_dtype``), bf16 ones over the tensor cores' 989 TFLOP/s
+    and float32 ones (the SSD scan's contractions, full float32) over 67
+    TFLOP/s.  Bytes: the weights a call reads (an untied embedding's and
+    the learned decoder positions' rows only; decode reads no encoder
+    weight), the stub frames, and the cache: attention entries written by
+    prefill, the mean decode step's valid entries read and its own
+    written, the SSM state and conv tail read and written by every call,
+    the encoder states written by prefill and read by every decode step."""
+    from repro_torch.models import lm
+    cfg = model.cfg
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in lm.leaves(tree))
+
+    row = cfg.d_model * params["embed"].element_size()
+    w_pre = w_dec = nbytes(params)
+    if not cfg.tie_embeddings:
+        w_pre -= (cfg.padded_vocab - B * S) * row
+        w_dec -= (cfg.padded_vocab - B) * row
+    extra_pre = extra_dec = 0
+    if cfg.family == "encdec":
+        rows = params["dec_pos"].shape[0]
+        w_pre -= (rows - S) * row
+        w_dec -= (nbytes(params["enc_layers"]) + nbytes(params["enc_pos"])
+                  + nbytes(params["enc_ln"]) + (rows - B) * row)
+        extra_pre = B * cfg.encoder_len * cfg.d_model * 4 + nbytes(
+            cache["enc"])                      # the frames, enc written
+        extra_dec = nbytes(cache["enc"])
+    attn = cache.get("attn", cache.get("self"))
+    if attn is not None:
+        per_token = cfg.n_layers * sum(
+            t[0, 0, 0].numel() * t.element_size()
+            for k, t in attn.items() if k != "pos")
+        extra_pre += B * S * per_token
+        extra_dec += B * (kv_len + 1) * per_token
+    if "ssm" in cache:
+        extra_pre += 2 * nbytes(cache["ssm"])
+        extra_dec += 2 * nbytes(cache["ssm"])
+    out = []
+    for fn, nb in ((prefill, w_pre + extra_pre), (decode, w_dec + extra_dec)):
+        ops = flops_by_dtype(fn)
+        o16 = ops.pop(torch.bfloat16, 0)
+        o32 = sum(ops.values())
+        t_ops = (o16 / BF16_TC_OPS_PER_S + o32 / FP32_OPS_PER_S) * 1e3
+        t_bytes = nb / HBM_BYTES_PER_S * 1e3
+        out.append(((t_bytes, "bytes") if t_bytes >= t_ops
+                    else (t_ops, "operations")))
+        out.append(f"{t_ops:.4f} ms for {o16:.0f} bf16 operations over 989 "
+                   f"TFLOP/s and {o32:.0f} float32 over 67 TFLOP/s, "
+                   f"{t_bytes:.4f} ms for {nb:.0f} bytes over 3.35 TB/s")
+    return tuple(out)
 
 
 def run_models(cuda: torch.device) -> None:
@@ -2211,6 +2348,186 @@ def run_moe(cuda: torch.device) -> None:
         f"(src/repro/models/layers.py:370-387, :474-478), no Pallas kernel, "
         f"and so does the port; phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# The SSM, hybrid and encoder-decoder phase (``run_ssm_encdec``): the same
+# requests and plan as ``run_models``, each model whole in bf16
+SSM_ARCHS = ("mamba2_1_3b", "hymba_1_5b", "whisper_large_v3")
+CUT = 2            # layers (whisper: of each stack) of the float32 full-width runs
+CUT_S = 64         # card vs CPU at full width: a prompt of 64 tokens
+SSM_TF_S = 192     # teacher forcing: a prompt of 192 tokens (two SSD chunks of
+SSM_TF_STEPS = 4   # 96), then this many decode steps against the whole sequence
+
+
+def _flat(tree, path: str = "") -> dict:
+    """A cache tree's tensors by path (``attn.k``, ``ssm.state``, ``enc``)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{path}{key}.").items()}
+    return {path[:-1]: tree}
+
+
+def score_and_serve(model, params, toks, extra, dev, steps: int,
+                    fed=None) -> tuple[dict, dict, list]:
+    """The whole-sequence logits (``forward``; ``decode_train`` for the
+    encoder-decoder, whose ``extra`` are the frames), then ``prefill`` and
+    ``steps`` greedy decode steps, each feeding the token ``fed[t]`` when
+    given.  Returns the logits by call, the cache's tensors by path and the
+    tokens fed."""
+    from repro_torch.models import encdec, lm
+    cfg = model.cfg
+    B, S = toks.shape
+    if cfg.family == "encdec":
+        full = encdec.decode_train(params, cfg, extra, toks, device=dev)
+        batch = {"tokens": toks, "frames": extra}
+    else:
+        full = lm.forward(params, cfg, toks, device=dev)[0]
+        batch = {"tokens": toks}
+    logits, cache = model.prefill(params, batch,
+                                  model.init_cache(B, S + steps, device=dev),
+                                  device=dev)
+    out, fed = {"forward": full, "prefill": logits}, list(fed or [])
+    for t in range(steps):
+        if len(fed) == t:
+            fed.append(logits[:, -1].argmax(-1).int()[:, None].cpu())
+        logits, cache = model.decode(params, fed[t], torch.full((B,), S + t),
+                                     cache, device=dev)
+        out[f"decode {t}"] = logits
+    return out, _flat(cache), fed
+
+
+def card_vs_cpu_all(cuda, model, params, toks, extra) -> str:
+    """The model on the card and on the CPU at float32 (``score_and_serve``
+    with two decode steps, the CPU fed the card's tokens): every output and
+    every cache tensor (attention entries, the SSM's state and conv tail,
+    the encoder states) within ``MODEL_TOL`` x max |CPU|, the cache
+    positions equal.  Returns the errors."""
+    got, gcache, fed = score_and_serve(model, params, toks, extra, cuda, 2)
+    want, wcache, _ = score_and_serve(model, _tree_to(params, "cpu"), toks,
+                                      extra, "cpu", 2, fed)
+    for k in [k for k in gcache if k.endswith("pos")]:
+        check(torch.equal(gcache.pop(k).cpu(), wcache.pop(k)),
+              f"{model.cfg.name}: cache {k} differs between card and CPU")
+    errs = {k: _rel_err(got[k], want[k]) for k in got}
+    errs.update({f"cache {k}": _rel_err(gcache[k], wcache[k])
+                 for k in gcache})
+    bad = {k: e for k, e in errs.items() if e[0] > MODEL_TOL}
+    check(not bad, f"{model.cfg.name}: card vs CPU {bad} (limit {MODEL_TOL} "
+          f"x max|CPU|)")
+    return ", ".join(f"{k} {e[0]:.3g} ({e[1]:.3g})" for k, e in errs.items())
+
+
+def teacher_forcing_steps(cuda, model, params, toks, extra) -> None:
+    """Prefill on all but the last ``SSM_TF_STEPS`` tokens, then decode
+    those one by one: each call's logits against the whole sequence's at
+    the same position, within ``MODEL_TOL`` x max."""
+    from repro_torch.models import ssm
+    cfg = model.cfg
+    S = toks.shape[1] - SSM_TF_STEPS
+    out, _, _ = score_and_serve(model, params, toks[:, :S], extra, cuda,
+                                SSM_TF_STEPS,
+                                fed=[toks[:, S + t:S + t + 1]
+                                     for t in range(SSM_TF_STEPS)])
+    full, _, _ = score_and_serve(model, params, toks, extra, cuda, 0)
+    full = full["forward"]
+    errs = [_rel_err(out["prefill"][:, 0], full[:, S - 1])] + [
+        _rel_err(out[f"decode {t}"][:, 0], full[:, S + t])
+        for t in range(SSM_TF_STEPS)]
+    worst = max(e[0] for e in errs)
+    check(worst <= MODEL_TOL, f"{cfg.name}: decode vs the whole sequence "
+          f"{worst:.3g} x max (limit {MODEL_TOL})")
+    what = {"ssm": "the recurrent step against the chunked scan (chunks of "
+                   f"{ssm.chunk_size(cfg, S)} in prefill, "
+                   f"{ssm.chunk_size(cfg, S + SSM_TF_STEPS)} whole)",
+            "hybrid": "the attention cache and the recurrent step "
+                      "against the chunked scan",
+            "encdec": "the self-attention cache and the cross-attention "
+                      "recomputed from cache['enc']"}[cfg.family]
+    log("ssm", f"{cfg.name} ({CUT} layers, float32) teacher forcing: "
+        f"prefill on {S} tokens and {SSM_TF_STEPS} decode steps vs the "
+        f"whole sequence's logits at the same positions ({what}): max|d| / "
+        f"max per call {', '.join(f'{e[0]:.3g}' for e in errs)} (limit "
+        f"{MODEL_TOL})")
+
+
+def run_ssm_encdec(cuda: torch.device) -> None:
+    """The SSM, hybrid and encoder-decoder model path (``models.api``), with
+    its own launch counts: Mamba2-1.3B, Hymba-1.5B and Whisper-large-v3 at
+    full width and full depth in bf16, each serving replica 0's group and
+    the plan's largest (as ``run_models``); card vs CPU at float32 (the
+    three smoke configs, and each model cut to 2 layers at full width:
+    the whole-sequence logits, prefill with its cache, two decode steps);
+    teacher forcing on the same cut (the SSM's recurrent step against its
+    chunked scan, whisper's self-cache and recomputed cross-attention)."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import api
+    from repro_torch.serve import batcher
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    _build.launches.clear()
+
+    # -- serving ----------------------------------------------------------
+    rng = np.random.default_rng(SEED)
+    lens = np.minimum((rng.pareto(1.5, N_REQUESTS) * 24 + 8).astype(int), 192)
+    plan = batcher.plan([batcher.Request(i, int(n)) for i, n in
+                         enumerate(lens)], N_REPLICAS, algo="optimal")
+    largest = max(plan, key=lambda a: len(a.requests))
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    for arch in SSM_ARCHS:
+        cfg = configs.get(arch)
+        model = api.build(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(cuda).manual_seed(SEED),
+                            device=cuda)
+        init_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        n = api.count_params(cfg)
+        log("ssm", f"{cfg.name}: all {cfg.n_layers} layers"
+            f"{f' and {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}"
+            f" at full width, {n} parameters, {2 * n} bf16 bytes")
+        for group in (plan[0], largest):
+            serve_group(cuda, model, params, group, rng, card)
+        log("ssm", f"{cfg.name} peak memory (torch.cuda.max_memory_"
+            f"allocated, above the {base} bytes earlier phases hold) on "
+            f"{card}: serving both groups "
+            f"{torch.cuda.max_memory_allocated() - base} bytes, the bf16 "
+            f"weights ({2 * n} bytes) included; the seeded init {init_peak} "
+            f"bytes (the weights and one float32 draw)")
+        del params
+
+    # -- card vs CPU and teacher forcing, float32 --------------------------
+    for arch in SSM_ARCHS:
+        smoke = configs.get_smoke(arch).scaled(dtype="float32")
+        cut = configs.get(arch).scaled(
+            n_layers=CUT, dtype="float32",
+            encoder_layers=CUT if smoke.encoder_layers else 0)
+        for cfg, B, S in ((smoke, 2, 21), (cut, 1, CUT_S)):
+            model = api.build(cfg)
+            params = model.init(torch.Generator(cuda).manual_seed(SEED),
+                                device=cuda)
+            toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+            extra = (rng.standard_normal((B, cfg.encoder_len, cfg.d_model))
+                     .astype(np.float32) if cfg.family == "encdec" else None)
+            log("ssm", f"{cfg.name} ({cfg.n_layers} layers) B={B} S={S}: "
+                f"card vs CPU float32, max|d| / max|CPU| (max|d|) "
+                f"{card_vs_cpu_all(cuda, model, params, toks, extra)} (limit "
+                f"{MODEL_TOL} x max|CPU|); cache pos equal")
+        toks = rng.integers(0, cut.vocab_size, (1, SSM_TF_S + SSM_TF_STEPS)
+                            ).astype(np.int32)
+        teacher_forcing_steps(cuda, model, params, toks,
+                              None if extra is None else extra[:1])
+        del params
+
+    launched = {k: v for k, v in _build.launches.items() if v}
+    check(not launched, f"the SSM and encdec path launched kernels: "
+          f"{launched}")
+    log("ssm", f"kernel launches on the SSM, hybrid and encoder-decoder "
+        f"path: 0 of K1-K5 ({dict(_build.launches)}): the reference's "
+        f"ssm.py and encdec.py use plain einsums and the plain "
+        f"chunked_attention, no Pallas kernel, and so does the port; phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2587,6 +2904,7 @@ def main() -> int:
     kernels.extend(run_flash(cuda))
     run_models(cuda)
     run_moe(cuda)
+    run_ssm_encdec(cuda)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,17 +8,17 @@ functions.
   decode(params, tokens, pos, cache, device=None) -> (logits, cache)
   init_cache(batch_size, ctx, device=None) -> cache
 
-The port's counterpart of ``repro.models.api`` for the decoder-only
-dense, VLM and MoE families (GQA or MLA attention); ``build`` raises
-``NotImplementedError`` for the SSM, hybrid and encoder-decoder ones.
-``device=None`` means the card (see ``lm``).
+The port's counterpart of ``repro.models.api`` for every family: the
+decoder-only dense, VLM, MoE, SSM and hybrid ones (``lm``) and the
+encoder-decoder (``encdec``, whose batches carry ``frames`` and
+``tokens``).  ``device=None`` means the card (see ``lm``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from . import lm
+from . import encdec, lm
 from .config import ModelConfig
 
 
@@ -32,13 +32,26 @@ class Model:
     init_cache: Callable
 
 
-def build(cfg: ModelConfig) -> Model:
-    lm.require_ported(cfg)
+def _loss(p, b):
+    raise NotImplementedError("training (loss_fn, chunked_ce) is not ported "
+                              "yet: ROADMAP.md queue 1, item 2 (training, "
+                              "data and launch)")
 
-    def _loss(p, b):
-        raise NotImplementedError("training (loss_fn, chunked_ce) is not "
-                                  "ported yet: ROADMAP.md queue 1, item 2 "
-                                  "(training, data and launch)")
+
+def build(cfg: ModelConfig) -> Model:
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, device=None: encdec.init_params(
+                generator, cfg, device),
+            loss=_loss,
+            prefill=lambda p, b, c, device=None: encdec.prefill(
+                p, cfg, b["frames"], b["tokens"], c, device),
+            decode=lambda p, t, pos, c, device=None: encdec.decode_step(
+                p, cfg, t, pos, c, device),
+            init_cache=lambda bsz, ctx, device=None: encdec.init_cache(
+                cfg, bsz, ctx, device),
+        )
 
     def _prefill(p, b, c, device=None):
         return lm.prefill(p, cfg, b["tokens"], c,
@@ -60,5 +73,5 @@ def build(cfg: ModelConfig) -> Model:
 def count_params(cfg: ModelConfig) -> int:
     """Parameters of ``cfg``, from the shapes of its tree on the ``meta``
     device: nothing is allocated."""
-    return sum(t.numel()
-               for t in lm.leaves(lm.init_params(None, cfg, device="meta")))
+    init = encdec.init_params if cfg.family == "encdec" else lm.init_params
+    return sum(t.numel() for t in lm.leaves(init(None, cfg, device="meta")))

@@ -81,8 +81,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 _F32 = functools.partial(torch.tensor, dtype=torch.float32)
 # XLA's float32 exp on the CPU: Cephes' range reduction and polynomial,
-# every multiply-add fused
-_EXP_CLAMP = 88.723
+# every multiply-add fused; the input clamped to [-87.8, 88.8] and the
+# exponent n to [-127, 127], so that exp(x) for x in [88.376, 88.723) is
+# the polynomial at a reduced argument up to 0.77 times 2**127, and
+# results below 2**-126 are flushed to zero
+_EXP_LO, _EXP_HI = -87.8, 88.8
 _LOG2E, _HALF = _F32(1.44269504088896341), _F32(0.5)
 _EXP_C1, _EXP_C2 = _F32(-0.693359375), _F32(2.12194440e-4)
 _EXP_P = [_F32(c) for c in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
@@ -91,16 +94,18 @@ _EXP_P = [_F32(c) for c in (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
 
 def xla_exp(x: torch.Tensor) -> torch.Tensor:
     """``exp`` of a float32 tensor, bit for bit as XLA computes it on the
-    CPU (P13): the reference's rotary frequencies come from it, and one
-    ulp of a frequency moves the angle at position 2**16 by 4e-3."""
-    x = x.clamp(-_EXP_CLAMP, _EXP_CLAMP)
-    fx = torch.floor(_fma_f32(x, _LOG2E, _HALF))
+    CPU (P13, P17) over the whole float32 range: -inf and every result
+    below 2**-126 give 0, +inf gives inf, NaN stays NaN.  The reference's
+    rotary frequencies come from it, and one ulp of a frequency moves the
+    angle at position 2**16 by 4e-3."""
+    x = x.clamp(_EXP_LO, _EXP_HI)
+    fx = torch.floor(_fma_f32(x, _LOG2E, _HALF)).clamp(-127, 127)
     r = _fma_f32(fx, _EXP_C2, _fma_f32(fx, _EXP_C1, x))
     y = _fma_f32(r, _EXP_P[0], _EXP_P[1])
     for c in _EXP_P[2:]:
         y = _fma_f32(y, r, c)
-    y = 1.0 + _fma_f32(y, r * r, r)
-    return torch.ldexp(y, fx)
+    y = torch.ldexp(1.0 + _fma_f32(y, r * r, r), fx)
+    return torch.where(y < 2.0 ** -126, 0.0, y)
 
 
 @functools.lru_cache(maxsize=16)

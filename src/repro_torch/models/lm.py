@@ -1,11 +1,11 @@
-"""Decoder-only language model: the dense, VLM and MoE families, with
-GQA or MLA attention.
+"""Decoder-only language model: the dense, VLM, MoE, SSM and hybrid
+families, with GQA or MLA attention, Mamba2 SSD layers or both.
 
 Counterpart of ``repro.models.lm`` without training (``chunked_ce``,
-``loss_fn``) and without SSM layers.  The parameter tree is the
-reference's: per-layer leaves stacked on a leading L axis, which the
-layer loop indexes (the reference scans over it).  The decode cache is
-stacked the same way and written in place.
+``loss_fn``).  The parameter tree is the reference's: per-layer leaves
+stacked on a leading L axis, which the layer loop indexes (the reference
+scans over it).  The decode cache is stacked the same way and written in
+place.
 
 Serving semantics are the reference's, pads included: a left-padded
 prompt is a sequence like any other, its pad tokens at positions
@@ -27,26 +27,10 @@ import torch
 from repro_torch.rebalance.planner import resolve_device
 
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
 
 Params = dict
-
-#: what each unported part of ``lm.py`` waits for, by ``ROADMAP.md`` item
-_NOT_PORTED = {
-    "ssm": "SSM and hybrid layers are not ported yet: ROADMAP.md queue 1, "
-           "item 1c (SSM and hybrid)",
-    "encdec": "the encoder-decoder model (encdec) is not ported yet: "
-              "ROADMAP.md queue 1, item 1d (encdec)",
-}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet: SSM or hybrid layers, or the encoder-decoder."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(_NOT_PORTED["encdec"])
-    if cfg.uses_ssm or not cfg.uses_attention:
-        raise NotImplementedError(_NOT_PORTED["ssm"])
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -81,15 +65,17 @@ def _stacked(tree, n: int, device):
 
 def init_layer(generator, cfg: ModelConfig, device, out=None) -> Params:
     """One layer's weights drawn from ``generator`` (attention, then the
-    MLP or the experts), written into ``out`` (a tree of its leaves'
-    shapes) when given."""
-    require_ported(cfg)
+    SSD block, then the MLP or the experts, each where the model has it),
+    written into ``out`` (a tree of its leaves' shapes) when given."""
     dt = _dtype(cfg)
     o = functools.partial(L.subtree, out)
     d = cfg.d_model
-    init_attn = L.init_mla if cfg.attn_kind == "mla" else L.init_attn
-    p: Params = {"ln1": L.zeros((d,), dt, device, o("ln1")),
-                 "attn": init_attn(generator, cfg, dt, device, out=o("attn"))}
+    p: Params = {"ln1": L.zeros((d,), dt, device, o("ln1"))}
+    if cfg.uses_attention:
+        init_attn = L.init_mla if cfg.attn_kind == "mla" else L.init_attn
+        p["attn"] = init_attn(generator, cfg, dt, device, out=o("attn"))
+    if cfg.uses_ssm:
+        p["ssm"] = S.init_ssm(generator, cfg, dt, device, out=o("ssm"))
     if cfg.d_ff > 0:
         p["ln2"] = L.zeros((d,), dt, device, o("ln2"))
         init_ffn = L.init_moe if cfg.n_experts > 0 else L.init_mlp
@@ -109,7 +95,6 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
     so the peak is the weights plus one float32 draw.  On the ``meta``
     device the generator may be None: shapes only."""
     dev = resolve_device(device)
-    require_ported(cfg)
     dt = _dtype(cfg)
     V = cfg.padded_vocab
     layers = _stacked(init_layer(None, cfg, "meta"), cfg.n_layers, dev)
@@ -128,14 +113,19 @@ def init_params(generator: torch.Generator | None, cfg: ModelConfig,
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Params:
-    """The reference's parameter tree (nested dicts of NumPy arrays, the
-    ``layers`` leaves stacked on a leading L axis) as the port's, in
-    ``cfg.dtype`` on ``device``.  bfloat16 leaves come as float32 arrays
-    (bf16 -> float32 -> bf16 is lossless), so no bfloat16 NumPy type is
-    needed.  Raises ``ValueError`` where the tree's keys or shapes are not
-    those of ``cfg``."""
+    """The reference's parameter tree of any family (nested dicts of NumPy
+    arrays, the per-layer leaves stacked on a leading L axis; the
+    encoder-decoder's as ``encdec.init_params`` lays it out) as the
+    port's, each leaf in its dtype in the port's tree (``cfg.dtype``; the
+    SSM's ``A_log``, ``D``, ``dt_bias`` and the MoE router float32) on
+    ``device``.  bfloat16 leaves come as float32 arrays (bf16 -> float32
+    -> bf16 is lossless), so no bfloat16 NumPy type is needed.  Raises
+    ``ValueError`` where the tree's keys or shapes are not those of
+    ``cfg``."""
+    from . import encdec        # encdec builds on this module
     dev = resolve_device(device)
-    spec = init_params(None, cfg, device="meta")
+    init = encdec.init_params if cfg.family == "encdec" else init_params
+    spec = init(None, cfg, device="meta")
 
     def conv(s, a, path):
         if isinstance(s, dict):
@@ -172,20 +162,29 @@ def layer_forward(p: Params, cfg: ModelConfig, x, positions, layer_idx: int,
                   cache=None):
     """Returns (x, new_cache, aux): ``aux`` is the MoE balancing loss (a
     float32 tensor), 0.0 for a layer without experts.  MLA attends in its
-    latent space (absorbed) exactly when there is a cache and S == 1."""
-    require_ported(cfg)
+    latent space (absorbed) exactly when there is a cache and S == 1.  A
+    hybrid layer mixes its attention and SSD outputs as ``(attn + ssm) *
+    0.5`` in the activation dtype."""
     aux = 0.0
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    window = _window_for_layer(cfg, layer_idx)
-    acache = None if cache is None else cache["attn"]
-    if cfg.attn_kind == "mla":
-        mix, nc = L.mla_forward(p["attn"], cfg, h, positions, window=window,
-                                cache=acache,
-                                absorb=acache is not None and h.shape[1] == 1)
-    else:
-        mix, nc = L.attn_forward(p["attn"], cfg, h, positions, window=window,
-                                 cache=acache)
-    new_cache = {} if nc is None else {"attn": nc}
+    mix = None
+    new_cache = {}
+    if cfg.uses_attention:
+        window = _window_for_layer(cfg, layer_idx)
+        acache = None if cache is None else cache["attn"]
+        if cfg.attn_kind == "mla":
+            mix, nc = L.mla_forward(
+                p["attn"], cfg, h, positions, window=window, cache=acache,
+                absorb=acache is not None and h.shape[1] == 1)
+        else:
+            mix, nc = L.attn_forward(p["attn"], cfg, h, positions,
+                                     window=window, cache=acache)
+        if nc is not None:
+            new_cache["attn"] = nc
+    if cfg.uses_ssm:
+        s, new_cache["ssm"] = S.ssm_forward(
+            p["ssm"], cfg, h, cache=None if cache is None else cache["ssm"])
+        mix = s if mix is None else (mix + s) * 0.5
     if cfg.post_norms:
         mix = L.rmsnorm(mix, p["pn1"], cfg.norm_eps)
     x = x + mix
@@ -273,25 +272,37 @@ def forward(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None) -> dict:
-    """Per-layer cache stacked on a leading L axis; a window-bounded model
-    keeps min(ctx, window) slots (a ring), any other ctx.  GQA keeps k and
-    v per KV head; MLA keeps the latent ``c`` and the shared rope key
-    ``kr``."""
+    """Per-layer cache stacked on a leading L axis.  Attention (where the
+    model has it): a window-bounded model keeps min(ctx, window) slots (a
+    ring), any other ctx; GQA keeps k and v per KV head, MLA the latent
+    ``c`` and the shared rope key ``kr``.  SSD layers (where the model has
+    them): the float32 ``state`` (B, H, d_inner // H, N) and the conv's
+    ``conv`` tail (B, K-1, d_inner + 2N), whatever ``ctx`` is."""
     dev = resolve_device(device)
-    require_ported(cfg)
     dt = _dtype(cfg)
     Lz = cfg.n_layers
-    sc = min(ctx, cfg.sliding_window) if cfg.bounded_kv else ctx
-    if cfg.attn_kind == "mla":
-        entries = {"c": (cfg.kv_lora_rank,), "kr": (cfg.qk_rope_dim,)}
-    else:
-        entries = {"k": (cfg.n_kv_heads, cfg.head_dim),
-                   "v": (cfg.n_kv_heads, cfg.head_dim)}
-    attn = {k: torch.zeros((Lz, batch, sc, *shape), dtype=dt, device=dev)
-            for k, shape in entries.items()}
-    attn["pos"] = torch.full((Lz, batch, sc), -1, dtype=torch.int32,
-                             device=dev)
-    return {"attn": attn}
+    c: dict = {}
+    if cfg.uses_attention:
+        sc = min(ctx, cfg.sliding_window) if cfg.bounded_kv else ctx
+        if cfg.attn_kind == "mla":
+            entries = {"c": (cfg.kv_lora_rank,), "kr": (cfg.qk_rope_dim,)}
+        else:
+            entries = {"k": (cfg.n_kv_heads, cfg.head_dim),
+                       "v": (cfg.n_kv_heads, cfg.head_dim)}
+        attn = {k: torch.zeros((Lz, batch, sc, *shape), dtype=dt,
+                               device=dev)
+                for k, shape in entries.items()}
+        attn["pos"] = torch.full((Lz, batch, sc), -1, dtype=torch.int32,
+                                 device=dev)
+        c["attn"] = attn
+    if cfg.uses_ssm:
+        H, N = cfg.ssm_heads, cfg.ssm_state
+        c["ssm"] = {
+            "state": torch.zeros((Lz, batch, H, cfg.d_inner // H, N),
+                                 dtype=torch.float32, device=dev),
+            "conv": torch.zeros((Lz, batch, cfg.conv_kernel - 1,
+                                 cfg.d_inner + 2 * N), dtype=dt, device=dev)}
+    return c
 
 
 def prefill(p: Params, cfg: ModelConfig, tokens, cache, prefix_embeds=None,

@@ -1,7 +1,8 @@
 """Shared helpers of the model tests (``test_torch_models.py``,
-``test_torch_moe.py``): the reference's parameters converted to the
-port's, inputs from a seed, comparisons, and taps on both packages' MoE
-routing.  Imports JAX; the card tests do not use it.
+``test_torch_moe.py``, ``test_torch_ssm.py``, ``test_torch_encdec.py``):
+the reference's parameters converted to the port's, inputs from a seed,
+comparisons, and taps on both packages' MoE routing.  Imports JAX; the
+card tests do not use it.
 """
 from __future__ import annotations
 
@@ -11,9 +12,10 @@ import numpy as np
 import torch
 
 import repro.configs as jax_configs
+from repro.models import encdec as jax_encdec
 from repro.models import lm as jax_lm
 from repro_torch import configs
-from repro_torch.models import layers, lm
+from repro_torch.models import encdec, layers, lm
 
 CPU = "cpu"
 F32, BF16 = 1e-4, 4e-2
@@ -24,7 +26,12 @@ TOL = {"float32": F32, "bfloat16": BF16}
 #: at bf16 the activations reaching the router differ by a few bf16 ulps
 #: (the logits' own limit, ``BF16``), so a near tie at that scale may flip
 TIE = {"float32": 1e-6, "bfloat16": BF16}
-NORMS = {"ln1", "ln2", "pn1", "pn2", "ln_f", "q_norm", "k_norm", "kv_norm"}
+NORMS = {"ln1", "ln2", "pn1", "pn2", "ln_f", "q_norm", "k_norm", "kv_norm",
+         "out_norm", "ln_x", "enc_ln"}
+#: the SSD block's float32 scalars per head, drawn from a seed as normals
+#: of these scales (at their initial 0, 1, 0, A = -exp(A_log) = -1 would
+#: hide a sign or an exp error)
+SSM_SCALARS = {"A_log": 0.5, "D": 1.0, "dt_bias": 0.5}
 
 
 def host(x) -> np.ndarray:
@@ -49,26 +56,38 @@ def assert_close(port, ref, tol: float, what: str, rows=None) -> None:
         f"{what}: max|d| {err:.3g} > {tol} x max|ref| {scale:.3g}"
 
 
-def assert_cache(port, ref, tol: float, rows=None) -> None:
-    """Every entry of the attention caches (GQA k/v, MLA c/kr) close, the
-    positions equal."""
-    assert set(port["attn"]) == set(ref["attn"])
-    for k in port["attn"]:
-        if k != "pos":
-            assert_close(port["attn"][k], ref["attn"][k], tol, f"cache {k}",
-                         rows=None if rows is None else (slice(None), rows))
-    np.testing.assert_array_equal(host(port["attn"]["pos"]),
-                                  host(ref["attn"]["pos"]))
+def assert_cache(port, ref, tol: float, rows=None, path="cache") -> None:
+    """The same cache entries: every one close (the attention caches' GQA
+    k/v or MLA c/kr, the SSM's state and conv tail, the encoder-decoder's
+    self-attention k/v and encoder states ``enc``), the positions equal.
+    ``rows`` picks batch rows: axis 1 of the entries stacked by layer,
+    axis 0 of ``enc``."""
+    if isinstance(port, dict):
+        assert set(port) == set(ref), (path, sorted(port), sorted(ref))
+        for k in port:
+            assert_cache(port[k], ref[k], tol, rows, f"{path}[{k!r}]")
+    elif path.endswith("['pos']"):
+        np.testing.assert_array_equal(host(port), host(ref))
+    else:
+        assert_close(port, ref, tol, path, rows=None if rows is None else (
+            rows if path == "cache['enc']" else (slice(None), rows)))
 
 
 def ref_params(cfg, seed: int):
-    """The reference's parameters with every norm scale non-zero."""
-    p = jax_lm.init_params(jax.random.PRNGKey(seed), cfg)
+    """The reference's parameters with every norm scale non-zero and the
+    SSM's ``A_log``, ``D`` and ``dt_bias`` drawn from the seed."""
+    init = jax_encdec.init_params if cfg.family == "encdec" \
+        else jax_lm.init_params
+    p = init(jax.random.PRNGKey(seed), cfg)
     rng = np.random.default_rng(seed)
 
     def perturb(path, x):
-        if path[-1].key in NORMS:
+        key = path[-1].key
+        if key in NORMS:
             return jnp.asarray(rng.standard_normal(x.shape) * 0.5, x.dtype)
+        if key in SSM_SCALARS:
+            return jnp.asarray(rng.standard_normal(x.shape)
+                               * SSM_SCALARS[key], x.dtype)
         return x
 
     return jax.tree_util.tree_map_with_path(perturb, p)
@@ -85,17 +104,53 @@ def both_params(arch: str, dtype: str, seed: int = 1, **kw):
 
 
 def inputs(cfg, B: int, S: int, seed: int = 0):
+    """Tokens (B, S) and the model's other input, float32 or None: a VLM's
+    prefix embeddings (B, vision_len, d), an encoder-decoder's stub frames
+    (B, encoder_len, d)."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     pe = None
-    if cfg.family == "vlm":
-        pe = rng.standard_normal((B, cfg.vision_len, cfg.d_model)).astype(
+    extra = {"vlm": cfg.vision_len, "encdec": cfg.encoder_len}
+    if cfg.family in extra:
+        pe = rng.standard_normal((B, extra[cfg.family], cfg.d_model)).astype(
             np.float32)
     return toks, pe
 
 
+def port_init(cfg):
+    """The port's ``init_params`` of ``cfg``'s family."""
+    return encdec.init_params if cfg.family == "encdec" else lm.init_params
+
+
 def jx(a):
     return None if a is None else jnp.asarray(a)
+
+
+def encdec_matches(jcfg, jp, tcfg, tp, frames, toks, ctx: int, tol: float,
+                   pos: int | None = None) -> None:
+    """The encoder-decoder in both packages: ``decode_train`` over every
+    token, ``prefill`` on all but the last (logits, the self-attention cache
+    of ``ctx`` slots and the encoder states), and a decode step of the last
+    at ``pos`` (by default the next position)."""
+    B, S = toks.shape
+    ref = jax_encdec.decode_train(jp, jcfg, jnp.asarray(frames),
+                                  jnp.asarray(toks))
+    got = encdec.decode_train(tp, tcfg, frames, toks, device=CPU)
+    assert got.dtype == torch.float32
+    assert_close(got, ref, tol, "decode_train")
+    jc = jax_encdec.init_cache(jcfg, B, ctx)
+    tc = encdec.init_cache(tcfg, B, ctx, device=CPU)
+    ref, jc = jax_encdec.prefill(jp, jcfg, jnp.asarray(frames),
+                                 jnp.asarray(toks[:, :-1]), jc)
+    got, tc = encdec.prefill(tp, tcfg, frames, toks[:, :-1], tc, device=CPU)
+    assert_close(got, ref, tol, "prefill")
+    assert_cache(tc, jc, tol)
+    at = np.full((B,), S - 1 if pos is None else pos, np.int32)
+    ref, jc = jax_encdec.decode_step(jp, jcfg, jnp.asarray(toks[:, -1:]),
+                                     jnp.asarray(at), jc)
+    got, tc = encdec.decode_step(tp, tcfg, toks[:, -1:], at, tc, device=CPU)
+    assert_close(got, ref, tol, "decode")
+    assert_cache(tc, jc, tol)
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.rectload import ref as rl_ref
 from repro_torch.kernels.sat import ops as sat_ops
 from repro_torch.kernels.sat import ref as sat_ref
-from repro_torch.models import layers, lm
+from repro_torch.models import encdec, layers, lm
 from repro_torch.rebalance import planner, stream
 
 pytestmark = pytest.mark.cuda
@@ -851,42 +851,56 @@ def test_run_stream_executes_on_card_as_priced(scenario):
 
 
 @pytest.mark.parametrize("arch", ["gemma2_9b", "internvl2_2b",
-                                  "mixtral_8x7b", "deepseek_v2_236b"])
+                                  "mixtral_8x7b", "deepseek_v2_236b",
+                                  "mamba2_1_3b", "hymba_1_5b",
+                                  "whisper_large_v3"])
 def test_model_on_card_matches_cpu(arch, monkeypatch):
     """A dense (gemma2: local and global layers, softcaps, post-norms), a
-    VLM and the two MoE smoke models (mixtral: GQA with a window of 8;
-    deepseek: MLA, absorbed decode, shared experts) at float32:
-    ``forward`` (logits and ``aux``), ``prefill`` (logits and the cache)
+    VLM, the two MoE smoke models (mixtral: GQA with a window of 8;
+    deepseek: MLA, absorbed decode, shared experts), the SSM, the hybrid
+    and the encoder-decoder at float32: ``forward`` (logits and ``aux``;
+    ``decode_train`` for the encoder-decoder), ``prefill`` (logits and the
+    cache: attention, the SSM's state and conv tail, the encoder states)
     and two decode steps on the card against the port's CPU path, within
     1e-4 x max |CPU|; the cache's positions, and every MoE call's expert
     ids and capacity slots, equal.  The model path launches none of the
     port's kernels, as the reference's calls none."""
     dev = need_card()
     cfg = configs.get_smoke(arch).scaled(dtype="float32")
-    cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    mod = encdec if cfg.family == "encdec" else lm
+    cpu = mod.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
     card = _to(cpu, dev)
     rng = np.random.default_rng(0)
     B, S = 2, 21
     toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    pe = (rng.standard_normal((B, cfg.vision_len, cfg.d_model)).astype(
-        np.float32) if cfg.family == "vlm" else None)
+    extra = {"vlm": cfg.vision_len, "encdec": cfg.encoder_len}
+    pe = (rng.standard_normal((B, extra[cfg.family], cfg.d_model)).astype(
+        np.float32) if cfg.family in extra else None)
     T = S + cfg.vision_len
     routes, route = [], layers.moe_route
     monkeypatch.setattr(layers, "moe_route", lambda p, c, xg: routes.append(
         route(p, c, xg)) or routes[-1])
 
     def run(params, device):
-        full, aux = lm.forward(params, cfg, toks, pe, device=device)
-        cache = lm.init_cache(cfg, B, T + 4, device=device)
-        pre, cache = lm.prefill(params, cfg, toks, cache, pe, device=device)
-        outs = [full, aux, pre]
+        cache = mod.init_cache(cfg, B, T + 4, device=device)
+        if cfg.family == "encdec":
+            full = encdec.decode_train(params, cfg, pe, toks, device=device)
+            pre, cache = encdec.prefill(params, cfg, pe, toks, cache,
+                                        device=device)
+            outs = [full, pre]
+        else:
+            full, aux = lm.forward(params, cfg, toks, pe, device=device)
+            pre, cache = lm.prefill(params, cfg, toks, cache, pe,
+                                    device=device)
+            outs = [full, aux, pre]
         for t in range(2):
             tok = outs[-1][:, -1].argmax(-1).int()[:, None]
-            d, cache = lm.decode_step(params, cfg, tok,
-                                      torch.full((B,), T + t), cache,
-                                      device=device)
+            d, cache = mod.decode_step(params, cfg, tok,
+                                       torch.full((B,), T + t), cache,
+                                       device=device)
             outs.append(d)
-        return outs, cache["attn"]
+        return outs, _flat(cache)
 
     before = sum(_build.launches.values())
     got, got_cache = run(card, dev)
@@ -898,11 +912,23 @@ def test_model_on_card_matches_cpu(arch, monkeypatch):
         assert torch.equal(a.ids.cpu(), b.ids)
         assert torch.equal(a.slots.cpu(), b.slots)
     assert set(got_cache) == set(want_cache)
-    for g, w in zip(got + [got_cache[k] for k in got_cache if k != "pos"],
-                    want + [want_cache[k] for k in got_cache if k != "pos"]):
+    for k in got_cache:
+        if k.endswith("pos"):
+            assert torch.equal(got_cache[k].cpu(), want_cache[k])
+        else:
+            got.append(got_cache[k])
+            want.append(want_cache[k])
+    for g, w in zip(got, want):
         err = float((g.cpu() - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max()), err
-    assert torch.equal(got_cache["pos"].cpu(), want_cache["pos"])
+
+
+def _flat(tree, path=""):
+    """A cache tree's tensors by path (``attn.k``, ``ssm.state``, ``enc``)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat(sub, f"{path}{key}.").items()}
+    return {path[:-1]: tree}
 
 
 def _to(tree, dev):

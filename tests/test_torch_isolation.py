@@ -3,8 +3,8 @@
 - ``repro_torch`` and ``chip_smoke.py`` import without ``jax``, ``repro``
   and ``ml_dtypes`` (a subprocess where importing any fails), and the
   planner, the rebalance runtime, the capacity-aware planner, the serve
-  simulator and the dense, VLM and MoE smoke models' prefill and decode
-  run there on the CPU;
+  simulator and the dense, VLM, MoE, SSM, hybrid and encoder-decoder
+  smoke models' prefill and decode run there on the CPU;
 - an entry point with no ``device=`` raises where CUDA is absent instead
   of running on the CPU;
 - no ``except`` clause and no environment read in the port or the smoke
@@ -29,6 +29,7 @@ from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.sat import ops as sat_ops
 from repro_torch.models import api as models_api
+from repro_torch.models import encdec as models_encdec
 from repro_torch.models import lm as models_lm
 from repro_torch.rebalance import (batch_device, execute, planner, policy,
                                    runtime, stream)
@@ -98,7 +99,8 @@ assert all(r.executed_bytes == r.migration_volume for r in res3.records[1:])
 from repro_torch import configs
 from repro_torch.models import api
 for arch in ("qwen3_0_6b", "internvl2_2b", "mixtral_8x7b",
-             "deepseek_v2_236b"):
+             "deepseek_v2_236b", "mamba2_1_3b", "hymba_1_5b",
+             "whisper_large_v3"):
     cfg = configs.get_smoke(arch)
     model = api.build(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -106,6 +108,9 @@ for arch in ("qwen3_0_6b", "internvl2_2b", "mixtral_8x7b",
     if cfg.family == "vlm":
         batch["prefix_embeds"] = np.ones((2, cfg.vision_len, cfg.d_model),
                                          np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = np.ones((2, cfg.encoder_len, cfg.d_model),
+                                  np.float32)
     cache = model.init_cache(2, 16, device="cpu")
     logits, cache = model.prefill(params, batch, cache, device="cpu")
     tok = logits.argmax(-1).int()
@@ -139,6 +144,15 @@ def _entry_points():
     toks = np.zeros((1, 4), np.int32)
     moe_cfg = configs.get_smoke("deepseek_v2_236b")
     moe_params = models_lm.init_params(gen, moe_cfg, device="cpu")
+    ssm_cfg = configs.get_smoke("mamba2_1_3b")
+    ssm_params = models_lm.init_params(gen, ssm_cfg, device="cpu")
+    hyb_cfg = configs.get_smoke("hymba_1_5b")
+    hyb_params = models_lm.init_params(gen, hyb_cfg, device="cpu")
+    hyb_cache = models_lm.init_cache(hyb_cfg, 1, 8, device="cpu")
+    enc_cfg = configs.get_smoke("whisper_large_v3")
+    enc_params = models_encdec.init_params(gen, enc_cfg, device="cpu")
+    enc_cache = models_encdec.init_cache(enc_cfg, 1, 8, device="cpu")
+    frames = np.zeros((1, enc_cfg.encoder_len, enc_cfg.d_model), np.float32)
     return [
         lambda: planner.plan_stream(fr, P=4, m=16),
         lambda: planner.plan_host(fr, P=4, m=16),
@@ -174,10 +188,22 @@ def _entry_points():
         lambda: models_lm.init_params(gen, moe_cfg),
         lambda: models_lm.init_cache(moe_cfg, 1, 8),
         lambda: models_lm.forward(moe_params, moe_cfg, toks),
+        lambda: models_lm.init_params(gen, ssm_cfg),
+        lambda: models_lm.init_cache(ssm_cfg, 1, 8),
+        lambda: models_lm.forward(ssm_params, ssm_cfg, toks),
+        lambda: models_lm.prefill(hyb_params, hyb_cfg, toks, hyb_cache),
+        lambda: models_encdec.init_params(gen, enc_cfg),
+        lambda: models_encdec.init_cache(enc_cfg, 1, 8),
+        lambda: models_encdec.encode(enc_params, enc_cfg, frames),
+        lambda: models_encdec.decode_train(enc_params, enc_cfg, frames, toks),
+        lambda: models_encdec.prefill(enc_params, enc_cfg, frames, toks,
+                                      enc_cache),
+        lambda: models_encdec.decode_step(enc_params, enc_cfg, toks[:, :1],
+                                          np.array([4]), enc_cache),
     ]
 
 
-@pytest.mark.parametrize("i", range(29))
+@pytest.mark.parametrize("i", range(39))
 def test_entry_points_raise_without_cuda(i, monkeypatch):
     call = _entry_points()[i]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -284,7 +310,8 @@ def test_no_fallback_sources_cover_the_port():
             "serve/simulate.py", "dist/__init__.py", "dist/ctx.py",
             "dist/cp_balance.py", "dist/moe_placement.py",
             "configs/__init__.py", "configs/qwen3_0_6b.py", "models/config.py",
-            "models/lm.py", "models/api.py"} <= names
+            "models/lm.py", "models/api.py", "models/ssm.py",
+            "models/encdec.py"} <= names
     assert "models/_dist_compat.py" not in names
 
 

@@ -1,15 +1,19 @@
-"""The port's decoder-only model stack against the JAX package, on the CPU.
+"""The port's model stack against the JAX package, on the CPU: every
+config, the decoder-only families and the encoder-decoder.
 
 The same NumPy inputs and the reference's own parameters (from
-``repro.models.lm.init_params``, every norm scale set to non-zero random
-values on both sides, converted by ``lm.params_from_numpy``) go through
-both packages.
+``repro.models.lm.init_params`` or ``repro.models.encdec.init_params``,
+every norm scale and the SSM's ``A_log``, ``D`` and ``dt_bias`` set to
+non-zero random values on both sides, converted by
+``lm.params_from_numpy``) go through both packages.
 
 Tolerances:
 
 - float32: max |port - reference| <= 1e-4 x max |reference| (``F32``),
-  on logits and on the cache's k and v; the cache's positions equal.  The
-  measured differences are near 1e-6 x: float32 sums in another order.
+  on logits and on every cache entry (attention k and v, the SSM's state
+  and conv tail, the encoder-decoder's self-attention k and v and its
+  encoder states); the cache's positions equal.  The measured differences
+  are near 1e-6 x: float32 sums in another order.
   The layer functions are held tighter where their arithmetic is the
   reference's own (rope's frequencies, the bf16 activations: bit for bit).
 - bfloat16 (the configs' own dtype): ``BF16`` = 4e-2 x max |reference|.
@@ -39,16 +43,18 @@ from repro.models import api as jax_api
 from repro.models import layers as jax_layers
 from repro.models import lm as jax_lm
 from repro_torch import configs
-from repro_torch.models import api, layers, lm
+from repro_torch.models import api, encdec, layers, lm
 
 from _torch_models_parity import (BF16, CPU, F32, TIE, TOL, Routings,
                                   assert_cache, assert_close, both_params,
-                                  host, inputs, jx)
+                                  encdec_matches, host, inputs, jx,
+                                  port_init)
 
-#: the configurations the port runs: dense, VLM and (with MLA) MoE
+#: the configurations the port runs: dense, VLM, (with MLA) MoE, SSM,
+#: hybrid and encoder-decoder, every one the reference has
 PORTED = ["qwen3_0_6b", "granite_3_2b", "gemma2_9b", "stablelm_1_6b",
-          "internvl2_2b", "mixtral_8x7b", "deepseek_v2_236b"]
-NOT_PORTED = ["whisper_large_v3", "hymba_1_5b", "mamba2_1_3b"]
+          "internvl2_2b", "mixtral_8x7b", "deepseek_v2_236b", "mamba2_1_3b",
+          "hymba_1_5b", "whisper_large_v3"]
 
 
 # ---------------------------------------------------------------------------
@@ -86,8 +92,8 @@ def test_param_tree_is_the_reference_tree(arch):
     want = {jax.tree_util.keystr(k): (tuple(v.shape), str(v.dtype))
             for k, v in spec}
     gen = torch.Generator().manual_seed(0)
-    for tree in (lm.init_params(gen, cfg, device=CPU),
-                 lm.init_params(None, cfg, device="meta")):
+    init = port_init(cfg)
+    for tree in (init(gen, cfg, device=CPU), init(None, cfg, device="meta")):
         got = {jax.tree_util.keystr(k): (tuple(v.shape),
                                          str(v.dtype).split(".")[1])
                for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
@@ -157,18 +163,43 @@ def test_rmsnorm_matches(dtype):
 
 
 def test_xla_exp_is_the_reference_exp():
-    """P13: the port's ``xla_exp`` is XLA's float32 exp on the CPU, bit for
-    bit, on the rotary frequencies' arguments and a sweep of [-20, 0]."""
+    """P13 and P17: the port's ``xla_exp`` is XLA's float32 exp on the CPU,
+    bit for bit (``jax.jit(jnp.exp)``), over the whole float32 range: the
+    rotary frequencies' arguments, 10**6 random bit patterns (every
+    exponent, denormals, infinities, NaNs), a sweep of [-110, 90], 10**5
+    draws in [-120, -80] (results below 2**-126 flushed to 0) and in [88,
+    88.8] (finite up to 88.7228, then inf), the edges -87.3365 and
+    88.3763 with 64 neighbouring floats on each side, +-inf and NaN."""
     rng = np.random.default_rng(0)
     args = [-rng.uniform(0, 20, 100_000).astype(np.float32)]
     for theta in (1e4, 1e6):
         for half in (8, 16, 32, 64, 128):
             step = np.float32(np.asarray(jnp.log(theta)) / np.float32(half))
             args.append(-np.arange(half, dtype=np.float32) * step)
+    args += [rng.integers(0, 2 ** 32, 1_000_000, dtype=np.uint64).astype(
+                 np.uint32).view(np.float32),
+             np.linspace(-110, 90, 1_000_001, dtype=np.float32),
+             rng.uniform(-120, -80, 100_000).astype(np.float32),
+             rng.uniform(88, 88.8, 100_000).astype(np.float32),
+             np.array([np.inf, -np.inf, np.nan, 0.0, -0.0], np.float32)]
+    for edge in (-87.3365, 88.3763):
+        below = above = np.float32(edge)
+        args.append(np.array([below], np.float32))
+        for _ in range(64):
+            below = np.nextafter(below, np.float32(-np.inf))
+            above = np.nextafter(above, np.float32(np.inf))
+            args.append(np.array([below, above], np.float32))
     x = np.concatenate(args)
-    np.testing.assert_array_equal(
-        layers.xla_exp(torch.from_numpy(x)).numpy(),
-        np.asarray(jnp.exp(jnp.asarray(x))))
+    got = layers.xla_exp(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(jnp.exp)(x))
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32))
+    assert nan.sum() == np.isnan(x).sum() > 1000
+    assert (got[x < -87.34] == 0).all()
+    assert np.isfinite(got[(x >= 88.37627) & (x < 88.72283)]).all()
+    assert got[x == np.inf] == np.inf
 
 
 @pytest.mark.parametrize("theta", [1e4, 1e6])
@@ -264,12 +295,16 @@ def test_attn_forward_matches(arch, mode):
 def test_lm_matches_the_reference(arch, dtype, monkeypatch):
     """``forward`` (logits and ``aux``), ``prefill`` (last logits and the
     cache) and a decode step, at float32 and at the config's own bf16; on
-    the MoE configs every MoE call's routing too."""
+    the MoE configs every MoE call's routing too.  The encoder-decoder:
+    ``decode_train``, ``prefill`` and a decode step."""
     (jcfg, jp), (tcfg, tp) = both_params(arch, dtype)
-    routes = Routings().install(monkeypatch)
     B, S = 2, 24
     toks, pe = inputs(jcfg, B, S)
     tol = TOL[dtype]
+    if tcfg.family == "encdec":
+        encdec_matches(jcfg, jp, tcfg, tp, pe, toks, 40, tol)
+        return
+    routes = Routings().install(monkeypatch)
     flipped = set()
 
     def rows():
@@ -410,6 +445,22 @@ def test_left_padded_moe_batch_matches_the_reference(monkeypatch):
     assert routes.checked == 6 * tcfg.n_layers
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "hymba_1_5b"])
+def test_left_padded_ssm_batch_matches_the_reference(arch, dtype):
+    """An SSM and a hybrid batch left-padded with token 0 (the pads run
+    through the scan and the conv like any token): prefill (S = 13, prime
+    and above the smoke's ``ssm_chunk`` of 8, so chunks of 1) and greedy
+    decode steps (the recurrent step) give the reference's logits; so
+    does a one-token prompt, which prefills through the recurrent step."""
+    (jcfg, jp), (tcfg, tp) = both_params(arch, dtype)
+    toks = left_padded(jcfg, [13, 4, 9])
+    for prompt in (toks, toks[:, -1:]):
+        got, ref = serve_both(jcfg, jp, tcfg, tp, prompt, 13 + 6, 5)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert_close(g, r, TOL[dtype], f"S={prompt.shape[1]} call {i}")
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_seeded_init_keeps_its_draws(arch):
     """``init_params`` writes each layer's leaves into the stacked tensors
@@ -419,32 +470,53 @@ def test_seeded_init_keeps_its_draws(arch):
     for cfg in (configs.get_smoke(arch),) + (
             (configs.get(arch).scaled(n_layers=2),)
             if arch == "qwen3_0_6b" else ()):
-        got = lm.init_params(torch.Generator().manual_seed(3), cfg,
+        got = port_init(cfg)(torch.Generator().manual_seed(3), cfg,
                              device=CPU)
         gen = torch.Generator().manual_seed(3)
         dt = got["embed"].dtype
         V, d = cfg.padded_vocab, cfg.d_model
-        want = {"embed": (layers.normal(gen, (V, d), CPU) * 0.02).to(dt)}
-        per_layer = [lm.init_layer(gen, cfg, CPU)
-                     for _ in range(cfg.n_layers)]
-        want["layers"] = jax.tree.map(lambda *x: torch.stack(x), *per_layer)
-        if not cfg.tie_embeddings:
-            want["head"] = (layers.normal(gen, (d, V), CPU) * 0.02).to(dt)
+
+        def normal(rows, std):
+            return (layers.normal(gen, (rows, d), CPU) * std).to(dt)
+
+        def stack(init, n):
+            per_layer = [init(gen, cfg, CPU) for _ in range(n)]
+            return jax.tree.map(lambda *x: torch.stack(x), *per_layer)
+
+        if cfg.family == "encdec":
+            want = {"enc_pos": normal(cfg.encoder_len, 0.01),
+                    "enc_layers": stack(encdec.init_enc_layer,
+                                        cfg.encoder_layers),
+                    "embed": normal(V, 0.02), "dec_pos": normal(4096, 0.01),
+                    "dec_layers": stack(encdec.init_dec_layer,
+                                        cfg.n_layers)}
+            unseeded = 2                                # enc_ln, ln_f
+        else:
+            want = {"embed": normal(V, 0.02),
+                    "layers": stack(lm.init_layer, cfg.n_layers)}
+            if not cfg.tie_embeddings:
+                want["head"] = (layers.normal(gen, (d, V), CPU)
+                                * 0.02).to(dt)
+            unseeded = 1                                # ln_f
         flat = dict(jax.tree_util.tree_flatten_with_path(got)[0])
         for k, w in jax.tree_util.tree_flatten_with_path(want)[0]:
             assert flat[k].dtype == w.dtype
             assert torch.equal(flat[k], w), jax.tree_util.keystr(k)
-        assert len(flat) == len(jax.tree_util.tree_leaves(want)) + 1  # ln_f
+        assert len(flat) == len(jax.tree_util.tree_leaves(want)) + unseeded
 
 
-@pytest.mark.parametrize("S", [16, 13])
+@pytest.mark.parametrize("S", [16, 13, "hybrid"])
 def test_bounded_ring_cache_matches_the_reference(S):
     """qwen3-smoke with an 8-token window keeps 8 slots: a prefill of 16
     (written contiguously, 16 % 8 == 0) or 13 (at pos % 8), then decode
-    steps past the ring's end, each wrapping onto the oldest slot."""
-    (jcfg, jp), (tcfg, tp) = both_params("qwen3_0_6b", "float32",
-                                         sliding_window=8)
-    assert tcfg.bounded_kv
+    steps past the ring's end, each wrapping onto the oldest slot.  The
+    hybrid (hymba-smoke, its own window of 8): a prefill of 13, then ten
+    decode steps, attention over the ring and the SSM's recurrent state."""
+    arch, kw = ("hymba_1_5b", {}) if S == "hybrid" else (
+        "qwen3_0_6b", {"sliding_window": 8})
+    S = 13 if S == "hybrid" else S
+    (jcfg, jp), (tcfg, tp) = both_params(arch, "float32", **kw)
+    assert tcfg.bounded_kv and tcfg.sliding_window == 8
     toks, _ = inputs(jcfg, 2, S)
     got, ref = serve_both(jcfg, jp, tcfg, tp, toks, 64, 10)
     assert lm.init_cache(tcfg, 2, 64, device=CPU)["attn"]["k"].shape[2] == 8
@@ -452,20 +524,17 @@ def test_bounded_ring_cache_matches_the_reference(S):
         assert_close(g, r, F32, f"call {i}")
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_build_refuses_the_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        api.build(configs.get_smoke(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        lm.layer_forward({}, configs.get_smoke(arch), None, None, 0)
-
-
 def test_loss_is_not_ported():
-    model = api.build(configs.get_smoke("qwen3_0_6b"))
-    assert [f.name for f in dataclasses.fields(model)] == [
-        f.name for f in dataclasses.fields(jax_api.Model)]
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss({}, {})
+    """Every family builds the reference's five functions; ``loss`` raises,
+    naming the roadmap's training item."""
+    for arch in ("qwen3_0_6b", "mamba2_1_3b", "hymba_1_5b",
+                 "whisper_large_v3"):
+        model = api.build(configs.get_smoke(arch))
+        assert [f.name for f in dataclasses.fields(model)] == [
+            f.name for f in dataclasses.fields(jax_api.Model)]
+        with pytest.raises(NotImplementedError,
+                           match="training.*item 2 .training, data"):
+            model.loss({}, {})
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -480,10 +549,14 @@ def test_decode_matches_forward(arch, dtype):
     params = model.init(torch.Generator().manual_seed(1), device=CPU)
     B, S = 2, 24
     toks, pe = inputs(cfg, B, S, seed=5)
-    full, _ = lm.forward(params, cfg, toks, pe, device=CPU)
     pre = {"tokens": toks[:, :S - 1]}
-    if pe is not None:
-        pre["prefix_embeds"] = pe
+    if cfg.family == "encdec":
+        full = encdec.decode_train(params, cfg, pe, toks, device=CPU)
+        pre["frames"] = pe
+    else:
+        full, _ = lm.forward(params, cfg, toks, pe, device=CPU)
+        if pe is not None:
+            pre["prefix_embeds"] = pe
     cache = model.init_cache(B, 64, device=CPU)
     _, cache = model.prefill(params, pre, cache, device=CPU)
     total = S - 1 + (cfg.vision_len if cfg.family == "vlm" else 0)
