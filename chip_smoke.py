@@ -102,7 +102,16 @@ smoke models and each model cut to 2 layers at full width: the
 whole-sequence logits, prefill, two decode steps and every cache tensor,
 the SSM's state and conv tail and Whisper's encoder states included);
 teacher forcing on the same cut (prefill on 192 tokens, then 4 decode
-steps against the whole sequence); no launch of K1-K5.
+steps against the whole sequence); no launch of K1-K5.  Then training
+(``run_train``) with its own launch counts: Qwen3-0.6B at full width and
+full depth in bf16 (float32 moments) through ``launch.train.main``, 6
+steps at B=8, S=512 with a checkpoint every 3; the last checkpoint
+restored on the card bit for bit; with it uncommitted, a second call
+resumes from step 3, its losses within 2e-2 of the first call's; step
+time, tokens/s, kernels a step, idle share, peak memory and the
+operations' bound; one float32 step at full width on the card against
+the CPU; the smoke config's loss falling by more than 0.5 in 30 steps;
+no launch of K1-K5.
 
 Dtype contract checked here: int32 results are bit-identical between the
 kernels and the plain versions, and to the CPU path; so are float32
@@ -113,8 +122,11 @@ to a relative 1e-2 against the CPU path, and the cuts may differ.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2530,6 +2542,348 @@ def run_ssm_encdec(cuda: torch.device) -> None:
         f"took {time.perf_counter() - t_phase:.1f} s")
 
 
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_B, TRAIN_S = 8, 512          # one chunk of chunked_ce: 8 x 512 x V
+TRAIN_STEPS, TRAIN_EVERY = 6, 3    # launch.train's run; checkpoints at 3, 6
+RESUME_TOL = 2e-2      # |resumed loss - uninterrupted loss| at steps 3-5
+#                        (about 12.1 at B=8, S=512; bf16 weights)
+TRAIN_CPU_S = 128      # card vs CPU at float32: one step at B=1, S=128
+TRAIN_LOSS_TOL = 1e-5  # card vs CPU: loss and grad_norm, relative
+TRAIN_GRAD_TOL = 1e-4  # card vs CPU: each leaf's first moment, x max |CPU|
+TRAIN_UPD_TOL = 1e-2   # card vs CPU: the update where the gradients agree
+#                        within 1%, x lr (a gradient near 0 may change sign)
+SMOKE_STEPS = 30       # the reference's integration test: loss falls > 0.5
+
+
+class StepTap:
+    """Wraps ``launch.train``'s train step inside a with-block: records
+    each step's host time (the card synchronised before and after), its
+    metrics as floats, and keeps the last step's parameters and state;
+    records the host seconds of each checkpoint ``save`` and ``restore``
+    (``io``)."""
+
+    def __enter__(self):
+        from repro_torch.launch import train
+        from repro_torch.train import checkpoint
+        self.steps, self.last, self._make = [], None, train.make_train_step
+        self.io, self._io = [], {k: getattr(checkpoint, k)
+                                 for k in ("save", "restore")}
+        for name, fn in self._io.items():
+            def timed_io(*args, fn=fn, name=name, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                self.io.append((name, time.perf_counter() - t0))
+                return out
+            setattr(checkpoint, name, timed_io)
+
+        def make(cfg, opt_cfg):
+            step = self._make(cfg, opt_cfg)
+
+            def timed(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, metrics = step(*args, **kw)
+                torch.cuda.synchronize()
+                self.steps.append(((time.perf_counter() - t0) * 1e3,
+                                   {k: float(v) for k, v in metrics.items()}))
+                self.last = (params, state)
+                return params, state, metrics
+            return timed
+
+        train.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+        from repro_torch.train import checkpoint
+        train.make_train_step = self._make
+        for name, fn in self._io.items():
+            setattr(checkpoint, name, fn)
+
+    def io_line(self) -> str:
+        return ", ".join(f"{name} {sec:.1f} s" for name, sec in self.io)
+
+
+def top_kernels(fn, k: int = 6) -> str:
+    """The ``k`` kernels with the most device time in one call of ``fn``
+    (torch.profiler's device events, grouped by name): ms and count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    tot: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name().replace("void ", "").split("<")[0].split("(")[0]
+            t, c = tot.get(name, (0, 0))
+            tot[name] = (t + e.duration_ns(), c + 1)
+    top = sorted(tot.items(), key=lambda kv: -kv[1][0])[:k]
+    return "; ".join(f"{n[-60:]} {t / 1e6:.1f} ms ({c}x)"
+                     for n, (t, c) in top)
+
+
+def train_stages(cuda, model, opt_cfg, params, opt_state, batch) -> str:
+    """Host-clock ms of a train step's three stages, as ``make_train_step``
+    runs them, the card synchronised between: the loss (forward, building
+    the graph), ``autograd.grad`` (the layers' and the chunk's recompute,
+    then the backward) and ``optim.apply``; the second of two runs."""
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    for _ in range(2):
+        t = [time.perf_counter()]
+        wrt = optim.tree_map(lambda x: x.detach().requires_grad_(), params)
+        loss, _ = model.loss(wrt, batch, device=cuda)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        grads = iter(torch.autograd.grad(loss, lm.leaves(wrt)))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        optim.apply(opt_cfg, params, opt_state,
+                    optim.tree_map(lambda _: next(grads), wrt))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        del wrt, loss
+    ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    return (f"loss (forward) {ms[0]:.1f} ms, autograd.grad (recompute and "
+            f"backward) {ms[1]:.1f} ms, optim.apply {ms[2]:.1f} ms")
+
+
+def _leaves_by_path(tree, path: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _leaves_by_path(sub, f"{path}/{key}").items()}
+    return {path: tree}
+
+
+def train_card_vs_cpu(cuda, cfg, B: int, S: int) -> str:
+    """One train step (``launch.train``'s AdamW defaults) from the same float32
+    parameters on the card and on the CPU: the loss and ``grad_norm``
+    within ``TRAIN_LOSS_TOL``; every leaf's first moment (0.1 x the clipped
+    gradient) within ``TRAIN_GRAD_TOL`` x max |CPU|; and the parameters'
+    update within ``TRAIN_UPD_TOL`` x lr wherever the two gradients agree
+    within 1% (at step 1 AdamW moves each entry by about lr x sign(g), so
+    an entry whose gradient is at the float32 noise floor may move the
+    other way; those are counted).  Returns the errors."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api
+    from repro_torch.train import optim
+    opt_cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=20)
+    step = make_train_step(cfg, opt_cfg)
+    params = api.build(cfg).init(torch.Generator(cuda).manual_seed(SEED),
+                                 device=cuda)
+    batch = pipeline.TokenPipeline(cfg, pipeline.DataConfig(
+        global_batch=B, seq_len=S)).batch_at(0)
+    out = {}
+    for side, dev in (("card", cuda), ("cpu", "cpu")):
+        p = _tree_to(params, dev)
+        out[side] = (p,) + step(p, optim.init(opt_cfg, p, device=dev), batch,
+                                device=dev)
+    (p0, pc, sc, mc), (_, pp, sp, mp) = out["card"], out["cpu"]
+    rel = {k: abs(mc[k].item() - mp[k].item()) / abs(mp[k].item())
+           for k in ("loss", "grad_norm")}
+    check(max(rel.values()) <= TRAIN_LOSS_TOL, f"{cfg.name}: train step "
+          f"card vs CPU {rel} (limit {TRAIN_LOSS_TOL})")
+    lr = mp["lr"].item()
+    m_err, upd_err, noise, n = 0.0, 0.0, 0, 0
+    p_err, p_lim = 0.0, math.inf    # the largest relative error and the
+    #                                 tightest leaf's limit
+    cpu_p, cpu_m = _leaves_by_path(pp), _leaves_by_path(sp["m"])
+    card_m, start = _leaves_by_path(sc["m"]), _leaves_by_path(p0)
+    for k, new in _leaves_by_path(pc).items():
+        mk, mw = card_m[k].cpu(), cpu_m[k]
+        m_err = max(m_err, float((mk - mw).abs().max() / mw.abs().max()))
+        agree = (mk - mw).abs() <= 0.01 * mw.abs()
+        p_before = start[k].cpu()
+        d = ((new.cpu() - p_before) - (cpu_p[k] - p_before)).abs()
+        upd_err = max(upd_err, float(d[agree].max()) / lr
+                      if agree.any() else 0.0)
+        noise += int((~agree).sum())
+        n += mw.numel()
+        # an entry may move the other way by at most 2 lr (1 + wd |p|)
+        scale = float(cpu_p[k].abs().max())
+        r = float((new.cpu() - cpu_p[k]).abs().max()) / scale
+        lim = 2 * lr * (1 + opt_cfg.weight_decay * float(
+            p_before.abs().max())) / scale
+        check(r <= lim, f"{cfg.name}{k}: updated parameters card vs CPU "
+              f"{r:.3g} x max (limit {lim:.3g})")
+        p_err, p_lim = max(p_err, r), min(p_lim, lim)
+    check(m_err <= TRAIN_GRAD_TOL, f"{cfg.name}: first moment card vs CPU "
+          f"{m_err:.3g} x max (limit {TRAIN_GRAD_TOL})")
+    check(upd_err <= TRAIN_UPD_TOL, f"{cfg.name}: update card vs CPU "
+          f"{upd_err:.3g} x lr (limit {TRAIN_UPD_TOL})")
+    return (f"loss {mp['loss'].item():.6f}, |d| {rel['loss']:.3g} relative; "
+            f"grad_norm {mp['grad_norm'].item():.6f}, {rel['grad_norm']:.3g} "
+            f"(limit {TRAIN_LOSS_TOL}); first moment of every leaf within "
+            f"{m_err:.3g} x max |CPU| (limit {TRAIN_GRAD_TOL}); update within "
+            f"{upd_err:.3g} x lr ({lr:.3g}; limit {TRAIN_UPD_TOL}) at the "
+            f"{n - noise} of {n} entries whose gradients agree within 1%, "
+            f"{noise} at the noise floor; updated parameters within "
+            f"{p_err:.3g} x max |CPU| (each leaf's limit 2 lr (1 + wd "
+            f"max|p|) / max|p|, an entry at the noise floor moving the "
+            f"other way; the tightest {p_lim:.3g})")
+
+
+def run_train(cuda: torch.device) -> None:
+    """The training path (``launch.train.main``, ``launch.steps``,
+    ``train.{optim,checkpoint}``, ``data.pipeline``), with its own launch
+    counts: Qwen3-0.6B at full width and full depth in bf16 (float32
+    moments) takes ``TRAIN_STEPS`` steps at B=8, S=512 with a checkpoint
+    every 3; the checkpoint restores bit for bit; with step 6 uncommitted,
+    a second call resumes from step 3 and its losses stay within
+    ``RESUME_TOL`` of the first call's; times, kernels a step, idle share,
+    peak memory and the FLOP bound; one float32 step at full width on the
+    card against the CPU; the smoke config's loss falls by more than 0.5
+    in 30 steps on the card; no launch of K1-K5."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import api, lm
+    from repro_torch.train import checkpoint, optim
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    _build.launches.clear()
+    cfg = configs.get(TRAIN_ARCH)
+    n = api.count_params(cfg)
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--ckpt-dir", str(ckpt),
+            "--ckpt-every", str(TRAIN_EVERY), "--log-every", "1"]
+    log("train", f"{cfg.name}: all {cfg.n_layers} layers at full width, {n} "
+        f"parameters in bf16 ({2 * n} bytes), float32 moments "
+        f"({8 * n} bytes); launch.train.main({argv})")
+    try:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with StepTap() as tap:
+            first = train.main(argv)
+        wall1 = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        check(len(tap.steps) == TRAIN_STEPS, f"ran {len(tap.steps)} steps")
+        losses = [m["loss"] for _, m in tap.steps]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] ==
+              first["last_loss"], f"losses {losses}")
+        check(checkpoint.latest_step(ckpt) == TRAIN_STEPS,
+              "no committed checkpoint at the last step")
+        state = {"params": tap.last[0], "opt": tap.last[1]}
+        back = checkpoint.restore(ckpt, TRAIN_STEPS, state)
+        same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            lm.leaves(state), lm.leaves(back)))
+        check(same, "restore(save(state)) differs from the state on the card")
+        log("train", f"call 1: {TRAIN_STEPS} steps in {wall1:.1f} s (host "
+            f"clock, init and {TRAIN_STEPS // TRAIN_EVERY} checkpoints "
+            f"included: {tap.io_line()}), losses "
+            f"{[round(x, 4) for x in losses]}; step "
+            f"{TRAIN_STEPS}'s checkpoint restored on the card equals the "
+            f"state it saved bit for bit ({len(lm.leaves(state))} leaves: "
+            f"bf16 params, float32 moments, int32 step)")
+        del back
+
+        (ckpt / f"step_{TRAIN_STEPS:08d}" / "COMMITTED").unlink()
+        out = io.StringIO()
+        with StepTap() as tap2, contextlib.redirect_stdout(out):
+            second = train.main(argv)
+        check(f"resumed from step {TRAIN_EVERY}" in out.getvalue(),
+              f"the second call did not resume from step {TRAIN_EVERY}: "
+              f"{out.getvalue()[:200]}")
+        for line in out.getvalue().splitlines():
+            log("train", f"call 2: {line}")
+        resumed = [m["loss"] for _, m in tap2.steps]
+        diffs = [abs(a - b) for a, b in zip(resumed, losses[TRAIN_EVERY:])]
+        check(len(resumed) == TRAIN_STEPS - TRAIN_EVERY
+              and max(diffs) <= RESUME_TOL,
+              f"resumed losses {resumed} vs {losses[TRAIN_EVERY:]}")
+        log("train", f"call 2 (step {TRAIN_STEPS} uncommitted): printed "
+            f"'resumed from step {TRAIN_EVERY}'; steps {TRAIN_EVERY}-"
+            f"{TRAIN_STEPS - 1} ({tap2.io_line()}) losses {resumed} against "
+            f"the uninterrupted "
+            f"{losses[TRAIN_EVERY:]}, |d| {diffs} (limit {RESUME_TOL}: the "
+            f"card is not held to a bit-exact replay, as cuBLAS runs "
+            f"without a fixed workspace and the embedding's backward adds "
+            f"atomically; the CPU replays bit for bit); "
+            f"final loss {second['last_loss']:.6f}")
+
+        step_ms = [ms for ms, _ in tap.steps[1:]]
+        med = statistics.median(step_ms)
+        opt_cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=20)  # launch.train's
+        step = make_train_step(cfg, opt_cfg)
+        batch = pipeline.TokenPipeline(cfg, pipeline.DataConfig(
+            global_batch=TRAIN_B, seq_len=TRAIN_S)).batch_at(0)
+        params, opt_state = tap2.last
+        busy, n_kernels = busy_ms(lambda: step(params, opt_state, batch,
+                                               device=cuda))
+        by_dt = flops_by_dtype(lambda: step(params, opt_state, batch,
+                                            device=cuda))
+        ops = sum(by_dt.values())
+        bound = ops / BF16_TC_OPS_PER_S * 1e3
+        f32 = by_dt.get(torch.float32, 0)
+        bound_dt = ((ops - f32) / BF16_TC_OPS_PER_S
+                    + f32 / FP32_OPS_PER_S) * 1e3
+        log("train", f"{cfg.name} B={TRAIN_B} S={TRAIN_S} on {card}: "
+            f"{med:.2f} ms a step (median of steps 1-{TRAIN_STEPS - 1}: "
+            f"{', '.join(f'{x:.2f}' for x in step_ms)}; step 0 "
+            f"{tap.steps[0][0]:.2f} ms); {TRAIN_B * TRAIN_S / med * 1e3:.0f} "
+            f"tokens/s; {n_kernels} kernels and copies a step, the card busy "
+            f"{busy:.2f} ms (torch.profiler; idle share {1 - busy / med:.3f}"
+            f"); {ops:.4g} operations a step (FlopCounterMode: forward, "
+            f"the layers' and chunks' recompute and backward), bound "
+            f"{bound:.2f} ms at {BF16_TC_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 "
+            f"({med / bound:.1f}x); by dtype {f32:.4g} of them float32 (the "
+            f"chunked attention's products) at "
+            f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s, the rest bf16: bound "
+            f"{bound_dt:.2f} ms ({med / bound_dt:.1f}x); peak memory {peak} "
+            f"bytes above the {base} earlier phases hold "
+            f"(torch.cuda.max_memory_allocated)")
+        stages = train_stages(cuda, api.build(cfg), opt_cfg, params,
+                              opt_state, batch)
+        top = top_kernels(lambda: step(params, opt_state, batch,
+                                       device=cuda))
+        log("train", f"where a step's time goes on {card}: {stages}; the "
+            f"card's top kernels in one step: {top}")
+        del params, opt_state, state, first, second
+        tap.last = tap2.last = None
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    cfg32 = cfg.scaled(dtype="float32")
+    log("train", f"{cfg.name} float32 B=1 S={TRAIN_CPU_S}, one step card vs "
+        f"CPU: {train_card_vs_cpu(cuda, cfg32, 1, TRAIN_CPU_S)}")
+
+    smoke = configs.get_smoke(TRAIN_ARCH).scaled(vocab_size=128)
+    opt_cfg = optim.AdamWConfig(lr=3e-3, warmup_steps=5, weight_decay=0.0)
+    params = api.build(smoke).init(torch.Generator().manual_seed(0),
+                                   device=cuda)
+    opt_state = optim.init(opt_cfg, params, device=cuda)
+    data = pipeline.TokenPipeline(smoke, pipeline.DataConfig(global_batch=4,
+                                                             seq_len=64))
+    step = make_train_step(smoke, opt_cfg)
+    smoke_losses = []
+    for i in range(SMOKE_STEPS):
+        params, opt_state, m = step(params, opt_state, data.batch_at(i),
+                                    device=cuda)
+        smoke_losses.append(m["loss"].item())
+    check(smoke_losses[-1] < smoke_losses[0] - 0.5, f"smoke loss "
+          f"{smoke_losses[0]:.4f} -> {smoke_losses[-1]:.4f}: did not fall by "
+          f"more than 0.5")
+    log("train", f"{smoke.name} (vocab 128, lr 3e-3, warmup 5) on the card: "
+        f"loss {smoke_losses[0]:.4f} -> {smoke_losses[-1]:.4f} in "
+        f"{SMOKE_STEPS} steps on Markov data (must fall by more than 0.5)")
+
+    launched = {k: v for k, v in _build.launches.items() if v}
+    check(not launched, f"the training path launched kernels: {launched}")
+    log("train", f"kernel launches on the training path: 0 of K1-K5 "
+        f"({dict(_build.launches)}): the reference's models call the plain "
+        f"chunked_attention and K5 has no backward pass; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2905,6 +3259,7 @@ def main() -> int:
     run_models(cuda)
     run_moe(cuda)
     run_ssm_encdec(cuda)
+    run_train(cuda)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

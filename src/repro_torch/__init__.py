@@ -1,7 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for one NVIDIA H100.
 
 The port keeps the reference package's layout (``obs``, ``core``,
-``kernels``, ``rebalance``, ``serve``, ``dist``, ``configs``, ``models``)
+``kernels``, ``rebalance``, ``serve``, ``dist``, ``configs``, ``models``,
+``train``, ``data``, ``launch``)
 so each module's counterpart sits at the same path under ``src/repro/``.
 It imports torch and NumPy only
 — never ``jax`` and nothing of ``repro``.  Every Pallas kernel the
@@ -18,8 +19,10 @@ the model layer's plain chunked attention (``models.layers``); and the
 paper's algorithm registry (``core.registry``: every partitioner by its
 paper name) over a NumPy copy of the host engine, its exact device
 solvers (``core.device``: 1D, JAG-PQ-OPT, JAG-M-OPT) on the card; the
-rebalance runtime, serving and ``dist``; and the decoder-only model
-stack of the dense and VLM families (``configs``, ``models.api``:
-prefill and decode with the reference's serving semantics, plain
-PyTorch, as the reference's models call no kernel).
+rebalance runtime, serving and ``dist``; the model stack of every
+family (``configs``, ``models.api``: prefill and decode with the
+reference's serving semantics, plain PyTorch, as the reference's models
+call no kernel); and training on one card (``models.api``'s ``loss``,
+``train.optim``, ``train.checkpoint``, ``data.pipeline``,
+``launch.train``).
 """

@@ -2,9 +2,10 @@
 
 The port of ``repro.dist``, as far as the planner needs it:
 
-- :mod:`.ctx` — the active-mesh context and the planner's device mesh
-  (``planner_mesh``): one process driving a tuple of devices, over which
-  ``rebalance.planner`` shards a frame stream by time.
+- :mod:`.ctx` — the active-mesh context and device meshes of one or
+  more named axes, driven by one process: the planner's
+  (``planner_mesh``), over which ``rebalance.planner`` shards a frame
+  stream by time, and the launchers' ``("data", "model")`` meshes.
 - :mod:`.cp_balance` — context-parallel causal-attention block plans: the
   optimal *contiguous* split is a 1D partitioning problem on the shared
   wide-bisection engine (NumPy).

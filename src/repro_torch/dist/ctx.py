@@ -1,10 +1,12 @@
-"""Active-mesh context and the planner's device mesh.
+"""Active-mesh context and device meshes.
 
-The port of the planner half of ``repro.dist.ctx``.  It keeps the
-reference's single-controller model: one process drives every device of
-the mesh, as ``jax.sharding.Mesh`` does there, so a mesh here is a small
-frozen :class:`Mesh` of ``torch.device`` entries with named axes, not a
-``torch.distributed`` process group.  The axis vocabulary is the
+The port of ``repro.dist.ctx``.  It keeps the reference's
+single-controller model: one process drives every device of the mesh, as
+``jax.sharding.Mesh`` does there, so a mesh here is a small frozen
+:class:`Mesh`, a grid of ``torch.device`` entries with named axes, not a
+``torch.distributed`` process group.  The planner's meshes have one axis
+(``planner_mesh``); the training loop's has two, ``("data", "model")``
+(``launch.mesh``).  The axis vocabulary is the
 reference's (:data:`DP_AXES`): ``rebalance.planner`` shards a frame
 stream's time axis over the data-parallel axes that :func:`planner_axes`
 names.
@@ -15,8 +17,8 @@ counterpart of the forced host devices the reference's tests use
 in the tests, ``[cuda:0] * D`` on one card, so the sharded path runs
 where there is one device.
 
-``resolve``, ``constrain`` and ``abstract_mesh`` serve the models and are
-not ported yet.
+``resolve``, ``constrain`` and ``abstract_mesh`` serve the sharded models
+and are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,34 +29,62 @@ import threading
 import torch
 
 __all__ = ["DP_AXES", "Mesh", "current_mesh", "mesh_context", "mesh_sizes",
-           "dp_axes", "axis_entry", "planner_mesh", "planner_axes"]
+           "dp_axes", "axis_entry", "planner_mesh", "planner_axes",
+           "dp_devices"]
 
 DP_AXES = ("pod", "data")
 
 _state = threading.local()
 
 
+def _grid(devices, depth: int, names: tuple) -> tuple:
+    """``devices`` as nested tuples of ``torch.device``, one level for each
+    of ``depth`` axes, every level's entries of one length."""
+    if isinstance(devices, (str, torch.device)) or not hasattr(
+            devices, "__len__"):
+        raise ValueError(f"Mesh: devices for the axes {names} are not "
+                         f"nested {len(names)} deep: a flat tuple spans one "
+                         f"axis, a grid has one level per axis")
+    if not len(devices):
+        raise ValueError("Mesh needs at least one device")
+    if depth == 1:
+        if any(isinstance(d, (list, tuple)) for d in devices):
+            raise ValueError(f"Mesh: devices nested deeper than the "
+                             f"{len(names)} axes {names}")
+        return tuple(torch.device(d) for d in devices)
+    rows = tuple(_grid(d, depth - 1, names) for d in devices)
+    if len({_extent(r) for r in rows}) != 1:
+        raise ValueError(f"Mesh: the device grid for {names} is ragged")
+    return rows
+
+
+def _extent(grid) -> tuple:
+    return (len(grid),) + (_extent(grid[0]) if isinstance(grid[0], tuple)
+                           else ())
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A one-axis device mesh: ``devices[i]`` holds index ``i`` of the
-    axis ``axis_names[0]``.  ``shape`` is ``{axis: len(devices)}``, as a
-    ``jax.sharding.Mesh``'s is."""
+    """A device mesh: ``devices`` holds one level of nesting per axis of
+    ``axis_names`` (a flat tuple for one axis, where ``devices[i]`` holds
+    index ``i``; ``devices[i][j]`` holds index (i, j) of two).  ``shape``
+    is ``{axis: size}`` in axis order, as a ``jax.sharding.Mesh``'s is.
+    A device may appear more than once."""
 
-    devices: tuple[torch.device, ...]
+    devices: tuple
     axis_names: tuple[str, ...] = ("data",)
 
     def __post_init__(self):
-        if len(self.axis_names) != 1:
-            raise ValueError(f"Mesh has one axis, got {self.axis_names}")
-        if not self.devices:
-            raise ValueError("Mesh needs at least one device")
+        names = tuple(self.axis_names)
+        if not names:
+            raise ValueError("Mesh needs at least one axis")
         object.__setattr__(self, "devices",
-                           tuple(torch.device(d) for d in self.devices))
-        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+                           _grid(self.devices, len(names), names))
+        object.__setattr__(self, "axis_names", names)
 
     @property
     def shape(self) -> dict:
-        return {self.axis_names[0]: len(self.devices)}
+        return dict(zip(self.axis_names, _extent(self.devices)))
 
 
 def current_mesh():
@@ -124,3 +154,19 @@ def planner_axes(mesh) -> tuple[str, ...]:
         raise ValueError(f"mesh {mesh.axis_names} has no data-parallel axis "
                          f"(expected one of {DP_AXES})")
     return axes
+
+
+def dp_devices(mesh) -> tuple[torch.device, ...]:
+    """The devices a frame stream's shards run on, in order: the grid's
+    entries along the DP axes (row-major), at index 0 of every other axis,
+    whose entries would hold replicas.  A one-axis planner mesh gives its
+    ``devices``."""
+    axes = planner_axes(mesh)
+
+    def walk(grid, names):
+        if not names:
+            return (grid,)
+        rows = grid if names[0] in axes else grid[:1]
+        return tuple(d for row in rows for d in walk(row, names[1:]))
+
+    return walk(mesh.devices, mesh.axis_names)

@@ -1,12 +1,12 @@
 """Whisper-style encoder-decoder backbone, plain PyTorch.
 
-Counterpart of ``repro.models.encdec`` without training (``loss_fn``).
-The conv audio frontend is a stub, as in the reference: the caller gives
-precomputed frame embeddings (B, encoder_len, d_model).  The backbone is
-the reference's: a bidirectional encoder, a causal decoder with self- and
-cross-attention, learned absolute positions (no rope), plain GELU MLPs
-and RMSNorm.  The parameter tree is the reference's, each stack's leaves
-on a leading layer axis, and the head is the tied embedding.
+Counterpart of ``repro.models.encdec``.  The conv audio frontend is a
+stub, as in the reference: the caller gives precomputed frame embeddings
+(B, encoder_len, d_model).  The backbone is the reference's: a
+bidirectional encoder, a causal decoder with self- and cross-attention,
+learned absolute positions (no rope), plain GELU MLPs and RMSNorm.  The
+parameter tree is the reference's, each stack's leaves on a leading
+layer axis, and the head is the tied embedding.
 
 Serving semantics copied from the reference:
 
@@ -18,7 +18,11 @@ Serving semantics copied from the reference:
   (the reference's own rule, ``encdec.py:115-127``, is the same for every
   case it allows), in place.
 
-Entry points (``init_params``, ``encode``, ``decode_train``,
+Training (``loss_fn``) checkpoints every encoder and decoder layer, as
+the reference does, and scores the decoder's hidden states against the
+tied embedding with ``lm.chunked_ce``.
+
+Entry points (``init_params``, ``encode``, ``decode_train``, ``loss_fn``,
 ``init_cache``, ``prefill``, ``decode_step``) take ``device=None``, which
 means the card, and raise ``RuntimeError`` where CUDA is absent; pass
 ``device="cpu"`` to run on the CPU.
@@ -33,7 +37,8 @@ from repro_torch.rebalance.planner import resolve_device
 
 from . import layers as L
 from .config import ModelConfig
-from .lm import _dtype, _index, _inputs, _positions, _stacked
+from .lm import (_dtype, _index, _inputs, _positions, _stacked, _unstack,
+                 checkpointed, chunked_ce)
 
 Params = dict
 #: rows of the decoder's learned positions; positions wrap past them
@@ -132,16 +137,21 @@ def _attend(p: Params, cfg: ModelConfig, xq, xkv, q_pos, kv_pos,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
-def _encode(p: Params, cfg: ModelConfig, frames) -> torch.Tensor:
+def _enc_layer(lp: Params, cfg: ModelConfig, x, pos) -> torch.Tensor:
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    x = x + _attend(lp["attn"], cfg, h, h, pos, pos, causal=False)
+    h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp_forward(lp["ffn"], cfg, h)
+
+
+def _encode(p: Params, cfg: ModelConfig, frames,
+            remat: bool = False) -> torch.Tensor:
     x = frames.to(_dtype(cfg)) + p["enc_pos"][None]
     B, T = x.shape[:2]
     pos = _positions(B, T, x.device)
-    for i in range(cfg.encoder_layers):
-        lp = _index(p["enc_layers"], i)
-        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        x = x + _attend(lp["attn"], cfg, h, h, pos, pos, causal=False)
-        h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_forward(lp["ffn"], cfg, h)
+    body = checkpointed(_enc_layer, remat)
+    for lp in _unstack(p["enc_layers"], cfg.encoder_layers):
+        x = body(lp, cfg, x, pos)
     return L.rmsnorm(x, p["enc_ln"], cfg.norm_eps)
 
 
@@ -177,16 +187,17 @@ def _dec_layer(lp: Params, cfg: ModelConfig, x, enc, pos, enc_pos,
     return x + L.mlp_forward(lp["ffn"], cfg, h)
 
 
-def _decoder(p: Params, cfg: ModelConfig, tokens, pos, enc, cache=None):
+def _decoder(p: Params, cfg: ModelConfig, tokens, pos, enc, cache=None,
+             remat: bool = False):
     """The decoder stack over ``tokens`` at positions ``pos`` (B, S), its
     learned positions read at ``pos % 4096``; returns the final-normed
     hidden states."""
     x = p["embed"][tokens] + p["dec_pos"][pos.long() % DEC_POS]
     enc_pos = _positions(enc.shape[0], enc.shape[1], enc.device)
-    for i in range(cfg.n_layers):
-        x = _dec_layer(_index(p["dec_layers"], i), cfg, x, enc, pos, enc_pos,
-                       None if cache is None
-                       else _index(cache["self"], i))
+    body = checkpointed(_dec_layer, remat)
+    for i, lp in enumerate(_unstack(p["dec_layers"], cfg.n_layers)):
+        x = body(lp, cfg, x, enc, pos, enc_pos,
+                 None if cache is None else _index(cache["self"], i))
     return L.rmsnorm(x, p["ln_f"], cfg.norm_eps)
 
 
@@ -201,9 +212,34 @@ def decode_train(p: Params, cfg: ModelConfig, frames, tokens,
     position, the frames encoded first."""
     dev = resolve_device(device)
     frames, tokens = _inputs(dev, p, None, frames, tokens)
-    enc = _encode(p, cfg, frames)
+    return _logits(p, decode_hidden(p, cfg, frames, tokens))
+
+
+def decode_hidden(p: Params, cfg: ModelConfig, frames, tokens,
+                  remat: bool = False) -> torch.Tensor:
+    """The decoder's final-normed hidden states over every position, the
+    frames encoded first (tensors on the params' device); every layer of
+    both stacks checkpointed when ``remat``."""
+    enc = _encode(p, cfg, frames, remat=remat)
     B, T = tokens.shape
-    return _logits(p, _decoder(p, cfg, tokens, _positions(B, T, dev), enc))
+    return _decoder(p, cfg, tokens, _positions(B, T, tokens.device), enc,
+                    remat=remat)
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch, remat: bool = True,
+            device=None):
+    """The training objective: batch frames (B, encoder_len, d), tokens and
+    labels (B, T).  The mean cross-entropy of the decoder's hidden states
+    against the tied embedding (``lm.chunked_ce``, every weight 1).  The
+    reference checkpoints both stacks whatever ``remat`` says; so does the
+    port by default.  Returns (loss, {"nll": loss})."""
+    dev = resolve_device(device)
+    frames, tokens, labels = _inputs(dev, p, None, batch["frames"],
+                                     batch["tokens"], batch["labels"])
+    x = decode_hidden(p, cfg, frames, tokens, remat=remat)
+    w = torch.ones(labels.shape, dtype=torch.float32, device=dev)
+    loss = chunked_ce(lambda xc: _logits(p, xc), x, labels, w)
+    return loss, {"nll": loss}
 
 
 def init_cache(cfg: ModelConfig, batch: int, ctx: int, device=None) -> dict:

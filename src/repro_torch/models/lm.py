@@ -1,21 +1,26 @@
 """Decoder-only language model: the dense, VLM, MoE, SSM and hybrid
 families, with GQA or MLA attention, Mamba2 SSD layers or both.
 
-Counterpart of ``repro.models.lm`` without training (``chunked_ce``,
-``loss_fn``).  The parameter tree is the reference's: per-layer leaves
-stacked on a leading L axis, which the layer loop indexes (the reference
-scans over it).  The decode cache is stacked the same way and written in
-place.
+Counterpart of ``repro.models.lm``.  The parameter tree is the
+reference's: per-layer leaves stacked on a leading L axis, which the
+layer loop unbinds (the reference scans over it).  The decode cache is
+stacked the same way and written in place.
+
+Training (``loss_fn``) takes gradients by autograd through the same
+layers.  ``remat=True`` checkpoints each layer
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` around the scanned
+body), and ``chunked_ce`` never holds more than one chunk's logits: each
+chunk is checkpointed, so the backward pass computes its logits again.
 
 Serving semantics are the reference's, pads included: a left-padded
 prompt is a sequence like any other, its pad tokens at positions
 ``0..`` attended by every later token; nothing masks them and no row's
 positions are shifted.
 
-Entry points (``init_params``, ``forward``, ``init_cache``, ``prefill``,
-``decode_step``, ``params_from_numpy``) take ``device=None``, which means
-the card, and raise ``RuntimeError`` where CUDA is absent; pass
-``device="cpu"`` to run on the CPU.
+Entry points (``init_params``, ``forward``, ``loss_fn``, ``init_cache``,
+``prefill``, ``decode_step``, ``params_from_numpy``) take ``device=None``,
+which means the card, and raise ``RuntimeError`` where CUDA is absent;
+pass ``device="cpu"`` to run on the CPU.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.rebalance.planner import resolve_device
 
@@ -49,6 +56,25 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers' slices of a tree stacked on a leading L axis, each
+    leaf unbound once (views): autograd then stacks the layers' gradients
+    in one operation, where indexing layer by layer would add n full-size
+    gradients."""
+    if isinstance(tree, dict):
+        subs = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in subs.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def checkpointed(fn, on: bool):
+    """``fn``, checkpointed when ``on``: its activations are not kept, and
+    the backward pass runs it again (``jax.checkpoint``)."""
+    if not on:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 def _stacked(tree, n: int, device):
@@ -226,13 +252,15 @@ def _head(p: Params, cfg: ModelConfig, x) -> torch.Tensor:
     return logits
 
 
-def _layers(p: Params, cfg: ModelConfig, x, positions, cache=None):
-    """The layer stack: (x, the mean of the layers' aux losses)."""
+def _layers(p: Params, cfg: ModelConfig, x, positions, cache=None,
+            remat: bool = False):
+    """The layer stack: (x, the mean of the layers' aux losses), each layer
+    checkpointed when ``remat`` (training, without a cache)."""
     aux = 0.0
-    for i in range(cfg.n_layers):
-        x, _, a = layer_forward(_index(p["layers"], i), cfg, x, positions, i,
-                                cache=None if cache is None
-                                else _index(cache, i))
+    body = checkpointed(layer_forward, remat)
+    for i, lp in enumerate(_unstack(p["layers"], cfg.n_layers)):
+        x, _, a = body(lp, cfg, x, positions, i,
+                       cache=None if cache is None else _index(cache, i))
         aux = aux + a
     return x, aux / cfg.n_layers
 
@@ -265,6 +293,69 @@ def forward(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None,
     x, aux = _layers(p, cfg, x, _positions(B, T, dev))
     return _head(p, cfg, x), torch.as_tensor(aux, dtype=torch.float32,
                                              device=dev)
+
+
+def _hidden(p: Params, cfg: ModelConfig, tokens, prefix_embeds=None,
+            remat: bool = False):
+    """The final hidden states before the head, and the mean aux loss."""
+    x = _embed(p, cfg, tokens, prefix_embeds)
+    B, T = x.shape[:2]
+    return _layers(p, cfg, x, _positions(B, T, x.device), remat=remat)
+
+
+def chunked_ce(head_fn, x, labels, weights, chunk: int = 512):
+    """The weighted mean cross-entropy of ``head_fn(x)`` (float32 logits)
+    against ``labels``, without materialising (B, S, V) logits: over
+    sequence chunks of min(chunk, S), ``x``, the labels and the weights
+    zero-padded to a whole number of chunks, each chunk checkpointed so
+    that the backward pass computes its logits again.  The sums of the
+    weighted losses and of the weights run over the chunks in order, from
+    float32 zeros, as the reference's scan carries them; the mean divides
+    by max(sum of weights, 1)."""
+    B, S, d = x.shape
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        weights = F.pad(weights, (0, pad))
+
+    def body(xc, lc, wc):
+        logits = head_fn(xc)                                   # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, lc.long()[..., None])[..., 0]
+        return ((lse - ll) * wc).sum(), wc.sum()
+
+    num = den = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, x.shape[1], c):
+        n, w = checkpoint(body, x[:, i:i + c], labels[:, i:i + c],
+                          weights[:, i:i + c], use_reentrant=False)
+        num, den = num + n, den + w
+    return num / torch.clamp(den, min=1.0)
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch, remat: bool = True,
+            device=None):
+    """The training objective.  batch: tokens (B, S), labels (B, Tt),
+    optional weights (B, Tt) and a VLM's prefix_embeds (NumPy arrays or
+    tensors).  The loss covers the last Tt positions (a VLM's text), and
+    adds ``0.01 * aux`` for a model with experts.  Returns (loss, {"nll":
+    loss, "aux": the mean aux loss}), float32 scalars."""
+    dev = resolve_device(device)
+    tokens, labels, pe, w = _inputs(dev, p, None, batch["tokens"],
+                                    batch["labels"],
+                                    batch.get("prefix_embeds"),
+                                    batch.get("weights"))
+    x, aux = _hidden(p, cfg, tokens, pe, remat=remat)
+    Tt = labels.shape[1]
+    x = x[:, -Tt:]
+    w = (torch.ones(labels.shape, dtype=torch.float32, device=dev)
+         if w is None else w.float())
+    loss = chunked_ce(lambda xc: _head(p, cfg, xc), x, labels, w)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+    if cfg.n_experts > 0:
+        loss = loss + 0.01 * aux
+    return loss, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -269,8 +269,7 @@ def _dp_spec(mesh) -> tuple[torch.device, ...]:
     """The devices the time axis is sharded over, in order: the mesh's
     data-parallel axis (checked by ``dist.ctx.planner_axes``)."""
     from repro_torch.dist import ctx
-    ctx.planner_axes(mesh)
-    return tuple(resolve_device(d) for d in mesh.devices)
+    return tuple(resolve_device(d) for d in ctx.dp_devices(mesh))
 
 
 def _pad_time(frames, T_pad: int):

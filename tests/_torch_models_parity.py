@@ -43,6 +43,15 @@ def host(x) -> np.ndarray:
     return np.array(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
 
 
+def paths(tree, path: str = "") -> dict:
+    """{"/a/b": leaf} over a dict tree, keys sorted (the order in which
+    ``jax.tree_util`` flattens it)."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in paths(tree[key], f"{path}/{key}").items()}
+    return {path: tree}
+
+
 def assert_close(port, ref, tol: float, what: str, rows=None) -> None:
     """max |port - ref| <= tol x max |ref|, over the leading-axis ``rows``
     when given."""

@@ -20,7 +20,9 @@ kernel (K5) sums in tiles with an online softmax, the plain version
 densely: ``tests/test_flash.py``'s tolerances, 2e-5 for float32 and 2e-2
 for bfloat16, compared in float32, with the plain version's float32
 products in full float32 (no TF32); against the model layer's chunked
-attention 3e-5 in float32, that test's own.
+attention 3e-5 in float32, that test's own.  The models and a train step
+run no kernel; they are held to the port's CPU path (1e-4 x max, and for
+a train step the limits its test states).
 """
 import numpy as np
 import pytest
@@ -935,3 +937,55 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _by_path(tree, path=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _by_path(sub, f"{path}/{key}").items()}
+    return {path: tree}
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "mixtral_8x7b",
+                                  "whisper_large_v3"])
+def test_train_step_on_card_matches_cpu(arch):
+    """One smoke train step (``launch.steps.make_train_step``,
+    ``launch.train``'s AdamW defaults) from the same float32 parameters on
+    the card and on the CPU: the loss and ``grad_norm`` within 1e-5
+    relative, every leaf's first moment (0.1 x the clipped gradient)
+    within 1e-4 x its max |CPU|, and the update within 1e-2 x lr wherever
+    the two gradients agree within 1% (at step 1 AdamW moves an entry by
+    about lr x sign(g), so a gradient at the float32 noise floor may move
+    it the other way).  The training path launches none of the port's
+    kernels."""
+    from repro_torch.data import pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train import optim
+    dev = need_card()
+    cfg = configs.get_smoke(arch).scaled(dtype="float32")
+    mod = encdec if cfg.family == "encdec" else lm
+    cpu = mod.init_params(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+    opt_cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=20)
+    step = make_train_step(cfg, opt_cfg)
+    batch = pipeline.TokenPipeline(cfg, pipeline.DataConfig(
+        global_batch=2, seq_len=64)).batch_at(0)
+    before = sum(_build.launches.values())
+    card = _to(cpu, dev)
+    pc, sc, mc = step(card, optim.init(opt_cfg, card, device=dev), batch,
+                      device=dev)
+    assert sum(_build.launches.values()) == before
+    pp, sp, mp = step(cpu, optim.init(opt_cfg, cpu, device="cpu"), batch,
+                      device="cpu")
+    for k in ("loss", "grad_norm"):
+        assert float(mc[k]) == pytest.approx(float(mp[k]), rel=1e-5), k
+    lr = float(mp["lr"])
+    m_card, m_cpu = _by_path(sc["m"]), _by_path(sp["m"])
+    p_card, p_cpu, p0 = _by_path(pc), _by_path(pp), _by_path(cpu)
+    for k, mw in m_cpu.items():
+        mk = m_card[k].cpu()
+        assert float((mk - mw).abs().max()) <= 1e-4 * float(
+            mw.abs().max()), k
+        agree = (mk - mw).abs() <= 0.01 * mw.abs()
+        d = ((p_card[k].cpu() - p0[k]) - (p_cpu[k] - p0[k])).abs()[agree]
+        assert not d.numel() or float(d.max()) <= 1e-2 * lr, k

@@ -3,8 +3,9 @@
 - ``repro_torch`` and ``chip_smoke.py`` import without ``jax``, ``repro``
   and ``ml_dtypes`` (a subprocess where importing any fails), and the
   planner, the rebalance runtime, the capacity-aware planner, the serve
-  simulator and the dense, VLM, MoE, SSM, hybrid and encoder-decoder
-  smoke models' prefill and decode run there on the CPU;
+  simulator, the dense, VLM, MoE, SSM, hybrid and encoder-decoder smoke
+  models' prefill and decode, and a smoke train step with a bf16
+  checkpoint's round trip run there on the CPU;
 - an entry point with no ``device=`` raises where CUDA is absent instead
   of running on the CPU;
 - no ``except`` clause and no environment read in the port or the smoke
@@ -25,6 +26,9 @@ from repro_torch import configs
 from repro_torch.core import prefix, registry, sgorp
 from repro_torch.dist import ctx
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.steps import make_train_step
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.rectload import ops as rl_ops
 from repro_torch.kernels.sat import ops as sat_ops
@@ -33,6 +37,7 @@ from repro_torch.models import encdec as models_encdec
 from repro_torch.models import lm as models_lm
 from repro_torch.rebalance import (batch_device, execute, planner, policy,
                                    runtime, stream)
+from repro_torch.train import optim
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -118,6 +123,23 @@ for arch in ("qwen3_0_6b", "internvl2_2b", "mixtral_8x7b",
                                  cache, device="cpu")
     assert logits.shape == (2, 1, cfg.padded_vocab)
     assert bool(torch.isfinite(logits).all())
+import tempfile
+from repro_torch.launch.steps import make_train_step
+from repro_torch.train import checkpoint, optim
+cfg = configs.get_smoke("qwen3_0_6b")
+params = api.build(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+oc = optim.AdamWConfig()
+st = optim.init(oc, params, device="cpu")
+toks = np.arange(18, dtype=np.int32).reshape(2, 9)
+params, st, m = make_train_step(cfg, oc)(
+    params, st, {{"tokens": toks[:, :-1], "labels": toks[:, 1:]}},
+    device="cpu")
+assert int(st["step"]) == 1 and bool(torch.isfinite(m["loss"]))
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save(d, 1, {{"params": params, "opt": st}})
+    back = checkpoint.restore(d, 1, {{"params": params, "opt": st}})
+assert back["params"]["embed"].dtype == torch.bfloat16
+assert torch.equal(back["params"]["embed"], params["embed"])
 leaked = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))]
 assert not leaked, leaked
@@ -153,6 +175,12 @@ def _entry_points():
     enc_params = models_encdec.init_params(gen, enc_cfg, device="cpu")
     enc_cache = models_encdec.init_cache(enc_cfg, 1, 8, device="cpu")
     frames = np.zeros((1, enc_cfg.encoder_len, enc_cfg.d_model), np.float32)
+    batch = {"tokens": toks, "labels": toks}
+    opt_cfg = optim.AdamWConfig()
+    opt_state = optim.init(opt_cfg, params, device="cpu")
+    step = make_train_step(cfg, opt_cfg)
+    numpy_state = {"m": {"ln_f": np.zeros(64, np.float32)},
+                   "v": {"ln_f": np.zeros(64, np.float32)}, "step": 0}
     return [
         lambda: planner.plan_stream(fr, P=4, m=16),
         lambda: planner.plan_host(fr, P=4, m=16),
@@ -200,10 +228,21 @@ def _entry_points():
                                       enc_cache),
         lambda: models_encdec.decode_step(enc_params, enc_cfg, toks[:, :1],
                                           np.array([4]), enc_cache),
+        lambda: model.loss(params, batch),
+        lambda: models_lm.loss_fn(moe_params, moe_cfg, batch),
+        lambda: models_encdec.loss_fn(enc_params, enc_cfg,
+                                      {**batch, "frames": frames}),
+        lambda: step(params, opt_state, batch),
+        lambda: optim.init(opt_cfg, params),
+        lambda: optim.state_from_numpy(numpy_state, opt_cfg,
+                                       {"ln_f": params["ln_f"]}),
+        lambda: launch_train.main(["--smoke", "--steps", "1"]),
+        lambda: launch_mesh.make_local_mesh(),
+        lambda: launch_mesh.make_production_mesh(),
     ]
 
 
-@pytest.mark.parametrize("i", range(39))
+@pytest.mark.parametrize("i", range(48))
 def test_entry_points_raise_without_cuda(i, monkeypatch):
     call = _entry_points()[i]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -311,7 +350,10 @@ def test_no_fallback_sources_cover_the_port():
             "dist/cp_balance.py", "dist/moe_placement.py",
             "configs/__init__.py", "configs/qwen3_0_6b.py", "models/config.py",
             "models/lm.py", "models/api.py", "models/ssm.py",
-            "models/encdec.py"} <= names
+            "models/encdec.py", "train/__init__.py", "train/optim.py",
+            "train/checkpoint.py", "data/__init__.py", "data/pipeline.py",
+            "launch/__init__.py", "launch/cells.py", "launch/mesh.py",
+            "launch/steps.py", "launch/train.py"} <= names
     assert "models/_dist_compat.py" not in names
 
 

@@ -524,17 +524,33 @@ def test_bounded_ring_cache_matches_the_reference(S):
         assert_close(g, r, F32, f"call {i}")
 
 
-def test_loss_is_not_ported():
-    """Every family builds the reference's five functions; ``loss`` raises,
-    naming the roadmap's training item."""
+def test_loss_is_not_ported(monkeypatch):
+    """Every family builds the reference's five functions.  ``loss`` was a
+    stub that raised until training was ported; it is now the training
+    objective (``tests/test_torch_loss.py`` holds it against the
+    reference): on the CPU it returns a float32 loss and the reference's
+    metrics, and without ``device=`` it needs the card."""
     for arch in ("qwen3_0_6b", "mamba2_1_3b", "hymba_1_5b",
                  "whisper_large_v3"):
-        model = api.build(configs.get_smoke(arch))
+        cfg = configs.get_smoke(arch)
+        model = api.build(cfg)
         assert [f.name for f in dataclasses.fields(model)] == [
             f.name for f in dataclasses.fields(jax_api.Model)]
-        with pytest.raises(NotImplementedError,
-                           match="training.*item 2 .training, data"):
-            model.loss({}, {})
+        params = model.init(torch.Generator().manual_seed(0), device=CPU)
+        toks = np.zeros((1, 6), np.int32)
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.family == "encdec":
+            batch["frames"] = np.zeros((1, cfg.encoder_len, cfg.d_model),
+                                       np.float32)
+        with torch.no_grad():
+            loss, metrics = model.loss(params, batch, device=CPU)
+        assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+        assert set(metrics) == ({"nll"} if cfg.family == "encdec"
+                                else {"nll", "aux"})
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            model.loss(params, batch)
+        monkeypatch.undo()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
