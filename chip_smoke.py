@@ -111,7 +111,21 @@ resumes from step 3, its losses within 2e-2 of the first call's; step
 time, tokens/s, kernels a step, idle share, peak memory and the
 operations' bound; one float32 step at full width on the card against
 the CPU; the smoke config's loss falling by more than 0.5 in 30 steps;
-no launch of K1-K5.
+no launch of K1-K5.  Last, the sharded steps (``run_sharded``) with
+their own launch counts: Qwen3-0.6B whole in bf16 (float32 moments) takes
+3 train steps at B=8, S=512 through ``launch.steps.build_train`` on
+``launch.mesh.make_local_mesh()``, every parameter, moment and metric
+``torch.equal`` to ``make_train_step`` without a mesh from the same
+start, ms a step for both; Qwen3 prefills (B=8, 192 tokens) and takes 8
+decode steps through ``build_prefill``/``build_decode`` on the local mesh
+and on a (2, 2) ``("data", "model")`` mesh that names the card four times
+(the chunked attention's head-sharded branch), and DeepSeek-V2-236B (2
+of 60 layers) and Whisper-large-v3 (2 layers) at full width prefill and
+take 2 decode steps on the (2, 2) mesh, the logits of every call and
+every cache tensor ``torch.equal`` to ``models.api`` without a mesh (run
+first and last, times beside the meshes'); one dry-run cell
+(``dryrun.run_cell("qwen3-0.6b", "decode_32k")``, on ``meta``) with its
+roofline's dominant term and wall time; no launch of K1-K5.
 
 Dtype contract checked here: int32 results are bit-identical between the
 kernels and the plain versions, and to the CPU path; so are float32
@@ -2884,6 +2898,185 @@ def run_train(cuda: torch.device) -> None:
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+SHARD_STEPS = 3            # build_train steps, each held to make_train_step
+SHARD_B, SHARD_S, SHARD_CTX = 8, 192, 256   # Qwen3 serving: prompt, cache
+SHARD_DECODE = 8           # Qwen3 decode steps on each mesh
+SHARD_CUT = {"deepseek_v2_236b": {"n_layers": 2},       # of 60, as run_moe
+             "whisper_large_v3": {"n_layers": 2, "encoder_layers": 2}}
+SHARD_CUT_B, SHARD_CUT_S = 4, 64   # B*S within DeepSeek's moe_group (P15)
+SHARD_CUT_DECODE = 2
+
+
+def _same(a, b) -> bool:
+    """Every leaf of two trees (dicts, lists, tensors) torch.equal, dtypes
+    included."""
+    from repro_torch.models import lm
+    la = lm.leaves(a) if isinstance(a, dict) else list(a)
+    lb = lm.leaves(b) if isinstance(b, dict) else list(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _serve_steps(prefill, decode, params, batch, toks, cache, n: int):
+    """A prefill, then ``n`` decode steps fed the given tokens:
+    (logits of every call, the cache, ms of the prefill and each decode
+    step on the host clock, the card synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = [prefill(params, batch, cache)[0]]
+    torch.cuda.synchronize()
+    ms = [(time.perf_counter() - t0) * 1e3]
+    S = batch["tokens"].shape[1]
+    B = toks.shape[0]
+    for i in range(n):
+        t0 = time.perf_counter()
+        logits.append(decode(params, toks[:, S + i:S + i + 1],
+                             torch.full((B,), S + i, dtype=torch.int32,
+                                        device=toks.device), cache)[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return logits, cache, ms
+
+
+def run_sharded(cuda: torch.device) -> None:
+    """The sharded steps (``launch.steps.build_{train,prefill,decode}``,
+    ``dist.sharding``, ``dist.ctx.constrain``) with their own launch
+    counts: Qwen3-0.6B whole in bf16 takes ``SHARD_STEPS`` train steps
+    through ``build_train`` on ``make_local_mesh()``, every parameter,
+    moment and metric torch.equal to ``make_train_step`` without a mesh
+    from the same start; Qwen3 prefills and decodes through
+    ``build_prefill``/``build_decode`` on the local mesh and on a (2, 2)
+    ``("data", "model")`` mesh that names the card four times (the chunked
+    attention's head-sharded branch), and DeepSeek-V2 (2 of 60 layers) and
+    Whisper-large-v3 (2 layers) at full width on the (2, 2) mesh, logits
+    and every cache tensor torch.equal to ``models.api`` without a mesh;
+    one dry-run cell (``dryrun.run_cell``); no launch of K1-K5."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.dist import ctx
+    from repro_torch.kernels import _build
+    from repro_torch.launch import cells, dryrun, mesh, steps
+    from repro_torch.models import api
+    from repro_torch.train import optim
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    _build.launches.clear()
+    local = mesh.make_local_mesh()
+    quad = ctx.Mesh(((cuda, cuda), (cuda, cuda)), ("data", "model"))
+
+    # -- training: build_train against make_train_step --------------------
+    cfg = configs.get(TRAIN_ARCH)
+    oc = steps.opt_config(cfg)
+    fn, _ = steps.build_train(TRAIN_ARCH, cells.Shape(
+        "train_smoke", "train", TRAIN_S, TRAIN_B), local)
+    check(fn.device == torch.empty(0, device=cuda).device,
+          f"build_train on the local mesh runs on {fn.device}")
+    data = pipeline.TokenPipeline(cfg, pipeline.DataConfig(
+        global_batch=TRAIN_B, seq_len=TRAIN_S))
+    p0 = api.build(cfg).init(torch.Generator(cuda).manual_seed(SEED),
+                             device=cuda)
+    s0 = optim.init(oc, p0, device=cuda)
+    plain = steps.make_train_step(cfg, oc)
+    runs = {}
+    for name, step in (("make_train_step", lambda p, s, b: plain(
+            p, s, b, device=cuda)), ("build_train", fn)):
+        p, st, ms, metrics = p0, s0, [], []
+        for i in range(SHARD_STEPS):
+            batch = data.batch_at(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, st, m = step(p, st, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+        runs[name] = (p, st, metrics, ms)
+    (pa, sa, ma, msa), (pb, sb, mb, msb) = runs.values()
+    check(_same(pa, pb) and _same(sa, sb) and all(
+        _same(x, y) for x, y in zip(ma, mb)),
+        "build_train differs from make_train_step")
+    log("sharded", f"{cfg.name} whole in bf16 ({oc.moment_dtype} moments, "
+        f"steps.opt_config), B={TRAIN_B} S={TRAIN_S}, {SHARD_STEPS} steps "
+        f"from one start on {card}: build_train on make_local_mesh() = "
+        f"make_train_step without a mesh bit for bit (every parameter, "
+        f"moment and metric; losses "
+        f"{[round(float(m['loss']), 6) for m in mb]}); ms a step "
+        f"make_train_step {', '.join(f'{x:.2f}' for x in msa)}, "
+        f"build_train {', '.join(f'{x:.2f}' for x in msb)}")
+    del runs, pa, sa, pb, sb, p, st, p0, s0
+
+    # -- serving: Qwen3 on both meshes, DeepSeek and Whisper on (2, 2) ------
+    rng = np.random.default_rng(SEED)
+    cases = [("qwen3_0_6b", {}, SHARD_B, SHARD_S, SHARD_CTX, SHARD_DECODE,
+              {"local": local, "2x2": quad})]
+    cases += [(a, ov, SHARD_CUT_B, SHARD_CUT_S, SHARD_CUT_S + SHARD_CUT_DECODE,
+               SHARD_CUT_DECODE, {"2x2": quad}) for a, ov in SHARD_CUT.items()]
+    for arch, ov, B, S, ctx_len, n, meshes in cases:
+        full = configs.get(arch)
+        cfg = full.scaled(**ov)
+        model = api.build(cfg)
+        params = model.init(torch.Generator(cuda).manual_seed(SEED),
+                            device=cuda)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+            B, S + n)).astype(np.int32), device=cuda)
+        batch = {"tokens": toks[:, :S]}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.as_tensor(rng.standard_normal(
+                (B, cfg.encoder_len, cfg.d_model)).astype(np.float32),
+                device=cuda).to(torch.bfloat16)
+        plain = (lambda p, b, c: model.prefill(p, b, c, device=cuda),
+                 lambda p, t, pos, c: model.decode(p, t, pos, c, device=cuda))
+        built = {mname: (
+            steps.build_prefill(arch, cells.Shape("p", "prefill", S, B), m,
+                                overrides=ov or None)[0],
+            steps.build_decode(arch, cells.Shape("d", "decode", ctx_len, B),
+                               m, overrides=ov or None)[0])
+            for mname, m in meshes.items()}
+        # without a mesh first and last, so that neither side alone pays
+        # the first call's warm-up
+        order = [("api without a mesh", plain)] + [
+            (f"{k} mesh", v) for k, v in built.items()] + [
+            ("api without a mesh, again", plain)]
+        line, want = [], None
+        for what, (pf, dc) in order:
+            got = _serve_steps(pf, dc, params, batch, toks,
+                               model.init_cache(B, ctx_len, device=cuda), n)
+            want = want or got
+            check(_same(got[0], want[0]) and _same(got[1], want[1]),
+                  f"{arch}: {what} differs from models.api")
+            line.append(f"{what}: prefill {got[2][0]:.2f} ms, decode "
+                        f"median {statistics.median(got[2][1:]):.2f} ms")
+        heads = (f"heads {cfg.n_heads}/{cfg.n_kv_heads} divide model=2: the "
+                 f"chunked attention's head-sharded branch" if
+                 cfg.n_heads % 2 == cfg.n_kv_heads % 2 == 0 else
+                 "heads do not divide model=2")
+        log("sharded", f"{cfg.name} at full width"
+            f"{'' if not ov else f' ({ov} of {full.n_layers} layers)'}, "
+            f"B={B}, prompt {S}, {n} decode steps, cache {ctx_len}: "
+            f"build_prefill/build_decode on {', '.join(meshes)} = "
+            f"models.api bit for bit (logits of every call, every cache "
+            f"tensor; {heads}); {'; '.join(line)}")
+        del params, want, got
+
+    # -- one dry-run cell ----------------------------------------------------
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("qwen3-0.6b", "decode_32k", multi_pod=False)
+    rl = rec["roofline"]
+    check(rec["status"] == "ok", f"dry run: {rec}")
+    log("sharded", f"dryrun.run_cell(qwen3-0.6b, decode_32k, 16x16) in "
+        f"{time.perf_counter() - t0:.2f} s (meta, no card): dominant "
+        f"{rl['dominant']}, t_compute {rl['t_compute']:.6g} s, t_memory "
+        f"{rl['t_memory']:.6g} s, t_collective {rl['t_collective']:.6g} s "
+        f"per device (H100 SXM data sheet at 700 W), argument bytes "
+        f"{rec['memory']['argument_bytes']} a device")
+
+    launched = {k: v for k, v in _build.launches.items() if v}
+    check(not launched, f"the sharded path launched kernels: {launched}")
+    log("sharded", f"kernel launches on the sharded path: 0 of K1-K5 "
+        f"({dict(_build.launches)}); phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -3260,6 +3453,7 @@ def main() -> int:
     run_moe(cuda)
     run_ssm_encdec(cuda)
     run_train(cuda)
+    run_sharded(cuda)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

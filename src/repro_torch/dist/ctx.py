@@ -17,20 +17,30 @@ counterpart of the forced host devices the reference's tests use
 in the tests, ``[cuda:0] * D`` on one card, so the sharded path runs
 where there is one device.
 
-``resolve``, ``constrain`` and ``abstract_mesh`` serve the sharded models
-and are not ported yet.
+The model half resolves *logical* axis names against the active mesh
+(:func:`mesh_context`): ``"dp"`` is the data-parallel axes present
+(``("pod", "data")`` on the multi-pod mesh, ``("data",)`` otherwise),
+``"model"`` the tensor-parallel axis where the mesh has one, ``None``
+unsharded.  :func:`resolve` gives a :class:`PartitionSpec` (the entries
+of the reference's ``jax.sharding.PartitionSpec``), divisibility-safe:
+an axis whose size does not divide the dimension is dropped.
+:func:`constrain` is the models' sharding hint, and
+:class:`AbstractMesh` a mesh of axis names and sizes with no devices,
+which the dry run plans for.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 
 import torch
 
-__all__ = ["DP_AXES", "Mesh", "current_mesh", "mesh_context", "mesh_sizes",
-           "dp_axes", "axis_entry", "planner_mesh", "planner_axes",
-           "dp_devices"]
+__all__ = ["DP_AXES", "Mesh", "AbstractMesh", "PartitionSpec", "P",
+           "abstract_mesh", "current_mesh", "mesh_context", "mesh_sizes",
+           "dp_axes", "axis_entry", "resolve", "constrain", "planner_mesh",
+           "planner_axes", "dp_devices"]
 
 DP_AXES = ("pod", "data")
 
@@ -87,6 +97,53 @@ class Mesh:
         return dict(zip(self.axis_names, _extent(self.devices)))
 
 
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of named axes and their sizes, and no devices: what a step is
+    planned for where the devices are not there (the dry run's production
+    meshes).  ``shape`` is ``{axis: size}`` in axis order, as a
+    :class:`Mesh`'s is."""
+
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        sizes, names = tuple(self.axis_sizes), tuple(self.axis_names)
+        if not names or len(sizes) != len(names):
+            raise ValueError(f"AbstractMesh: {len(sizes)} sizes for the "
+                             f"axes {names}")
+        if any(int(n) < 1 for n in sizes):
+            raise ValueError(f"AbstractMesh: axis sizes {sizes} must be "
+                             f"positive")
+        object.__setattr__(self, "axis_sizes", tuple(int(n) for n in sizes))
+        object.__setattr__(self, "axis_names", names)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def abstract_mesh(shape, axes) -> AbstractMesh:
+    """An :class:`AbstractMesh` of ``shape`` over the axis names ``axes``."""
+    return AbstractMesh(tuple(shape), tuple(axes))
+
+
+class PartitionSpec(tuple):
+    """A sharding spec: one entry a dimension, each ``None`` (replicated),
+    a mesh axis name, or a tuple of axis names (sharded over their
+    product).  ``tuple(spec)`` holds the entries, as ``tuple`` of the
+    reference's ``jax.sharding.PartitionSpec`` does."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
 def current_mesh():
     """The mesh declared by the innermost :func:`mesh_context`, or None."""
     return getattr(_state, "mesh", None)
@@ -94,7 +151,9 @@ def current_mesh():
 
 @contextlib.contextmanager
 def mesh_context(mesh):
-    """Declare ``mesh`` as the active mesh for the duration of the block."""
+    """Declare ``mesh`` (a :class:`Mesh` or an :class:`AbstractMesh`) as
+    the active mesh for the duration of the block: :func:`constrain` and
+    the models' choice of attention layout read it."""
     prev = current_mesh()
     _state.mesh = mesh
     try:
@@ -104,7 +163,8 @@ def mesh_context(mesh):
 
 
 def mesh_sizes(mesh) -> dict:
-    """{axis name: size}."""
+    """{axis name: size}, for :class:`Mesh` and :class:`AbstractMesh`
+    alike."""
     return dict(mesh.shape)
 
 
@@ -119,6 +179,52 @@ def axis_entry(axes: tuple[str, ...]):
     if not axes:
         return None
     return axes if len(axes) > 1 else axes[0]
+
+
+def resolve(mesh, spec, shape=None) -> PartitionSpec:
+    """Logical spec entries -> a :class:`PartitionSpec` for ``mesh``.
+
+    ``spec`` entries are None, ``"dp"``, or a mesh axis name (a name the
+    mesh lacks resolves to None).  When ``shape`` is given, axes whose
+    size product does not divide the corresponding dimension are dropped
+    (divisibility safety).
+    """
+    sizes = mesh_sizes(mesh)
+    entries = []
+    for d, s in enumerate(spec):
+        if s is None:
+            entries.append(None)
+            continue
+        axes = dp_axes(mesh) if s == "dp" else (
+            (s,) if s in sizes else ())
+        if shape is not None and axes:
+            k = math.prod(sizes[a] for a in axes)
+            if k == 0 or shape[d] % k != 0:
+                axes = ()
+        entries.append(axis_entry(axes))
+    return PartitionSpec(*entries)
+
+
+def constrain(x, *spec):
+    """The models' sharding hint: returns ``x`` itself.
+
+    The reference pins ``x`` to the resolved sharding of ``spec`` on the
+    active mesh (``jax.lax.with_sharding_constraint``), which tells its
+    partitioner where the tensor should live and never changes a value.
+    In the port a model's tensors sit on one device (a single-controller
+    mesh whose entries all name that device, or ``meta`` for an
+    :class:`AbstractMesh`), so there is nothing to move.  With a mesh
+    active, the spec is still resolved against ``x.shape``, and a spec
+    longer than ``x.ndim`` raises ``ValueError``, as the reference's
+    constraint fails there.
+    """
+    mesh = current_mesh()
+    if mesh is not None:
+        if len(spec) > x.ndim:
+            raise ValueError(f"constrain: spec {spec} has {len(spec)} "
+                             f"entries for a tensor of {x.ndim} dimensions")
+        resolve(mesh, spec, shape=x.shape)
+    return x
 
 
 def planner_mesh(n_devices: int | None = None, *, devices=None,

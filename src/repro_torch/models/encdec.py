@@ -33,6 +33,7 @@ import functools
 
 import torch
 
+from repro_torch.dist.ctx import constrain
 from repro_torch.rebalance.planner import resolve_device
 
 from . import layers as L
@@ -130,10 +131,11 @@ def _attention(cfg: ModelConfig, q, k, v, q_pos, kv_pos, causal: bool):
 def _attend(p: Params, cfg: ModelConfig, xq, xkv, q_pos, kv_pos,
             causal: bool):
     """Attention of ``xq``'s queries over ``xkv``'s keys and values, no
-    window, no softcap.  The reference pins q, k and v to a device mesh;
-    on one device that does nothing."""
-    out = _attention(cfg, _heads(xq, p["wq"]), _heads(xkv, p["wk"]),
-                     _heads(xkv, p["wv"]), q_pos, kv_pos, causal)
+    window, no softcap; q, k and v hinted head-sharded over 'model'."""
+    q = constrain(_heads(xq, p["wq"]), "dp", None, "model", None)
+    k = constrain(_heads(xkv, p["wk"]), "dp", None, "model", None)
+    v = constrain(_heads(xkv, p["wv"]), "dp", None, "model", None)
+    out = _attention(cfg, q, k, v, q_pos, kv_pos, causal)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

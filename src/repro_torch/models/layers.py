@@ -22,6 +22,7 @@ import math
 import torch
 
 from repro_torch.core.device import _fma_f32
+from repro_torch.dist.ctx import constrain, current_mesh
 
 from .config import ModelConfig
 
@@ -146,23 +147,15 @@ def _mask_bias(iq: torch.Tensor, jk: torch.Tensor, *, causal: bool,
     return torch.where(ok, 0.0, -torch.inf).to(torch.float32)
 
 
-def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool, window,
-                      softcap: float, scale: float, q_chunk: int,
-                      kv_chunk: int, band_window: int = 0) -> torch.Tensor:
-    """Memory-efficient attention with online softmax.
-
-    q, k, v: (B, S, H, d) with a FLAT, equal head count (callers repeat GQA
-    KV heads first); MQA (k/v with a single head) broadcasts in the einsum
-    without materializing the repeat.  q_pos: (B, Sq); kv_pos: (B, Skv)
-    with -1 marking invalid cache slots.  ``band_window > 0`` (causal
-    prefill only) visits just the kv chunks a uniform sliding window of
-    that width can reach.  Never materializes more than (B, H, qc, kc)
-    logits.  Returns (B, Sq, H, dv) in ``v``'s dtype.
-    """
+def chunk_stacks(q, k, v, q_pos, kv_pos, q_chunk: int, kv_chunk: int):
+    """``chunked_attention``'s operands cut into chunks: q, k, v and the
+    positions padded to whole chunks of min(q_chunk, Sq) and
+    min(kv_chunk, Skv) (pad positions -1) and stacked chunk-major,
+    ``(nq, B, qc, H, dk)``, ``(nq, B, qc)``, ``(nk, B, kc, Hkv, dk)``,
+    ``(nk, B, kc, Hkv, dv)``, ``(nk, B, kc)``, with the active mesh's
+    layout hints."""
     B, Sq, H, dk = q.shape
     _, Skv, Hkv, dv = v.shape
-    mqa = (Hkv == 1 and H > 1)
-
     qc = min(q_chunk, Sq)
     kc = min(kv_chunk, Skv)
     pq = (-Sq) % qc
@@ -175,60 +168,124 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool, window,
     kv_pos = pad(kv_pos, (0, pk), value=-1)
     nq, nk = q.shape[1] // qc, k.shape[1] // kc
 
-    # The reference pins these chunk stacks to a device mesh; on one device
-    # that does nothing (the mesh comes with the distributed port).
     qb = q.reshape(B, nq, qc, H, dk).transpose(0, 1)
     qpb = q_pos.reshape(B, nq, qc).transpose(0, 1)
     kb = k.reshape(B, nk, kc, Hkv, dk).transpose(0, 1)
     vb = v.reshape(B, nk, kc, Hkv, dv).transpose(0, 1)
     kpb = kv_pos.reshape(B, nk, kc).transpose(0, 1)
+    mesh = current_mesh()
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    if Sq > 1:
+        if H % tp == 0 and Hkv % tp == 0:
+            # the chunk stacks head-sharded, only where the head axis
+            # divides the TP axis (else the hint would force replication)
+            qb = constrain(qb, None, "dp", None, "model", None)
+            kb = constrain(kb, None, "dp", None, "model", None)
+            vb = constrain(vb, None, "dp", None, "model", None)
+    else:
+        # decode: the chunks stay sequence-sharded over 'model'
+        kb = constrain(kb, None, "dp", "model", None, None)
+        vb = constrain(vb, None, "dp", "model", None, None)
+    return qb, qpb, kb, vb, kpb
 
-    # static band for uniform sliding-window prefill: q block i only needs
-    # kv blocks within [i*qc - band_window, i*qc + qc); provably masked
-    # chunks are skipped (the position masks still guard correctness)
-    band = 0
+
+def attention_band(band_window: int, causal: bool, Sq: int, qc: int,
+                   kc: int, nk: int) -> int:
+    """The kv chunks a q chunk visits under a uniform sliding window of
+    ``band_window`` (causal prefill only), 0 for all of them."""
     if band_window > 0 and causal and Sq > 1:
-        band = min(-(-band_window // kc) + -(-qc // kc) + 1, nk)
+        return min(-(-band_window // kc) + -(-qc // kc) + 1, nk)
+    return 0
 
+
+def kv_blocks(iq_blk: int, qc: int, kc: int, nk: int, band: int,
+              band_window: int) -> range:
+    """The kv chunks q chunk ``iq_blk`` visits: all ``nk``, or with a
+    ``band`` (uniform sliding-window prefill) the ``band`` chunks within
+    [iq_blk*qc - band_window, iq_blk*qc + qc); provably masked chunks are
+    skipped (the position masks still guard correctness)."""
+    if not band:
+        return range(nk)
+    first_needed = (iq_blk * qc - (band_window - 1)) // kc
+    start = min(max(first_needed, 0), nk - band)
+    return range(start, start + band)
+
+
+def online_start(B: int, H: int, qc: int, dv: int, device):
+    """A q chunk's online-softmax state: running max, sum and output."""
+    m = torch.full((B, H, qc), -torch.inf, dtype=torch.float32, device=device)
+    l = torch.zeros((B, H, qc), dtype=torch.float32, device=device)
+    acc = torch.zeros((B, H, qc, dv), dtype=torch.float32, device=device)
+    return m, l, acc
+
+
+def online_step(m, l, acc, qi, qp, ki, vi, kp, *, mqa: bool, causal: bool,
+                window, softcap: float, scale: float):
+    """One (q chunk, kv chunk) pair folded into the state (float32)."""
+    if mqa:
+        s = torch.einsum("bqhd,bkd->bhqk", qi.float(),
+                         ki[:, :, 0].float()) * scale
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", qi.float(), ki.float()) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    bias = _mask_bias(qp, kp, causal=causal, window=window)
+    s = s + bias[:, None, :, :]
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    l = l * corr + p.sum(dim=-1)
+    if mqa:
+        pv = torch.einsum("bhqk,bkd->bhqd", p, vi[:, :, 0].float())
+    else:
+        pv = torch.einsum("bhqk,bkhd->bhqd", p, vi.float())
+    acc = acc * corr[..., None] + pv
+    return m_new, l, acc
+
+
+def online_end(m, l, acc) -> torch.Tensor:
+    """A q chunk's output (B, qc, H, dv), float32."""
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2)
+
+
+def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool, window,
+                      softcap: float, scale: float, q_chunk: int,
+                      kv_chunk: int, band_window: int = 0) -> torch.Tensor:
+    """Memory-efficient attention with online softmax.
+
+    q, k, v: (B, S, H, d) with a FLAT, equal head count (callers repeat GQA
+    KV heads first); MQA (k/v with a single head) broadcasts in the einsum
+    without materializing the repeat.  q_pos: (B, Sq); kv_pos: (B, Skv)
+    with -1 marking invalid cache slots.  ``band_window > 0`` (causal
+    prefill only) visits just the kv chunks a uniform sliding window of
+    that width can reach.  Never materializes more than (B, H, qc, kc)
+    logits.  Returns (B, Sq, H, dv) in ``v``'s dtype.
+
+    The stages (``chunk_stacks``, ``attention_band``, ``kv_blocks``,
+    ``online_start``, ``online_step``, ``online_end``) are functions of
+    their own so that
+    ``launch.op_cost`` can count one q chunk and one visited pair and
+    multiply them by their trips.
+    """
+    B, Sq, H, _ = q.shape
+    Hkv, dv = v.shape[2], v.shape[3]
+    mqa = (Hkv == 1 and H > 1)
+    qb, qpb, kb, vb, kpb = chunk_stacks(q, k, v, q_pos, kv_pos, q_chunk,
+                                        kv_chunk)
+    nq, qc, nk, kc = qb.shape[0], qb.shape[2], kb.shape[0], kb.shape[2]
+    band = attention_band(band_window, causal, Sq, qc, kc, nk)
     outs = []
     for iq_blk in range(nq):
         qi, qp = qb[iq_blk], qpb[iq_blk]   # (B, qc, H, dk), (B, qc)
-        m = torch.full((B, H, qc), -torch.inf, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, H, qc), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, H, qc, dv), dtype=torch.float32,
-                          device=q.device)
-        blocks = range(nk)
-        if band:
-            first_needed = (iq_blk * qc - (band_window - 1)) // kc
-            start = min(max(first_needed, 0), nk - band)
-            blocks = range(start, start + band)
-        for j in blocks:
-            ki, vi, kp = kb[j], vb[j], kpb[j]
-            if mqa:
-                s = torch.einsum("bqhd,bkd->bhqk", qi.float(),
-                                 ki[:, :, 0].float()) * scale
-            else:
-                s = torch.einsum("bqhd,bkhd->bhqk", qi.float(),
-                                 ki.float()) * scale
-            if softcap > 0:
-                s = softcap * torch.tanh(s / softcap)
-            bias = _mask_bias(qp, kp, causal=causal, window=window)
-            s = s + bias[:, None, :, :]
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-            p = torch.exp(s - m_safe[..., None])
-            p = torch.where(torch.isfinite(s), p, 0.0)
-            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-            l = l * corr + p.sum(dim=-1)
-            if mqa:
-                pv = torch.einsum("bhqk,bkd->bhqd", p, vi[:, :, 0].float())
-            else:
-                pv = torch.einsum("bhqk,bkhd->bhqd", p, vi.float())
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        out = acc / torch.clamp(l[..., None], min=1e-30)
-        outs.append(out.transpose(1, 2))   # (B, qc, H, dv)
+        state = online_start(B, H, qc, dv, q.device)
+        for j in kv_blocks(iq_blk, qc, kc, nk, band, band_window):
+            state = online_step(*state, qi, qp, kb[j], vb[j], kpb[j],
+                                mqa=mqa, causal=causal, window=window,
+                                softcap=softcap, scale=scale)
+        outs.append(online_end(*state))
     out = torch.cat(outs, dim=1)
     return out[:, :Sq].to(v.dtype)
 
@@ -304,6 +361,7 @@ def attn_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "dp", None, "model", None)
 
     new_cache = None
     k_all, v_all, kv_pos = k, v, positions
@@ -312,14 +370,20 @@ def attn_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
         if S == 1:
             k_all, v_all, kv_pos = cache["k"], cache["v"], cache["pos"]
 
+    # flat-head GQA: the repeated KV heads shard over 'model' for
+    # compute-bound shapes; decode keeps the cache sequence-sharded instead
     decode_like = cache is not None and S == 1
+    kv_spec = (("dp", "model", None, None) if decode_like
+               else ("dp", None, "model", None))
+    k_all = constrain(repeat_kv(k_all, rep), *kv_spec)
+    v_all = constrain(repeat_kv(v_all, rep), *kv_spec)
     # banded prefill/train only for uniform sliding-window archs (the
     # window must be a static layer-independent bound)
     band_window = (cfg.sliding_window
                    if cfg.sliding_window > 0 and cfg.global_every == 0
                    and not decode_like else 0)
     out = chunked_attention(
-        q, repeat_kv(k_all, rep), repeat_kv(v_all, rep), positions, kv_pos,
+        q, k_all, v_all, positions, kv_pos,
         causal=True, window=window, softcap=cfg.attn_softcap,
         scale=cfg.head_dim ** -0.5, q_chunk=cfg.q_chunk,
         kv_chunk=cfg.kv_chunk, band_window=band_window)
@@ -374,6 +438,7 @@ def mla_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
 
     q = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
     q = torch.einsum("bsr,rhk->bshk", q, p["wq_b"])
+    q = constrain(q, "dp", None, "model", None)
     q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions,
                                          cfg.rope_theta)
     kv = x @ p["wkv_a"]
@@ -401,6 +466,7 @@ def mla_forward(p: Params, cfg: ModelConfig, x, positions, *, window,
         out = torch.einsum("bshr,rhv->bshv", out_lat, p["wkv_b"][..., nope:])
     else:
         kvu = torch.einsum("bsr,rhk->bshk", c_all, p["wkv_b"])
+        kvu = constrain(kvu, "dp", None, "model", None)
         k_nope, v = kvu[..., :nope], kvu[..., nope:]
         k_full = torch.cat([k_nope, kr_all[:, :, None, :].expand(
             *k_nope.shape[:3], rdim)], dim=-1)

@@ -22,6 +22,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.dist.ctx import P
 from repro_torch.models import lm
 from repro_torch.rebalance.planner import resolve_device
 
@@ -141,9 +142,10 @@ def _sorted(tree):
 
 
 def state_specs(param_specs: Any, cfg: AdamWConfig) -> dict:
-    """The state's per-leaf specs: the moments shard as the parameters,
-    the step is replicated (None)."""
-    st = {"m": param_specs, "v": param_specs, "step": None}
+    """Optimizer-state specs mirroring the parameter specs: the moments
+    (and ``err``) shard as the parameters, the step is replicated
+    (``P()``)."""
+    st = {"m": param_specs, "v": param_specs, "step": P()}
     if cfg.compress_grads:
         st["err"] = param_specs
     return st

@@ -22,8 +22,12 @@ for bfloat16, compared in float32, with the plain version's float32
 products in full float32 (no TF32); against the model layer's chunked
 attention 3e-5 in float32, that test's own.  The models and a train step
 run no kernel; they are held to the port's CPU path (1e-4 x max, and for
-a train step the limits its test states).
+a train step the limits its test states).  The sharded steps
+(``launch.steps.build_*``) on the card's meshes are held to the unmeshed
+path on the card bit for bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -989,3 +993,71 @@ def test_train_step_on_card_matches_cpu(arch):
         agree = (mk - mw).abs() <= 0.01 * mw.abs()
         d = ((p_card[k].cpu() - p0[k]) - (p_cpu[k] - p0[k])).abs()[agree]
         assert not d.numel() or float(d.max()) <= 1e-2 * lr, k
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "deepseek_v2_236b",
+                                  "mamba2_1_3b", "whisper_large_v3"])
+def test_sharded_steps_on_card_match_unmeshed(arch):
+    """``launch.steps.build_train`` (two steps), ``build_prefill`` and two
+    ``build_decode`` steps on the card's ``make_local_mesh()`` and on a
+    (2, 2) mesh that names the card four times: every output and cache
+    tensor equal to the unmeshed path on the card (``make_train_step``,
+    ``models.api``), bit for bit; no kernel launched."""
+    from repro_torch.data import pipeline
+    from repro_torch.dist import ctx
+    from repro_torch.launch import cells, mesh, steps
+    from repro_torch.models import api
+    from repro_torch.train import optim
+    dev = need_card()
+    cfg = configs.get_smoke(arch).scaled(dtype="float32")
+    ov = dataclasses.asdict(cfg)
+    meshes = [mesh.make_local_mesh(),
+              ctx.Mesh(((dev, dev), (dev, dev)), ("data", "model"))]
+    model = api.build(cfg)
+    p0 = model.init(torch.Generator().manual_seed(0), device=dev)
+    oc = optim.AdamWConfig(lr=3e-3, warmup_steps=5)
+    data = pipeline.TokenPipeline(cfg, pipeline.DataConfig(global_batch=4,
+                                                           seq_len=48))
+    before = sum(_build.launches.values())
+
+    def train(step):
+        p, s = p0, optim.init(oc, p0, device=dev)
+        for i in range(2):
+            p, s, m = step(p, s, data.batch_at(i))
+        return _by_path({"p": p, "s": s, "m": m})
+
+    def serve(prefill, decode):
+        rng = np.random.default_rng(1)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 50)),
+                               dtype=torch.int32, device=dev)
+        batch = {"tokens": toks[:, :48]}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.as_tensor(rng.standard_normal(
+                (4, cfg.encoder_len, cfg.d_model)), dtype=torch.float32,
+                device=dev)
+        cache = model.init_cache(4, 64, device=dev)
+        out = {"prefill": prefill(p0, batch, cache)[0]}
+        for i in range(2):
+            out[f"decode{i}"] = decode(p0, toks[:, 48 + i:49 + i], torch.full(
+                (4,), 48 + i, dtype=torch.int32, device=dev), cache)[0]
+        return _by_path({"out": out, "cache": cache})
+
+    plain = steps.make_train_step(cfg, oc)
+    want_t = train(lambda p, s, b: plain(p, s, b, device=dev))
+    want_s = serve(lambda p, b, c: model.prefill(p, b, c, device=dev),
+                   lambda p, t, q, c: model.decode(p, t, q, c, device=dev))
+    for m in meshes:
+        fn, _ = steps.build_train(arch, cells.Shape("t", "train", 48, 4), m,
+                                  opt_cfg=oc, overrides=ov)
+        got = train(fn)
+        assert set(got) == set(want_t)
+        for k in got:
+            assert torch.equal(got[k], want_t[k]), (m.shape, k)
+        pf, _ = steps.build_prefill(arch, cells.Shape("p", "prefill", 48, 4),
+                                    m, overrides=ov)
+        dc, _ = steps.build_decode(arch, cells.Shape("d", "decode", 64, 4),
+                                   m, overrides=ov)
+        got = serve(pf, dc)
+        for k in got:
+            assert torch.equal(got[k], want_s[k]), (m.shape, k)
+    assert sum(_build.launches.values()) == before

@@ -4,16 +4,20 @@
   and ``ml_dtypes`` (a subprocess where importing any fails), and the
   planner, the rebalance runtime, the capacity-aware planner, the serve
   simulator, the dense, VLM, MoE, SSM, hybrid and encoder-decoder smoke
-  models' prefill and decode, and a smoke train step with a bf16
-  checkpoint's round trip run there on the CPU;
-- an entry point with no ``device=`` raises where CUDA is absent instead
-  of running on the CPU;
+  models' prefill and decode, a smoke train step with a bf16
+  checkpoint's round trip, a train step built for a (2, 2) mesh, the
+  sharding specs and a dry-run cell run there on the CPU, and a mesh of
+  two distinct devices is refused;
+- an entry point with no ``device=`` (a step built for a mesh that names
+  the card included) raises where CUDA is absent instead of running on
+  the CPU;
 - no ``except`` clause and no environment read in the port or the smoke
   script can route a CUDA tensor to a plain version, and only a kernel's
   own wrapper (and the smoke script's comparisons) import its plain
   version.
 """
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -26,6 +30,7 @@ from repro_torch import configs
 from repro_torch.core import prefix, registry, sgorp
 from repro_torch.dist import ctx
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.launch import cells, steps
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.steps import make_train_step
@@ -140,6 +145,26 @@ with tempfile.TemporaryDirectory() as d:
     back = checkpoint.restore(d, 1, {{"params": params, "opt": st}})
 assert back["params"]["embed"].dtype == torch.bfloat16
 assert torch.equal(back["params"]["embed"], params["embed"])
+import dataclasses
+from repro_torch.dist import sharding
+from repro_torch.launch import cells, dryrun, steps
+two_by_two = ctx.Mesh((("cpu", "cpu"), ("cpu", "cpu")), ("data", "model"))
+fn, args = steps.build_train("qwen3_0_6b", cells.Shape("t", "train", 8, 2),
+                             two_by_two, opt_cfg=oc,
+                             overrides=dataclasses.asdict(cfg))
+_, _, m1 = fn(params, optim.init(oc, params, device="cpu"),
+              {{"tokens": toks[:, :8], "labels": toks[:, 1:]}})
+assert bool(torch.isfinite(m1["loss"]))
+assert sharding.param_specs(cfg, two_by_two, params)["embed"] == (
+    "model", "data")
+rec = dryrun.run_cell("qwen3-0.6b", "decode_32k", multi_pod=True)
+assert rec["status"] == "ok" and rec["roofline"]["flops"] > 0
+two = ctx.Mesh((("cpu", "meta"),), ("data", "model"))
+try:
+    steps.build_decode("qwen3_0_6b", cells.SHAPES["decode_32k"], two)
+    raise AssertionError("a mesh of two devices was not refused")
+except NotImplementedError:
+    pass
 leaked = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))]
 assert not leaked, leaked
@@ -181,6 +206,12 @@ def _entry_points():
     step = make_train_step(cfg, opt_cfg)
     numpy_state = {"m": {"ln_f": np.zeros(64, np.float32)},
                    "v": {"ln_f": np.zeros(64, np.float32)}, "step": 0}
+    card = ctx.Mesh(((torch.device("cuda"),),), ("data", "model"))
+    smoke = dataclasses.asdict(cfg)
+    decode_on_card, _ = steps.build_decode(
+        "qwen3_0_6b", cells.Shape("d", "decode", 8, 1), card, overrides=smoke)
+    train_on_card, _ = steps.build_train(
+        "qwen3_0_6b", cells.Shape("t", "train", 4, 1), card, overrides=smoke)
     return [
         lambda: planner.plan_stream(fr, P=4, m=16),
         lambda: planner.plan_host(fr, P=4, m=16),
@@ -239,10 +270,12 @@ def _entry_points():
         lambda: launch_train.main(["--smoke", "--steps", "1"]),
         lambda: launch_mesh.make_local_mesh(),
         lambda: launch_mesh.make_production_mesh(),
+        lambda: decode_on_card(params, toks[:, :1], np.array([4]), cache),
+        lambda: train_on_card(params, opt_state, batch),
     ]
 
 
-@pytest.mark.parametrize("i", range(48))
+@pytest.mark.parametrize("i", range(50))
 def test_entry_points_raise_without_cuda(i, monkeypatch):
     call = _entry_points()[i]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -353,7 +386,9 @@ def test_no_fallback_sources_cover_the_port():
             "models/encdec.py", "train/__init__.py", "train/optim.py",
             "train/checkpoint.py", "data/__init__.py", "data/pipeline.py",
             "launch/__init__.py", "launch/cells.py", "launch/mesh.py",
-            "launch/steps.py", "launch/train.py"} <= names
+            "launch/steps.py", "launch/train.py", "dist/sharding.py",
+            "launch/op_cost.py", "launch/roofline.py",
+            "launch/dryrun.py"} <= names
     assert "models/_dist_compat.py" not in names
 
 

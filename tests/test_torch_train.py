@@ -215,7 +215,7 @@ def test_init_and_state_specs(kw):
     """``init``: the reference's state tree, shapes and dtypes (bf16 moments
     where ``moment_dtype`` says so, ``err`` where compressing, an int32
     step of 0); ``state_specs`` mirrors the parameter specs with the step
-    replicated (None for the reference's ``P()``)."""
+    replicated: ``P()``, the entries of the reference's."""
     p = _tree(SHAPES, np.random.default_rng(3))
     want = jax_optim.init(jax_optim.AdamWConfig(**kw),
                           jax.tree.map(jnp.asarray, p))
@@ -228,9 +228,13 @@ def test_init_and_state_specs(kw):
             str(a.dtype).removeprefix("torch.") == str(b.dtype), k
         assert not a.any()
     specs = optim.state_specs({"w": "spec"}, optim.AdamWConfig(**kw))
-    assert specs == {"m": {"w": "spec"}, "v": {"w": "spec"}, "step": None,
+    assert specs == {"m": {"w": "spec"}, "v": {"w": "spec"},
+                     "step": ctx.P(),
                      **({"err": {"w": "spec"}} if kw.get("compress_grads")
                         else {})}
+    ref = jax_optim.state_specs({"w": "spec"}, jax_optim.AdamWConfig(**kw))
+    assert isinstance(specs["step"], ctx.PartitionSpec)
+    assert tuple(specs["step"]) == tuple(ref["step"]) == ()
 
 
 def test_state_from_numpy_refuses_other_trees():
