@@ -64,13 +64,15 @@ and Qwen3-0.6B's (16 heads from 8 KV heads, head dim 128) — with its own
 launch counts, each output held against the plain version on the card
 (rtol = atol = 2e-2, as ``tests/test_flash.py``, and a relative L2 error
 of at most 1e-2), every shape through the Hopper kernel (launch key
-``flash``, none through ``flash_mma``).  Then the general bf16 route with
-its own launch counts: the same inputs, folded to ``(BH, S, d)`` and
+``flash``, none through ``flash_general``).  Then the general bf16 route
+with its own launch counts: the same inputs, folded to ``(BH, S, d)`` and
 copied one element past a 16-byte boundary, which TMA cannot describe,
 through ``kernels.flash.ops.flash_attention`` (every shape through
-``flash_mma``, none through ``flash``), held to the same limits.  Last one
-float32 check at Qwen3 width and S=2048 (2e-5).  The Gemma-2 queries are drawn large enough that
-the softcap changes the logits; ``flex_attention`` (compiled) is timed
+``flash_general``, none through ``flash``), held to the same limits.  Last
+one float32 check at Qwen3 width and S=2048 (2e-5, relative L2 1e-5)
+with its own launch count (``flash_f32``, the 3xTF32 kernel).  The
+Gemma-2 queries are drawn large enough that the softcap changes the
+logits; ``flex_attention`` (compiled) is timed
 there as the library yardstick, SDPA at Qwen3 and SDPA on float32 beside
 the float32 check.  Then the decoder-only model path (``run_models``)
 with its own launch counts: Qwen3-0.6B at full width in bf16, through
@@ -160,6 +162,7 @@ F32_EXACT = 2 ** 24
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core rate
 FP64_OPS_PER_S = 34e12      # H100 SXM float64 rate outside the tensor cores
 SEED = 0
 
@@ -1473,10 +1476,11 @@ def run_flash(cuda: torch.device) -> list:
     its own launch counts (the Hopper kernel), then the same inputs at
     unaligned bases through ``ops.flash_attention`` with their own launch
     counts (the general kernel), each output against the plain version on
-    the card, one float32 check, and times.  Returns K5's two entries of
-    the kernels' record, ``flash`` and ``flash_mma`` (top-level numbers at
-    the Qwen3 shape, the one with SDPA as its yardstick; every shape's
-    numbers under ``shapes``)."""
+    the card, one float32 check with its own launch count, and times.
+    Returns K5's three entries of the kernels' record, ``flash``,
+    ``flash_general`` (top-level numbers at the Qwen3 shape, the one with
+    SDPA as its yardstick; every shape's numbers under ``shapes``) and
+    ``flash_f32``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
@@ -1518,9 +1522,9 @@ def run_flash(cuda: torch.device) -> list:
     launches = dict(_build.launches)
     log("flash", f"kernel launches on the attention path: {launches}")
     check(launches.get("flash", 0) >= len(FLASH_SHAPES)
-          and launches.get("flash_mma", 0) == 0,
+          and launches.get("flash_general", 0) == 0,
           "the attention path did not take the Hopper kernel (flash) at "
-          "every shape, or took the general one (flash_mma)")
+          "every shape, or took the general one (flash_general)")
 
     def fold(x):
         return x.transpose(1, 2).reshape(-1, S_FLASH,
@@ -1528,7 +1532,8 @@ def run_flash(cuda: torch.device) -> list:
 
     # -- 14. the general bf16 route at full width -------------------------
     # The same inputs, folded, at bases TMA cannot describe: the C entry
-    # point gives every shape to the general mma.sync kernel.
+    # point gives every shape to the general kernel (the Hopper kernel's
+    # wgmma consumers behind a producer of threads).
     general = {name: tuple(unaligned(fold(x)) for x in inputs[name])
                for name, *_ in FLASH_SHAPES}
     check(all(x.data_ptr() % 16 != 0 for g in general.values() for x in g),
@@ -1542,10 +1547,10 @@ def run_flash(cuda: torch.device) -> list:
     glaunches = dict(_build.launches)
     log("flash", f"kernel launches on the general route (unaligned "
         f"bases): {glaunches}")
-    check(glaunches.get("flash_mma", 0) == len(FLASH_SHAPES)
+    check(glaunches.get("flash_general", 0) == len(FLASH_SHAPES)
           and glaunches.get("flash", 0) == 0,
           "the unaligned inputs did not take the general kernel "
-          "(flash_mma) at every shape, or took the Hopper one (flash)")
+          "(flash_general) at every shape, or took the Hopper one (flash)")
 
     def rel_l2(got, want):
         return float((got - want).norm() / want.norm())
@@ -1577,9 +1582,9 @@ def run_flash(cuda: torch.device) -> list:
         gout = gouts[name]
         check(gout.shape == qf.shape and gout.dtype == torch.bfloat16
               and bool(torch.isfinite(gout).all()),
-              f"flash {name} (flash_mma): output is not finite bf16 of "
+              f"flash {name} (flash_general): output is not finite bf16 of "
               f"shape {tuple(qf.shape)}")
-        ge, grel = held_to_plain(name, "flash_mma", gout.float(), want)
+        ge, grel = held_to_plain(name, "flash_general", gout.float(), want)
         held = (f"max |kernel - plain| {e:.3g} (held at rtol = atol = "
                 f"2e-2), relative L2 {rel:.3g} (limit {FLASH_REL_L2}; "
                 f"|plain| median {float(want.abs().median()):.3g}, max "
@@ -1635,7 +1640,8 @@ def run_flash(cuda: torch.device) -> list:
             f"softcap {softcap}: {held}; "
             f"ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, bound_ms "
             f"{b_ms:.4f} ({b_by}; {pairs * H} unmasked pairs, {nbytes} "
-            f"bytes); {lib}; general route (flash_mma, unaligned copies): "
+            f"bytes); {lib}; general route (flash_general, unaligned "
+            f"copies): "
             f"max |kernel - plain| {ge:.3g}, relative L2 {grel:.3g}, ms "
             f"{grow['ms']:.4f}")
         rows.append(row)
@@ -1649,12 +1655,18 @@ def run_flash(cuda: torch.device) -> list:
     log("flash", f"local/global time {ratio:.3f} (unmasked pairs "
         f"{pair_ratio:.3f}): the key-tile skip under the window")
 
-    # float32: Qwen3 width at S=2048, CUDA-core FMA, against the plain
-    # version in full float32; SDPA on float32 as its yardstick, held to
-    # the same relative L2
+    # float32: Qwen3 width at S=2048, 3xTF32 on the tensor cores, against
+    # the plain version in full float32, with its own launch count; SDPA
+    # on float32 as its yardstick, held to the same relative L2
     S32 = 2048
     q, k, v = (normal((16, S32, 128), torch.float32) for _ in range(3))
+    _build.launches.clear()
     got = flash_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches32 = dict(_build.launches)
+    log("flash", f"kernel launches on the float32 check: {launches32}")
+    check(launches32 == {"flash_f32": 1}, "the float32 check did not take "
+          "the float32 kernel (flash_f32) once and nothing else")
     want = flash_ref.attention_ref(q, k, v, causal=True)
     e32, rel32 = float((got - want).abs().max()), rel_l2(got, want)
     check(torch.allclose(got, want, rtol=2e-5, atol=2e-5), f"flash float32: "
@@ -1662,8 +1674,11 @@ def run_flash(cuda: torch.device) -> list:
           f"2e-5)")
     check(rel32 <= 1e-5, f"flash float32: kernel's relative L2 error "
           f"{rel32:.3g} (limit 1e-5)")
-    b32, b32_by = bound(4 * q.numel() * 4,
-                        4 * 16 * 128 * causal_pairs(S32, 0))
+    # the bound of 3xTF32: three tensor-core passes of both products;
+    # beside it, for the record, the bound on the CUDA cores
+    ops32 = 4 * 16 * 128 * causal_pairs(S32, 0)
+    b32, b32_by = bound(4 * q.numel() * 4, 3 * ops32, TF32_OPS_PER_S)
+    b32_cores, _ = bound(4 * q.numel() * 4, ops32, FP32_OPS_PER_S)
 
     def sdpa32(q4=q[None], k4=k[None], v4=v[None]):
         return torch.nn.functional.scaled_dot_product_attention(
@@ -1677,20 +1692,21 @@ def run_flash(cuda: torch.device) -> list:
                  q, k, v, causal=True)),
              "plain_ms": device_ms(lambda: flash_ref.attention_ref(
                  q, k, v, causal=True), reps=5),
-             "bound_ms": b32, "bound_by": b32_by, "library_ms": lib32}
-    rows.append(row32)
+             "bound_ms": b32, "bound_by": b32_by,
+             "bound_ms_cuda_cores": b32_cores, "library_ms": lib32}
     log("flash", f"float32 (16, {S32}, 128) causal: max |kernel - plain| "
         f"{e32:.3g} (held at rtol = atol = 2e-5), relative L2 {rel32:.3g} "
         f"(limit 1e-5); ms {row32['ms']:.4f}, plain_ms "
-        f"{row32['plain_ms']:.4f}, bound_ms {b32:.4f} (float32 CUDA "
-        f"cores); library_ms {lib32} (SDPA on float32, relative L2 "
-        f"{lib_rel32:.3g} off the plain version"
+        f"{row32['plain_ms']:.4f}, bound_ms {b32:.4f} ({b32_by}: 3 x "
+        f"{ops32} operations over {TF32_OPS_PER_S:.3g}/s TF32; on the "
+        f"float32 CUDA cores {b32_cores:.4f}); library_ms {lib32} (SDPA on "
+        f"float32, relative L2 {lib_rel32:.3g} off the plain version"
         + ("" if lib32 is not None else ": above 1e-5, so not timed as "
            "this function") + ")")
     del q, k, v, got, want
 
-    def entry(name, n, e, shape_rows):
-        top = next(r for r in shape_rows if r["shape"] == "qwen3-0.6b")
+    def entry(name, n, e, shape_rows, top):
+        top = next(r for r in shape_rows if r["shape"] == top)
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/flash/flash.cu",
@@ -1699,8 +1715,12 @@ def run_flash(cuda: torch.device) -> list:
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "shapes": shape_rows}
-    return [entry("flash", launches.get("flash", 0), err, rows),
-            entry("flash_mma", glaunches.get("flash_mma", 0), gerr, grows)]
+    return [entry("flash", launches.get("flash", 0), err, rows,
+                  "qwen3-0.6b"),
+            entry("flash_general", glaunches.get("flash_general", 0), gerr,
+                  grows, "qwen3-0.6b"),
+            entry("flash_f32", launches32.get("flash_f32", 0), e32, [row32],
+                  "qwen3-0.6b float32")]
 
 
 # The model phase (``run_models``): serving as ``examples/serve_balanced.py``

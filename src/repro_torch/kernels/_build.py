@@ -36,8 +36,8 @@ BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 #: Kernel launches by kernel name (``sat``, ``rectload``; K2 by route:
 #: ``probe`` for rows that fit shared memory, ``probe_general`` for the
 #: rest; K4 by route: ``sat3`` for planes that fit a block, ``sat3_general``
-#: for the rest; K5 by route: ``flash`` for the Hopper bf16 kernel, ``flash_mma``
-#: for the general bf16 kernel, ``flash_fma`` for float32).
+#: for the rest; K5 by route: ``flash`` for the Hopper bf16 kernel,
+#: ``flash_general`` for the general bf16 kernel, ``flash_f32`` for float32).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p

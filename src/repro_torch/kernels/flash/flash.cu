@@ -34,56 +34,103 @@
 //   threads: one producer warpgroup (trimmed to 24 registers by
 //   setmaxnreg; one thread issues every load) and two consumer warpgroups
 //   (raised to 240), each owning 64 of the block's 128 query rows.
-//   Against what held the mma.sync kernel back:
-//   - synchronous staging: Q is loaded once per block, and K and V each
-//     through a ring of 2 slots, all by TMA (cp.async.bulk.tensor on 3D
-//     (d, S, BH) tensor maps encoded per call, 128-byte swizzle, rows and
-//     columns out of bounds read as zeros); every slot has a full and an
-//     empty mbarrier, and K's slot is freed once S is done, before P V,
-//     so the loads of the next tiles overlap this tile's math and no
-//     consumer thread spends an instruction on a copy;
-//   - operands re-read from shared memory by the threads: S = Q K^T is
+//   - staging: Q is loaded once per block, and K and V each through a ring
+//     of 2 slots, all by TMA (cp.async.bulk.tensor on 3D (d, S, BH) tensor
+//     maps encoded per call, 128-byte swizzle, rows and columns out of
+//     bounds read as zeros); every slot has a full and an empty mbarrier,
+//     and K's slot is freed once S is done, before P V, so the loads of the
+//     next tiles overlap this tile's math and no consumer thread spends an
+//     instruction on a copy;
+//   - products (consume<D>, shared with the general kernel): S = Q K^T is
 //     wgmma m64nBKk16 with Q and K both read by the tensor cores from
 //     shared memory (K-major as stored, d contiguous), and O += P V is
 //     wgmma with P from registers (the f32 score accumulators rounded to
 //     bf16 A fragments: wgmma's accumulator layout per 8 columns is
 //     mma.sync's m16n8 layout) and V from shared memory as the MN-major
-//     B operand — no ldmatrix, no scalar fragment loads;
-//   - mma.sync m16n8k16: replaced by wgmma, the only way to the card's
-//     full tensor-core rate.  Each warpgroup issues S of tile i together
-//     with P V of tile i - 1 and runs tile i's softmax while that P V
-//     runs; the two warpgroups overlap each other on their own (an
-//     explicit ping-pong on named barriers and a third ring slot were no
-//     faster on an H100, so neither is here);
-//   - a mask and an accurate expf/tanhf on every element: each key tile is
-//     classified per warpgroup; only tiles that cross the causal diagonal,
-//     the window's edge or the end of the keys evaluate keep(), interior
-//     tiles skip it; log2(e) is folded into the scale, so p is one FMA and
-//     one ex2.approx an element; under a softcap tanh is tanh.approx.f32,
-//     one MUFU operation, held by chip_smoke.py's bf16 checks (including
-//     the one that the softcap matters) at Gemma-2's widths;
-//   - d = 256 occupancy: 64-key tiles, 128 + 32 accumulators and 16 P
-//     registers a consumer thread within its 240, one block of 193 KB
-//     shared memory an SM (Q 64 KB, K and V 2 x 32 KB each); d = 64 and
-//     128 take 128-key tiles.
-//   p is rounded to bf16 before P V while l sums the float32 p, as in the
-//   mma.sync kernel below.  The epilogue writes acc / l as bf16 into the
-//   warpgroup's own Q rows in the same swizzle and TMA stores them; TMA
-//   writes no row past Sq and no column past d.
-// * bfloat16, general (flash_mma_kernel; launch key "flash_mma"), for the
-//   shapes TMA cannot describe (d % 8 != 0, an unaligned base, Skv = 0):
-//   mma.sync m16n8k16 with float32 accumulation, 4 warps of 16 query rows,
-//   K and V staged by the threads.  The score fragments become P V's A
-//   fragments in registers, so p is rounded to bf16 (8 bits of mantissa)
-//   before P V while l sums the float32 p: each output is a p-weighted
-//   mean of v with weights off by at most 2**-9 relative, far inside the
-//   bf16 contract of 2e-2.
-// * float32 (flash_fma_kernel; launch key "flash_fma"): products by FMA on
-//   CUDA cores — no TF32, no tensor cores — with expf and tanhf (no
-//   approximations, no --use_fast_math), so it keeps tests/test_flash.py's
-//   2e-5.  Thread (tx, ty) of a 16 x 8 layout owns rows ty + 8i and key
-//   columns tx + 16j of the score tile and output columns tx + 16j; p goes
-//   through shared memory to the P V product.
+//     B operand.  Each warpgroup issues S of tile i together with P V of
+//     tile i - 1 and runs tile i's softmax while that P V runs; the two
+//     warpgroups overlap each other on their own (an explicit ping-pong on
+//     named barriers and a third ring slot were no faster on an H100);
+//   - the mask and the exponentials: each key tile is classified per
+//     warpgroup; only tiles that cross the causal diagonal, the window's
+//     edge or the end of the keys evaluate keep(), interior tiles skip it;
+//     log2(e) is folded into the scale, so p is one FMA and one ex2.approx
+//     an element; under a softcap tanh is tanh.approx.f32, one MUFU
+//     operation, held by chip_smoke.py's bf16 checks (including the one
+//     that the softcap matters) at Gemma-2's widths;
+//   - d = 256: 64-key tiles, 128 + 32 accumulators and 16 P registers a
+//     consumer thread, one block of 193 KB shared memory an SM (Q 64 KB,
+//     K and V 2 x 32 KB each); d = 64 and 128 take 128-key tiles.
+//   p is rounded to bf16 (8 bits of mantissa) before P V while l sums the
+//   float32 p: each output is a p-weighted mean of v with weights off by
+//   at most 2**-9 relative, far inside the bf16 contract of 2e-2.  The
+//   epilogue writes acc / l as bf16 into the warpgroup's own Q rows in the
+//   same swizzle and TMA stores them; TMA writes no row past Sq and no
+//   column past d.
+// * bfloat16, general (flash_general_kernel; launch key "flash_general"),
+//   for the shapes TMA cannot describe (d % 8 != 0, a base that is not
+//   16-byte aligned, Skv = 0): the same consumer warpgroups, tiles, ring
+//   and shared-memory layout, behind a producer warpgroup of 128 threads
+//   (setmaxnreg 56 for the producer, 224 for the consumers: 128 x 56 +
+//   256 x 224 = 168 x 384, the registers at launch).  A bf16 row may start
+//   at any even byte, and when d % 8 != 0 the offset changes from row to
+//   row, so no 16-byte load of a row's elements is aligned.  The rows of
+//   a piece (up to 32 KB: the whole K or V tile at d <= 128, half of it
+//   at d = 256; Q in 1-4 pieces) are contiguous in global memory: one
+//   thread copies the 16-byte segments that hold the piece's bytes (and
+//   no segment that holds none, so every read stays inside the
+//   allocation) by one cp.async.bulk into a raw staging slot, counted on
+//   the slot's mbarrier; 2 slots at d = 128 (the next piece's copy runs
+//   while this one is realigned), 1 at d = 256, 4 at d = 64, as shared
+//   memory allows.  Then each producer thread takes 16-byte units (row,
+//   8 columns): two aligned 16-byte shared loads, a shift by the row's
+//   offset in registers, and one 16-byte store in TMA's 128-byte swizzle,
+//   columns past d and rows past Sq / Skv zeroed as TMA's out-of-bounds
+//   fill does.  Where d % 8 == 0 every row has the base's offset, so the
+//   shift is one of four compiled variants (a constant word shift, then
+//   four funnel shifts) and a thread keeps one column unit for the whole
+//   piece; elsewhere each unit selects its words by its own offset.  The
+//   loads of 2 units are issued before their shifts.  Every producer
+//   thread runs fence.proxy.async.shared::cta after its stores (wgmma
+//   reads shared memory through the async proxy), the threads meet on a
+//   named barrier (the staging slot is free again), and each arrives on
+//   the tile's full mbarrier, which counts 128 arrivals.  The epilogue
+//   stores acc / l from the registers (o may be unaligned: 4-byte stores
+//   where a column pair is 4-byte aligned, else 2-byte), no row past Sq,
+//   no column past d; Skv = 0 leaves l = 0 and writes zeros, as the plain
+//   version's acc / max(l, 1e-30) does.
+// * float32 (flash_f32_kernel; launch key "flash_f32"): both products on
+//   the tensor cores in 3xTF32.  Each float32 operand x is split in
+//   registers into hi = rna(x) and lo = rna(x - hi), rna rounding to tf32
+//   as cvt.rna.tf32.f32 does (to nearest, ties away from zero) in two
+//   integer operations (cvt.rna itself compiles to several), and
+//   a b is summed as lo(a) hi(b) + hi(a) lo(b), then hi(a) hi(b), in
+//   float32 accumulators (the dropped lo x lo term is about 2**-22
+//   relative; tests/test_torch_flash.py emulates the design against the
+//   plain version at 2e-5 and a relative L2 of 1e-5).  4 warps, each
+//   owning 16 of the block's 64 query rows; K and V through a ring of 2
+//   slots staged by cp.async (16-byte copies where the bases are 16-byte
+//   aligned and d % 4 == 0, 4-byte copies elsewhere: a float32 base is
+//   always 4-byte aligned), so the next tile's copies overlap this tile's
+//   math; 64-key tiles at d <= 64, 32-key tiles above (shared memory at
+//   d = 256: Q 66 KB, K and V 2 x 33 KB each).  The products are
+//   mma.sync m16n8k8 tf32, not wgmma: wgmma reads a tf32 operand from
+//   shared memory as it is stored, so 3xTF32 by wgmma needs the hi and lo
+//   halves of Q and K as four shared-memory tiles (Q's alone 132 KB at
+//   d = 256, beside the ring) and V stored transposed (wgmma takes tf32
+//   only K-major), while mma.sync takes fragments from registers, where
+//   the split costs five instructions an element and no shared memory.
+//   (32-key tiles and 2 blocks of 4 warps an SM were the fastest of the
+//   tilings tried on an H100; the splits are most of its instructions.)
+//   Within each 8-wide slice of a product's sum the fragments' k index t
+//   stands for element 2t and t + 4 for 2t + 1 (the same in A and B, so
+//   the sum is unchanged): Q's and K's fragment pairs are then one 64-bit
+//   load each, and S's accumulators are P's A fragments as they stand, so
+//   p never leaves the registers and V's B fragment reads rows 2t and
+//   2t + 1 of the V tile (rows padded to d + 4 floats: no bank conflicts).
+//   Tiles are classified per warp as in the Hopper kernel; a warp skips a
+//   tile its rows keep no key of.  expf and tanhf (no approximations, no
+//   --use_fast_math).
 // All bf16 <-> float conversions go through the intrinsics (the build
 // defines __CUDA_NO_BFLOAT16_CONVERSIONS__).
 //
@@ -101,11 +148,11 @@
 //   flash_wgmma_kernel<256>, <128>, <64>: 168 registers a thread at launch
 //     (setmaxnreg then gives the producer 24 and the consumers 240), no
 //     spills; 197,704, 164,936 and 83,016 bytes of shared memory;
-//   flash_mma_kernel<256, 32>, <128, 64>, <64, 64>: 211, 167 and 128
-//     registers (20 bytes of spill stores at <64, 64>); 67,584, 52,224 and
-//     27,648 bytes;
-//   flash_fma_kernel<256, 32, 32>, <128, 64, 32>, <64, 64, 64>: 158, 165
-//     and 163 registers, no spills; 102,912, 74,496 and 66,560 bytes.
+//   flash_general_kernel<256>, <128>, <64>: 168 registers a thread at
+//     launch (setmaxnreg then gives the producer 56 and the consumers
+//     224), no spills; 230,512, 230,552 and 148,712 bytes;
+//   flash_f32_kernel<256>, <128>, <64>: 218, 147 and 128 registers, no
+//     spills; 201,728, 103,424 and 90,112 bytes.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -119,7 +166,6 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float NEG_INF = -1e30f;
-constexpr int NT = 128;  // threads a block
 
 struct Params {
   const void* q;
@@ -129,13 +175,8 @@ struct Params {
   int BH, Sq, Skv, d, causal, window;
   float softcap, scale;
   int nq;   // query tiles
-  int vec;  // 16-byte global loads allowed
+  int vec;  // float32: 16-byte copies allowed
 };
-
-__device__ __forceinline__ void set_zero(float& x) { x = 0.f; }
-__device__ __forceinline__ void set_zero(bf16& x) {
-  x = __ushort_as_bfloat16(0);
-}
 
 // block -> (query tile, bh), heaviest query tiles first
 __device__ __forceinline__ void tile_of(const Params& p, int& qt, int& bh) {
@@ -170,47 +211,185 @@ __device__ __forceinline__ float logit(const Params& p, float dot) {
   return s;
 }
 
-// Rows [r0, r0 + ROWS) of a (len, d) matrix into s[ROWS][LD], zero past
-// len and past d.
-template <typename T, int D, int ROWS, int LD>
-__device__ __forceinline__ void stage(T* s, const T* g, int r0, int len,
-                                      int d, bool vec) {
-  constexpr int VEC = 16 / sizeof(T);
-  if (vec) {  // d % VEC == 0 and g 16-byte aligned
-    constexpr int CH = D / VEC;
-    for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
-      const int r = idx / CH, c = (idx % CH) * VEC;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + r < len && c < d)
-        u = *reinterpret_cast<const uint4*>(g + (long long)(r0 + r) * d + c);
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int x = 0; x < VEC; ++x) s[r * LD + c + x] = e[x];
+// one block a (query tile, bh), after raising the kernel's dynamic
+// shared-memory limit
+template <typename K>
+int launch(K kernel, int BQ, int threads, int smem, Params p,
+           cudaStream_t st) {
+  p.nq = (p.Sq + BQ - 1) / BQ;
+  const long long blocks = (long long)p.nq * p.BH;
+  if (blocks == 0) return 0;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)blocks, threads, smem, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores (mma.sync m16n8k8)
+
+namespace f32 {
+
+constexpr int NW = 4;        // warps, 16 query rows each
+constexpr int BQ = 16 * NW;  // query rows a block
+
+// key-tile rows by compiled head width
+template <int D>
+struct Tile {
+  static constexpr int BK = D == 64 ? 64 : 32;
+  static constexpr int LQ = D + 8;  // Q and K rows in floats: 64-bit
+  static constexpr int LV = D + 4;  // fragment loads and V's scalar ones
+                                    // hit 32 distinct banks
+};
+
+// Q, then the K ring, then the V ring, 2 slots each
+template <int D>
+constexpr int smem_bytes() {
+  return 4 * ((BQ + 2 * Tile<D>::BK) * Tile<D>::LQ +
+              2 * Tile<D>::BK * Tile<D>::LV);
+}
+
+// tf32 of x rounded as cvt.rna.tf32.f32 rounds (to nearest, ties away
+// from zero), as a float32 bit pattern with the low 13 bits zero: half of
+// the dropped bits' unit added to the magnitude, then those bits cleared.
+// For finite x (and infinities) this is cvt.rna's result in two integer
+// operations; cvt.rna itself compiles to several (its checks of the
+// exponent), and the kernel splits about 20 operands per mma.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 2^-22 relative, both tf32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: the two small terms first, then hi x hi
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(c, al, bh0, bh1);
+  mma(c, ah, bl0, bl1);
+  mma(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a (len, d) float32 matrix into s[ROWS][LD] by
+// cp.async, zero past len and past d: 16-byte copies where the bases are
+// 16-byte aligned and d % 4 == 0, 4-byte copies elsewhere (a float32 base
+// is always 4-byte aligned)
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void stage(uint32_t s, const float* g, int r0,
+                                      int len, int d, bool vec) {
+  if (vec) {
+    constexpr int CH = D / 4;
+    for (int idx = threadIdx.x; idx < ROWS * CH; idx += 32 * NW) {
+      const int r = idx / CH, c = (idx % CH) * 4;
+      const bool ok = r0 + r < len && c < d;
+      cp_async16(s + 4 * (r * LD + c),
+                 ok ? g + (long long)(r0 + r) * d + c : g, ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
+    for (int idx = threadIdx.x; idx < ROWS * D; idx += 32 * NW) {
       const int r = idx / D, c = idx % D;
-      T x;
-      set_zero(x);
-      if (r0 + r < len && c < d) x = g[(long long)(r0 + r) * d + c];
-      s[r * LD + c] = x;
+      const bool ok = r0 + r < len && c < d;
+      cp_async4(s + 4 * (r * LD + c),
+                ok ? g + (long long)(r0 + r) * d + c : g, ok);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// float32: CUDA-core FMA
+// Online softmax of one 16 x BK score tile in place (sc holds q.k on entry
+// and p on exit), with expf and tanhf; EDGE: the tile crosses the
+// diagonal, the window's edge or the end of the keys, so keep() runs
+template <int BK, bool EDGE>
+__device__ __forceinline__ void softmax(const Params& p, float (&sc)[BK / 8][4],
+                                        float (&m)[2], float (&l)[2],
+                                        float (&corr)[2],
+                                        const int (&rows)[2], int k0,
+                                        int t) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float x = logit(p, sc[j][e]);
+      if (EDGE && !keep(p, rows[h], k0 + 8 * j + 2 * t + (e & 1)))
+        x = NEG_INF;
+      sc[j][e] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the 4 lanes of a row
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    mx[h] = fmaxf(m[h], mx[h]);
+    corr[h] = expf(m[h] - mx[h]);
+    m[h] = mx[h];
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float x = sc[j][e];
+      float pe = expf(x - m[h]);
+      if (EDGE && x == NEG_INF) pe = 0.f;
+      sc[j][e] = pe;
+      l[h] += pe;
+    }
+}
 
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(NT) flash_fma_kernel(Params p) {
-  constexpr int LD = D + 1, LP = BK + 1;  // odd strides: no bank conflicts
-  constexpr int RM = BQ / 8, CN = BK / 16, DN = D / 16;
-  extern __shared__ float smem_f[];
+template <int D>
+__global__ void __launch_bounds__(32 * NW)
+    flash_f32_kernel(const __grid_constant__ Params p) {
+  constexpr int BK = Tile<D>::BK, LQ = Tile<D>::LQ, LV = Tile<D>::LV;
+  extern __shared__ __align__(16) float smem_f[];
   float* Qs = smem_f;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* Ks = Qs + BQ * LQ;        // 2 slots of BK * LQ
+  float* Vs = Ks + 2 * BK * LQ;    // 2 slots of BK * LV
+  const uint32_t sQ = static_cast<uint32_t>(__cvta_generic_to_shared(Qs));
+  const uint32_t sK = sQ + 4 * BQ * LQ, sV = sK + 4 * 2 * BK * LQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row, column pair
   int qt, bh;
   tile_of(p, qt, bh);
   const int q0 = qt * BQ;
@@ -218,250 +397,105 @@ __global__ void __launch_bounds__(NT) flash_fma_kernel(Params p) {
   const float* k = static_cast<const float*>(p.k) + (long long)bh * p.Skv * p.d;
   const float* v = static_cast<const float*>(p.v) + (long long)bh * p.Skv * p.d;
   float* o = static_cast<float*>(p.o) + (long long)bh * p.Sq * p.d;
-  stage<float, D, BQ, LD>(Qs, q, q0, p.Sq, p.d, p.vec);
-
-  float m[RM], l[RM], acc[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
-  }
   int kb, ke;
   kv_range(p, q0, BQ, BK, kb, ke);
-  for (int kt = kb; kt < ke; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // Q staged; the last tile's K, V and P reads done
-    stage<float, D, BK, LD>(Ks, k, k0, p.Skv, p.d, p.vec);
-    stage<float, D, BK, LD>(Vs, v, k0, p.Skv, p.d, p.vec);
-    __syncthreads();
-
-    float s[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[RM], kv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = Qs[(ty + 8 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = Ks[(tx + 16 * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int row = q0 + ty + 8 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const float x = keep(p, row, k0 + tx + 16 * j) ? logit(p, s[i][j])
-                                                       : NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)  // the 16 lanes of this row
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int col = tx + 16 * j;
-        float e = expf(s[i][j] - m_new);
-        e = keep(p, row, k0 + col) ? e : 0.f;
-        Ps[(ty + 8 * i) * LP + col] = e;
-        ps += e;
-      }
-      l[i] = l[i] * corr + ps;  // this thread's share of the row sum
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= corr;
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[RM], vv[DN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = Ps[(ty + 8 * i) * LP + c];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) vv[j] = Vs[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+  const bool vec = p.vec != 0;
+  stage<D, BQ, LQ>(sQ, q, q0, p.Sq, p.d, vec);
+  if (kb < ke) {
+    stage<D, BK, LQ>(sK, k, kb * BK, p.Skv, p.d, vec);
+    stage<D, BK, LV>(sV, v, kb * BK, p.Skv, p.d, vec);
   }
+  cp_commit();
 
+  const int w0 = q0 + 16 * warp;  // this warp's first query row
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  const int kd = (p.d + 7) / 8;  // 8-column slices that hold real columns
+  float acc[D / 8][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    float lt = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    lt = fmaxf(lt, 1e-30f);
-    const int row = q0 + ty + 8 * i;
-    if (row < p.Sq) {
-#pragma unroll
-      for (int j = 0; j < DN; ++j) {
-        const int col = tx + 16 * j;
-        if (col < p.d) o[(long long)row * p.d + col] = acc[i][j] / lt;
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16 tensor cores, float32 accumulation
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// two consecutive bf16 in shared memory (the lower index in the low half)
-__device__ __forceinline__ uint32_t ld2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-template <int D, int BK>
-__global__ void __launch_bounds__(NT) flash_mma_kernel(Params p) {
-  constexpr int BQ = 64, LD = D + 8;  // 16-byte rows, conflict-free frags
-  constexpr int NS = BK / 8, NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_b);
-  bf16* Ks = Qs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row, column pair
-  int qt, bh;
-  tile_of(p, qt, bh);
-  const int q0 = qt * BQ;
-  const bf16* q = static_cast<const bf16*>(p.q) + (long long)bh * p.Sq * p.d;
-  const bf16* k = static_cast<const bf16*>(p.k) + (long long)bh * p.Skv * p.d;
-  const bf16* v = static_cast<const bf16*>(p.v) + (long long)bh * p.Skv * p.d;
-  bf16* o = static_cast<bf16*>(p.o) + (long long)bh * p.Sq * p.d;
-  stage<bf16, D, BQ, LD>(Qs, q, q0, p.Sq, p.d, p.vec);
-
-  // this thread's rows: r (fragment values 0, 1) and r + 8 (values 2, 3)
-  const int r = warp * 16 + g;
-  const int rows[2] = {q0 + r, q0 + r + 8};
-  const int kd = (p.d + 15) / 16;  // k-steps of q.k that hold real columns
-  float acc[NO][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  int kb, ke;
-  kv_range(p, q0, BQ, BK, kb, ke);
   for (int kt = kb; kt < ke; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // Q staged; the last tile's K and V reads done
-    stage<bf16, D, BK, LD>(Ks, k, k0, p.Skv, p.d, p.vec);
-    stage<bf16, D, BK, LD>(Vs, v, k0, p.Skv, p.d, p.vec);
-    __syncthreads();
-
-    // S = Q K^T: s[j] is the 16 x 8 tile of keys k0 + 8j ..
-    float s[NS][4];
+    const int i = kt - kb, k0 = kt * BK;
+    if (kt + 1 < ke) {  // the next tile into the other slot, in flight
+      const int s = (i + 1) % 2;  // while this one is used
+      stage<D, BK, LQ>(sK + 4 * s * BK * LQ, k, k0 + BK, p.Skv, p.d, vec);
+      stage<D, BK, LV>(sV + 4 * s * BK * LV, v, k0 + BK, p.Skv, p.d, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // tile i (and Q) in shared memory for every thread
+    // a warp whose 16 rows keep no key of the tile skips it
+    const bool dead = (p.causal && k0 > w0 + 15) ||
+                      (p.window > 0 && w0 - (k0 + BK - 1) >= p.window);
+    if (!dead) {
+      const float* Kt = Ks + (i % 2) * BK * LQ;
+      const float* Vt = Vs + (i % 2) * BK * LV;
+      // S = Q K^T.  Within a slice of 8 columns the fragments' k index t
+      // is column 2t and t + 4 is 2t + 1 (the same in A and B, so the sum
+      // is unchanged), which makes every operand pair one 64-bit load.
+      float sc[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+      for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      if (kk < kd) {
-        const bf16* qa = Qs + r * LD + kk * 16 + 2 * t;
-        const uint32_t a0 = ld2(qa), a1 = ld2(qa + 8 * LD), a2 = ld2(qa + 8),
-                       a3 = ld2(qa + 8 * LD + 8);
+      for (int kk = 0; kk < D / 8; ++kk) {
+        if (kk < kd) {
+          const float2 q0v =
+              *reinterpret_cast<const float2*>(Qs + (16 * warp + g) * LQ +
+                                               8 * kk + 2 * t);
+          const float2 q1v = *reinterpret_cast<const float2*>(
+              Qs + (16 * warp + g + 8) * LQ + 8 * kk + 2 * t);
+          uint32_t ah[4], al[4];
+          split(q0v.x, ah[0], al[0]);
+          split(q1v.x, ah[1], al[1]);
+          split(q0v.y, ah[2], al[2]);
+          split(q1v.y, ah[3], al[3]);
 #pragma unroll
-        for (int j = 0; j < NS; ++j) {
-          const bf16* kp = Ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
-          mma_bf16(s[j], a0, a1, a2, a3, ld2(kp), ld2(kp + 8));
+          for (int j = 0; j < BK / 8; ++j) {
+            const float2 kv = *reinterpret_cast<const float2*>(
+                Kt + (8 * j + g) * LQ + 8 * kk + 2 * t);
+            mma3(sc[j], ah, al, kv.x, kv.y);
+          }
         }
       }
-    }
-
-    // online softmax on rows[0] (values 0, 1) and rows[1] (values 2, 3)
-    float mx[2] = {NEG_INF, NEG_INF};
+      const bool edge = k0 + BK > p.Skv || (p.causal && k0 + BK - 1 > w0) ||
+                        (p.window > 0 && w0 + 15 - k0 >= p.window);
+      float corr[2];
+      if (edge)
+        softmax<BK, true>(p, sc, m, l, corr, rows, k0, t);
+      else
+        softmax<BK, false>(p, sc, m, l, corr, rows, k0, t);
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, col = k0 + j * 8 + 2 * t + (e & 1);
-        const float x = keep(p, rows[h], col) ? logit(p, s[j][e]) : NEG_INF;
-        s[j][e] = x;
-        mx[h] = fmaxf(mx[h], x);
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
       }
-    float corr[2];
+      // O += P V.  Score tile j is P's A fragment of keys 8j .. 8j + 7
+      // with k index t as key 2t and t + 4 as key 2t + 1, so V's B
+      // fragment reads rows 2t and 2t + 1; p is split in registers.
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {  // the 4 lanes of a row
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      mx[h] = fmaxf(m[h], mx[h]);
-      corr[h] = expf(m[h] - mx[h]);
-      m[h] = mx[h];
-      l[h] *= corr[h];
-    }
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t ah[4], al[4];
+        split(sc[j][0], ah[0], al[0]);
+        split(sc[j][2], ah[1], al[1]);
+        split(sc[j][1], ah[2], al[2]);
+        split(sc[j][3], ah[3], al[3]);
+        const float* vp = Vt + (8 * j + 2 * t) * LV + g;
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1, col = k0 + j * 8 + 2 * t + (e & 1);
-        const float pe = expf(s[j][e] - m[h]);
-        s[j][e] = keep(p, rows[h], col) ? pe : 0.f;
-        l[h] += s[j][e];
-      }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // acc += P V: score tiles 2kk and 2kk + 1 are P's A fragment of keys
-    // 16kk .. 16kk + 15 (p rounded to bf16 here)
-#pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) {
-      const uint32_t a0 = pack_f(s[2 * kk][0], s[2 * kk][1]),
-                     a1 = pack_f(s[2 * kk][2], s[2 * kk][3]),
-                     a2 = pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                     a3 = pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        if (n * 8 < p.d) {
-          const bf16* vp = Vs + (kk * 16 + 2 * t) * LD + n * 8 + g;
-          mma_bf16(acc[n], a0, a1, a2, a3, pack(vp[0], vp[LD]),
-                   pack(vp[8 * LD], vp[9 * LD]));
-        }
+        for (int n = 0; n < D / 8; ++n)
+          if (n < kd) mma3(acc[n], ah, al, vp[8 * n], vp[LV + 8 * n]);
       }
     }
+    __syncthreads();  // every read of slot i % 2 done before its refill
   }
+  cp_wait<0>();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -470,14 +504,16 @@ __global__ void __launch_bounds__(NT) flash_mma_kernel(Params p) {
     l[h] = fmaxf(l[h], 1e-30f);
   }
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1, col = n * 8 + 2 * t + (e & 1);
+      const int h = e >> 1, col = 8 * n + 2 * t + (e & 1);
       if (rows[h] < p.Sq && col < p.d)
-        o[(long long)rows[h] * p.d + col] = __float2bfloat16(acc[n][e] / l[h]);
+        o[(long long)rows[h] * p.d + col] = acc[n][e] / l[h];
     }
 }
+
+}  // namespace f32
 
 // ---------------------------------------------------------------------------
 // bfloat16 on Hopper: TMA ring, wgmma, one producer and two consumer
@@ -565,6 +601,14 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// unit (row tr, 8-column group u) of a tile of R rows in TMA's 128-byte
+// swizzle: 64-column chunks of R x 128 bytes, 16-byte units permuted by
+// the row
+__device__ __forceinline__ uint32_t swizzled(uint32_t tile, int R, int tr,
+                                             int u) {
+  return tile + (u / 8) * R * 128 + tr * 128 + ((u % 8) ^ (tr % 8)) * 16;
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -582,6 +626,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -837,7 +886,10 @@ __device__ __forceinline__ void softmax(const Params& p, float (&sc)[BK / 2],
     }
 }
 
-template <int D>
+// TMA_OUT: the epilogue stores through TMA (the Hopper kernel); else the
+// threads store to global memory directly (the general kernel, whose o
+// may be unaligned)
+template <int D, bool TMA_OUT>
 __device__ __forceinline__ void consume(const Params& p,
                                         const CUtensorMap* to, int q0, int bh,
                                         int kb, int ke, uint32_t sQ,
@@ -964,35 +1016,60 @@ __device__ __forceinline__ void consume(const Params& p,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     l[h] = fmaxf(l[h], 1e-30f);
   }
-  // Epilogue: acc / l as bf16 into this warpgroup's own Q rows (free now:
-  // only its products read them), in the 128-byte swizzle, then one TMA
-  // store a 64-column chunk; TMA writes no row past Sq, no column past d.
-  const uint32_t so = sQ + wg * 64 * 128;
-  const int r = 16 * warp + lane / 4;  // row within the warpgroup
+  if constexpr (TMA_OUT) {
+    // acc / l as bf16 into this warpgroup's own Q rows (free now: only its
+    // products read them), in the 128-byte swizzle, then one TMA store a
+    // 64-column chunk; TMA writes no row past Sq, no column past d.
+    const uint32_t so = sQ + wg * 64 * 128;
+    const int r = 16 * warp + lane / 4;  // row within the warpgroup
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int x = 0; x < D / 8; ++x) {
-      const uint32_t at = so + (x / 8) * BQ * 128 + (r + 8 * h) * 128 +
-                          ((x % 8) ^ ((r + 8 * h) % 8)) * 16 + t * 4;
-      const uint32_t v2 = pack_f(o[4 * x + 2 * h] / l[h],
-                                 o[4 * x + 2 * h + 1] / l[h]);
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(v2)
-                   : "memory");
+      for (int x = 0; x < D / 8; ++x) {
+        const uint32_t at = swizzled(so, BQ, r + 8 * h, x) + t * 4;
+        const uint32_t v2 = pack_f(o[4 * x + 2 * h] / l[h],
+                                   o[4 * x + 2 * h + 1] / l[h]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(v2)
+                     : "memory");
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (threadIdx.x % 128 == 0) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        asm volatile(
+            "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+            " [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+                reinterpret_cast<uint64_t>(to)),
+            "r"(64 * c), "r"(r0), "r"(bh), "r"(so + c * BQ * 128)
+            : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  if (threadIdx.x % 128 == 0) {
+  } else {
+    // acc / l as bf16 straight from the registers: no row past Sq, no
+    // column past d; a pair of columns is one 4-byte store where it is
+    // 4-byte aligned
+    bf16* og = static_cast<bf16*>(p.o) + (long long)bh * p.Sq * p.d;
 #pragma unroll
-    for (int c = 0; c < CH; ++c)
-      asm volatile(
-          "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-          " [%0, {%1, %2, %3}], [%4];\n" ::"l"(
-              reinterpret_cast<uint64_t>(to)),
-          "r"(64 * c), "r"(r0), "r"(bh), "r"(so + c * BQ * 128)
-          : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= p.Sq) continue;
+      bf16* orow = og + (long long)rows[h] * p.d;
+#pragma unroll
+      for (int x = 0; x < D / 8; ++x) {
+        const int col = 8 * x + 2 * t;
+        if (col >= p.d) continue;
+        const __nv_bfloat162 v2 = __floats2bfloat162_rn(
+            o[4 * x + 2 * h] / l[h], o[4 * x + 2 * h + 1] / l[h]);
+        if (col + 1 < p.d &&
+            reinterpret_cast<uintptr_t>(orow + col) % 4 == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = v2;
+        } else {
+          orow[col] = v2.x;
+          if (col + 1 < p.d) orow[col + 1] = v2.y;
+        }
+      }
+    }
   }
 }
 
@@ -1052,7 +1129,306 @@ __global__ void __launch_bounds__(NTH, 1)
     }
   } else {  // consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<D>(p, &to, q0, bh, kb, ke, sQ, sK, sV, bar);
+    consume<D, true>(p, &to, q0, bh, kb, ke, sQ, sK, sV, bar);
+  }
+}
+
+// The general kernel: the same consumers behind a producer warpgroup of
+// threads, for what TMA cannot describe.  Each piece (PR rows of Q, K or
+// V) arrives by one cp.async.bulk of the 16-byte segments that hold its
+// bytes (its rows are contiguous in global memory) into a raw staging
+// slot; the 128 producer threads realign it into its tile in TMA's
+// 128-byte swizzle, zero past d and past the rows.  NSTG - 1 pieces'
+// copies are in flight while one is realigned.
+
+// registers a thread after setmaxnreg: 128 x 56 + 256 x 224 = 168 x 384,
+// the registers at launch (the producer's batches of 2 units need 56)
+constexpr int GEN_PREG = 56, GEN_CREG = 224;
+constexpr int GEN_PIECE = 32768;  // bytes of a piece, at most
+constexpr int GEN_NB = 2;         // units a batch: loads issued together
+
+template <int D>
+struct Gen {
+  static constexpr int PR = GEN_PIECE / (2 * D) < Tile<D>::BK
+                                ? GEN_PIECE / (2 * D)
+                                : Tile<D>::BK;  // rows a piece
+  // bytes a slot: the piece's segments and 16 more, so that a unit's
+  // second load never leaves the slot
+  static constexpr int SLOT = PR * D * 2 + 32;
+  // as many slots as the block's 227 KB leave room for, at most 4
+  static constexpr int FREE = 232448 - 2 * D * (BQ + 2 * ST * Tile<D>::BK) -
+                              1024 - 8 * (1 + 4 * ST + 4);
+  static constexpr int NSTG = FREE / SLOT < 4 ? FREE / SLOT : 4;
+  static_assert(Tile<D>::BK % PR == 0 && NSTG >= 1, "staging");
+  static_assert((PR * D / 8 / 128) % GEN_NB == 0, "batches");
+};
+
+template <int D>
+constexpr int smem_bytes_general() {
+  return 2 * D * (BQ + 2 * ST * Tile<D>::BK) + Gen<D>::NSTG * Gen<D>::SLOT +
+         8 * (1 + 4 * ST + Gen<D>::NSTG) + 1024;
+}
+
+__device__ __forceinline__ void ld_v4(uint32_t a, uint32_t (&x)[4]) {
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_v4(uint32_t a, const uint32_t (&x)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3])
+               : "memory");
+}
+
+// A piece whose rows all start o0 bytes past a 16-byte boundary (d % 8 ==
+// 0): each thread takes one unit u of rows r0, r0 + 128 / U, ...; QW =
+// o0 / 4 is a constant, b = (o0 % 4) * 8 the bits of the funnel shift.  A
+// unit: two aligned 16-byte loads, four funnel shifts, one store.
+template <int D, int QW>
+__device__ __forceinline__ void copy_rows(uint32_t stg, uint32_t dst, int R,
+                                          int sub, int rows, int d,
+                                          uint32_t b, int pt) {
+  constexpr int U = D / 8, RS = 128 / U, PR = Gen<D>::PR, NB = GEN_NB;
+  const int u = pt % U, r0 = pt / U;
+  const uint32_t src = stg + r0 * 2 * d + 16 * u;
+#pragma unroll 2  // whole, the 16 steps' addresses spill the 56 registers
+  for (int k0 = 0; k0 < PR / RS; k0 += NB) {
+    uint32_t lo[NB][4], hi[NB][4];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const uint32_t a = src + (k0 + i) * RS * 2 * d;
+      ld_v4(a, lo[i]);
+      ld_v4(a + 16, hi[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int r = r0 + (k0 + i) * RS;
+      const bool ok = 8 * u < d && r < rows;
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = QW + e;  // a constant: no register is indexed
+        const uint32_t w0 = x < 4 ? lo[i][x] : hi[i][x - 4];
+        const uint32_t w1 = x + 1 < 4 ? lo[i][x + 1] : hi[i][x - 3];
+        w[e] = ok ? __funnelshift_r(w0, w1, b) : 0u;
+      }
+      st_v4(swizzled(dst, R, sub + r, u), w);
+    }
+  }
+}
+
+// A piece whose rows start at offsets that change from row to row (d % 8
+// != 0): the same per unit, with the shift taken from each unit's offset
+// (word selects, then a funnel shift) and the columns past d cleared.
+template <int D>
+__device__ __forceinline__ void copy_units(uint32_t stg, uint32_t dst, int R,
+                                           int sub, int rows, int d, int o0,
+                                           int pt) {
+  constexpr int U = D / 8, PR = Gen<D>::PR, NB = GEN_NB;
+  for (int b0 = pt; b0 < PR * U; b0 += 128 * NB) {
+    uint32_t lo[NB][4], hi[NB][4];
+    int sh[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int idx = b0 + 128 * i, r = idx / U, u = idx % U;
+      const int off = o0 + r * 2 * d + 16 * u, a = off & ~15;
+      sh[i] = off & 15;
+      if (r < rows && 8 * u < d) {
+        ld_v4(stg + a, lo[i]);
+        ld_v4(stg + a + 16, hi[i]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) lo[i][w] = hi[i][w] = 0u;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int idx = b0 + 128 * i, r = idx / U, u = idx % U;
+      const int nv = d - 8 * u;  // columns of this unit that exist
+      uint32_t x[6] = {lo[i][0], lo[i][1], lo[i][2], lo[i][3], hi[i][0],
+                       hi[i][1]};
+      if (sh[i] & 8) {  // by two words
+        x[0] = lo[i][2];
+        x[1] = lo[i][3];
+        x[2] = hi[i][0];
+        x[3] = hi[i][1];
+        x[4] = hi[i][2];
+        x[5] = hi[i][3];
+      }
+      if (sh[i] & 4) {  // by one word
+        x[0] = x[1];
+        x[1] = x[2];
+        x[2] = x[3];
+        x[3] = x[4];
+        x[4] = x[5];
+      }
+      const uint32_t b = (sh[i] & 2) * 8;  // and by half a word
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t keep = r >= rows || 2 * e >= nv ? 0u
+                              : 2 * e + 1 < nv         ? 0xffffffffu
+                                                       : 0x0000ffffu;
+        w[e] = __funnelshift_r(x[e], x[e + 1], b) & keep;
+      }
+      st_v4(swizzled(dst, R, sub + r, u), w);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void produce(const Params& p, int q0, int bh,
+                                        int kb, int ke, uint32_t sQ,
+                                        uint32_t sK, uint32_t sV,
+                                        uint32_t sS, uint32_t bar) {
+  constexpr int BK = Tile<D>::BK, KV = BK * D * 2;
+  constexpr int PR = Gen<D>::PR, NSTG = Gen<D>::NSTG, SLOT = Gen<D>::SLOT;
+  constexpr int QP = BQ / PR, TP = BK / PR;  // pieces of Q, of a K/V tile
+  const Ring ring{bar};
+  const uint32_t sbar = bar + 8 * (1 + 4 * ST);  // staging barriers
+  const int pt = threadIdx.x - 128 * NC;
+  const int d = p.d;
+  const long long row_bytes = 2LL * d;
+  const uintptr_t q = reinterpret_cast<uintptr_t>(p.q) +
+                      (uintptr_t)((long long)bh * p.Sq * row_bytes);
+  const uintptr_t k = reinterpret_cast<uintptr_t>(p.k) +
+                      (uintptr_t)((long long)bh * p.Skv * row_bytes);
+  const uintptr_t v = reinterpret_cast<uintptr_t>(p.v) +
+                      (uintptr_t)((long long)bh * p.Skv * row_bytes);
+  // pieces: Q's, then for each key tile K's and V's
+  const int n = QP + 2 * TP * max(ke - kb, 0);
+
+  // piece j: its first row's address, its rows that exist, its first row
+  // in its tile
+  auto piece = [&](int j, uintptr_t& start, int& rows, int& sub) {
+    if (j < QP) {
+      const int r0 = q0 + j * PR;
+      start = q + (uintptr_t)((long long)r0 * row_bytes);
+      rows = min(max(p.Sq - r0, 0), PR);
+      sub = j * PR;
+    } else {
+      const int jj = j - QP, i = jj / (2 * TP);
+      sub = (jj % TP) * PR;
+      const int r0 = (kb + i) * BK + sub;
+      start = ((jj / TP) % 2 ? v : k) + (uintptr_t)((long long)r0 * row_bytes);
+      rows = min(max(p.Skv - r0, 0), PR);
+    }
+  };
+  // the 16-byte segments that hold piece j's bytes
+  auto span = [&](uintptr_t start, int rows) -> uint32_t {
+    return rows > 0 ? (uint32_t)(((start + rows * row_bytes + 15) &
+                                  ~(uintptr_t)15) -
+                                 (start & ~(uintptr_t)15))
+                    : 0u;
+  };
+  // piece j's segments into its staging slot (an empty piece completes
+  // its barrier's phase with no bytes)
+  auto issue = [&](int j) {
+    if (pt != 0 || j >= n) return;
+    uintptr_t start;
+    int rows, sub;
+    piece(j, start, rows, sub);
+    const uint32_t bytes = span(start, rows);
+    const uint32_t b = sbar + 8 * (j % NSTG);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(b, bytes);
+    if (bytes > 0)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(sS + (j % NSTG) * SLOT),
+          "l"((uint64_t)(start & ~(uintptr_t)15)), "r"(bytes), "r"(b)
+          : "memory");
+  };
+
+  for (int j = 0; j < NSTG - 1; ++j) issue(j);
+  for (int j = 0; j < n; ++j) {
+    // the slot of piece j - 1 is free: every thread passed its bar.sync
+    issue(j + NSTG - 1);
+    uintptr_t start;
+    int rows, sub;
+    piece(j, start, rows, sub);
+    uint32_t dst, full = 0;
+    int R;  // the tile's rows
+    if (j < QP) {
+      dst = sQ;
+      R = BQ;
+      if (j == QP - 1) full = bar;
+    } else {
+      const int jj = j - QP, i = jj / (2 * TP);
+      const bool isv = (jj / TP) % 2;
+      dst = (isv ? sV : sK) + (i % ST) * KV;
+      R = BK;
+      if (sub == 0)  // a tile's first piece waits for its ring slot
+        mbar_wait(isv ? ring.vempty(i) : ring.kempty(i), ring.phase(i) ^ 1);
+      if (sub == BK - PR) full = isv ? ring.vfull(i) : ring.kfull(i);
+    }
+    const int o0 = (int)(start & 15);
+    const uint32_t stg = sS + (j % NSTG) * SLOT;
+    mbar_wait(sbar + 8 * (j % NSTG), (j / NSTG) & 1);
+    if (d % 8 == 0) {  // one offset for every row: a constant shift
+      const uint32_t b = (o0 & 2) * 8;
+      switch (o0 / 4) {
+        case 0:
+          copy_rows<D, 0>(stg, dst, R, sub, rows, d, b, pt);
+          break;
+        case 1:
+          copy_rows<D, 1>(stg, dst, R, sub, rows, d, b, pt);
+          break;
+        case 2:
+          copy_rows<D, 2>(stg, dst, R, sub, rows, d, b, pt);
+          break;
+        default:
+          copy_rows<D, 3>(stg, dst, R, sub, rows, d, b, pt);
+      }
+    } else {
+      copy_units<D>(stg, dst, R, sub, rows, d, o0, pt);
+    }
+    // the tensor cores read the tile through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // every thread's reads of the staging slot are done before its refill
+    asm volatile("bar.sync 3, 128;\n" ::: "memory");
+    if (full != 0) mbar_arrive(full);  // a tile's barrier after its last piece
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTH, 1)
+    flash_general_kernel(const __grid_constant__ Params p) {
+  constexpr int BK = Tile<D>::BK;
+  constexpr uint32_t KV = BK * D * 2;
+  extern __shared__ unsigned char smem_g[];
+  const uint32_t sQ = (smem_u32(smem_g) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + BQ * D * 2, sV = sK + ST * KV;
+  const uint32_t sS = sV + ST * KV;  // staging slots
+  const uint32_t bar = sS + Gen<D>::NSTG * Gen<D>::SLOT;
+  const Ring ring{bar};
+  int qt, bh;
+  tile_of(p, qt, bh);
+  const int q0 = qt * BQ;
+  int kb, ke;
+  kv_range(p, q0, BQ, BK, kb, ke);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 128);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(ring.kfull(s), 128);
+      mbar_init(ring.vfull(s), 128);
+      mbar_init(ring.kempty(s), 128 * NC);
+      mbar_init(ring.vempty(s), 128 * NC);
+    }
+    for (int s = 0; s < Gen<D>::NSTG; ++s)
+      mbar_init(bar + 8 * (1 + 4 * ST + s), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NC) {  // producer warpgroup: 128 threads load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(GEN_PREG));
+    produce<D>(p, q0, bh, kb, ke, sQ, sK, sV, sS, bar);
+  } else {  // consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(GEN_CREG));
+    consume<D, false>(p, nullptr, q0, bh, kb, ke, sQ, sK, sV, bar);
   }
 }
 
@@ -1121,34 +1497,21 @@ int launch(Params p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_general(const Params& p, cudaStream_t st) {
+  return ::launch(flash_general_kernel<D>, BQ, NTH, smem_bytes_general<D>(),
+                  p, st);
+}
+
 }  // namespace hop
 
 // ---------------------------------------------------------------------------
 // launch
 
-template <typename K>
-int launch(K kernel, int BQ, int smem, Params p, cudaStream_t st) {
-  p.nq = (p.Sq + BQ - 1) / BQ;
-  const long long blocks = (long long)p.nq * p.BH;
-  if (blocks == 0) return 0;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)blocks, NT, smem, st>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <int D, int BQ, int BK>
-int launch_fma(const Params& p, cudaStream_t st) {
-  const int smem = ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * 4;
-  return launch(flash_fma_kernel<D, BQ, BK>, BQ, smem, p, st);
-}
-
-template <int D, int BK>
-int launch_mma(const Params& p, cudaStream_t st) {
-  const int smem = (64 + 2 * BK) * (D + 8) * 2;
-  return launch(flash_mma_kernel<D, BK>, 64, smem, p, st);
+template <int D>
+int launch_f32(const Params& p, cudaStream_t st) {
+  return launch(f32::flash_f32_kernel<D>, f32::BQ, 32 * f32::NW,
+                f32::smem_bytes<D>(), p, st);
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* o,
@@ -1186,14 +1549,14 @@ extern "C" int repro_flash_attn_f32(const void* q, const void* k,
                                softcap, scale, 4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
-  if (d <= 64) return launch_fma<64, 64, 64>(p, st);
-  if (d <= 128) return launch_fma<128, 64, 32>(p, st);
-  return launch_fma<256, 32, 32>(p, st);
+  if (d <= 64) return launch_f32<64>(p, st);
+  if (d <= 128) return launch_f32<128>(p, st);
+  return launch_f32<256>(p, st);
 }
 
 // The bf16 entry point returns 0 after launching the Hopper kernel and
-// -1 after launching the general mma.sync kernel (the wrapper counts the
-// launch under that kernel's key), or a CUDA error code.  The Hopper
+// -1 after launching the general kernel (the wrapper counts the launch
+// under that kernel's key), or a CUDA error code.  The Hopper
 // kernel takes what TMA can describe: 16-byte aligned bases, rows of a
 // multiple of 16 bytes (d % 8 == 0) and at least one key row; the general
 // kernel takes the rest.  A choice by shape, not a fallback.
@@ -1214,8 +1577,8 @@ extern "C" int repro_flash_attn_bf16(const void* q, const void* k,
     if (d <= 128) return hop::launch<128>(p, st);
     return hop::launch<256>(p, st);
   }
-  const int e = d <= 64    ? launch_mma<64, 64>(p, st)
-                : d <= 128 ? launch_mma<128, 64>(p, st)
-                           : launch_mma<256, 32>(p, st);
+  const int e = d <= 64    ? hop::launch_general<64>(p, st)
+                : d <= 128 ? hop::launch_general<128>(p, st)
+                           : hop::launch_general<256>(p, st);
   return e != 0 ? e : -1;
 }

@@ -3,14 +3,14 @@
 A CUDA tensor goes through a kernel, a CPU tensor through the plain
 version in ``ref.py``; there is no other route.  Which kernel takes a
 CUDA call is the C entry point's choice, by dtype and shape: float32 the
-FMA kernel (launch key ``flash_fma``); bfloat16 the Hopper kernel
-(``flash``) where TMA can describe the tensors (d a multiple of 8,
-16-byte aligned bases, at least one key) and the general ``mma.sync``
-kernel (``flash_mma``) elsewhere.  The bf16 entry point returns which of
-the two it launched, and the launch is counted under that key.  The TPU
-kernel's tile sizes (``qc``, ``kc``) are not arguments here: tiles belong
-to the kernel, and the result depends on them only through the order of
-float summation.
+3xTF32 tensor-core kernel (launch key ``flash_f32``); bfloat16 the Hopper
+kernel (``flash``) where TMA can describe the tensors (d a multiple of 8,
+16-byte aligned bases, at least one key) and elsewhere the general kernel
+(``flash_general``: the same ``wgmma`` consumers behind a producer of
+threads).  The bf16 entry point returns which of the two it launched, and
+the launch is counted under that key.  The TPU kernel's tile sizes
+(``qc``, ``kc``) are not arguments here: tiles belong to the kernel, and
+the result depends on them only through the order of float summation.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ _FN = {torch.float32: "repro_flash_attn_f32",
        torch.bfloat16: "repro_flash_attn_bf16"}
 #: launch keys of the kernels each entry point chooses among, in the order
 #: of its return codes (0, -1)
-_KEYS = {torch.float32: "flash_fma", torch.bfloat16: ("flash", "flash_mma")}
+_KEYS = {torch.float32: "flash_f32",
+         torch.bfloat16: ("flash", "flash_general")}
 #: largest head dim the kernel is compiled for
 MAX_HEAD_DIM = 256
 

@@ -482,7 +482,8 @@ def test_nicol_optimal_device_on_card_matches_cpu(dtype, n):
 
 #: launch keys of K5's kernels by dtype (which one takes a bf16 call is
 #: the C entry point's choice)
-FLASH_KEYS = {"float32": ("flash_fma",), "bfloat16": ("flash", "flash_mma")}
+FLASH_KEYS = {"float32": ("flash_f32",),
+              "bfloat16": ("flash", "flash_general")}
 
 
 def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0,
@@ -570,29 +571,128 @@ def test_flash_hopper_gemma2_softcap(window):
 
 
 # 72: TMA can describe it, not a compiled width; 70: d % 8 != 0
-@pytest.mark.parametrize("d,key", [(72, "flash"), (70, "flash_mma")])
+@pytest.mark.parametrize("d,key", [(72, "flash"), (70, "flash_general")])
 def test_flash_widths_route_by_shape(d, key):
     _flash_case(1, 200, 300, 2, d, True, 48, 50.0, "bfloat16", seed=d,
                 key=key)
     _flash_case(1, 70, 197, 2, d, False, 0, 0.0, "bfloat16", seed=d, key=key)
 
 
+def _at_offset(x: np.ndarray, dev, dtype, elems: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` on the card whose base lies ``elems``
+    elements past the start of its buffer."""
+    buf = torch.zeros(x.size + elems, dtype=dtype, device=dev)
+    return buf[elems:].view(x.shape).copy_(torch.from_numpy(
+        np.ascontiguousarray(x)))
+
+
+def _flash_folded(BH, Sq, Skv, d, dtype, key, *, offset=1, causal=True,
+                  window=0, softcap=0.0, seed=0, q_scale=1.0):
+    """K5 through ``flash_attention`` on (BH, S, d) inputs whose bases lie
+    ``offset`` elements past a 16-byte boundary, against the plain version;
+    one launch, counted under ``key``."""
+    dev = need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt = FLASH_DTYPES[dtype]
+    q, k, v = (x[0].transpose(1, 0, 2) for x in qkv(1, Sq, Skv, BH, d, seed))
+    q, k, v = (_at_offset(x, dev, tdt, offset)
+               for x in (q * np.float32(q_scale), k, v))
+    if offset % (16 // q.element_size()):
+        assert all(x.data_ptr() % 16 != 0 for x in (q, k, v))
+    n = _build.launches[key]
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)
+    assert _build.launches[key] == n + 1
+    torch.cuda.synchronize()
+    want = flash_ref.attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    assert got.dtype == tdt and got.shape == (BH, Sq, d)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_flash_unaligned_base_takes_the_general_kernel():
     """A base that is not 16-byte aligned is out of TMA's reach: the
-    general kernel takes it, counted as ``flash_mma``."""
+    general kernel takes it, counted as ``flash_general``."""
+    _flash_folded(2, 96, 96, 64, "bfloat16", "flash_general")
+
+
+@pytest.mark.parametrize("d", [1, 7, 64, 70, 128, 250, 256])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_flash_general_head_dims(d, offset):
+    """The general kernel's producer realigns rows that start at any even
+    byte: odd and even element offsets, every compiled width, d % 8 != 0
+    (rows whose offset changes from row to row)."""
+    _flash_folded(2, 130, 197, d, "bfloat16", "flash_general", offset=offset,
+                  window=48, softcap=50.0, seed=d)
+    _flash_folded(2, 70, 197, d, "bfloat16", "flash_general", offset=offset,
+                  causal=False, seed=d + 1)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", EDGE_LENGTHS)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_general_tile_edges(Sq, Skv, causal, d):
+    """The Hopper kernel's tile edges on the general route."""
+    _flash_folded(2, Sq, Skv, d, "bfloat16", "flash_general", causal=causal,
+                  seed=Sq + Skv)
+
+
+@pytest.mark.parametrize("window", [64, 100, 128])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_general_window_edges(window, d):
+    _flash_folded(2, 512, 512, d, "bfloat16", "flash_general", window=window,
+                  seed=window)
+
+
+@pytest.mark.parametrize("window", [0, 256])
+def test_flash_general_gemma2_softcap(window):
+    """Gemma-2's widths and softcap on the general route, q 8x larger so
+    the softcap changes the logits."""
+    _flash_folded(2, 1024, 1024, 256, "bfloat16", "flash_general",
+                  window=window, softcap=50.0, q_scale=8.0)
+
+
+def test_flash_general_no_keys():
+    """Skv = 0: TMA cannot describe it, the general kernel writes zeros,
+    as the plain version does (acc / max(l, 1e-30))."""
     dev = need_card()
-    q, k, v = (x[0].transpose(1, 0, 2) for x in qkv(1, 96, 96, 2, 64))
-    buf = [torch.zeros(x.size + 1, dtype=torch.bfloat16, device=dev)
-           for x in (q, k, v)]
-    q, k, v = (b[1:].view(x.shape).copy_(torch.from_numpy(
-        np.ascontiguousarray(x))) for b, x in zip(buf, (q, k, v)))
-    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
-    n = _build.launches["flash_mma"]
-    got = flash_ops.flash_attention(q, k, v, causal=True)
-    assert _build.launches["flash_mma"] == n + 1
-    want = flash_ref.attention_ref(q, k, v, causal=True)
-    tol = FLASH_TOL["bfloat16"]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    q = torch.randn(3, 70, 64, device=dev).to(torch.bfloat16)
+    k = torch.zeros(3, 0, 64, device=dev, dtype=torch.bfloat16)
+    n = _build.launches["flash_general"]
+    got = flash_ops.flash_attention(q, k, k, causal=False)
+    assert _build.launches["flash_general"] == n + 1
+    want = flash_ref.attention_ref(q, k, k, causal=False)
+    assert torch.equal(got, torch.zeros_like(q)) and torch.equal(got, want)
+
+
+def test_flash_general_many_heads():
+    """B * H = 66,000 > 65,535 on the general route."""
+    _flash_folded(66000, 16, 16, 32, "bfloat16", "flash_general")
+
+
+@pytest.mark.parametrize("d", [1, 3, 70, 200, 256])
+def test_flash_f32_head_dims(d):
+    """float32 at widths that are no compiled width, odd ones (4-byte
+    copies) included."""
+    _flash_folded(2, 130, 197, d, "float32", "flash_f32", offset=0,
+                  window=48, softcap=50.0, seed=d)
+    _flash_folded(2, 70, 197, d, "float32", "flash_f32", offset=0,
+                  causal=False, seed=d + 1)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_f32_base_past_a_16_byte_boundary(d):
+    """A float32 base 4 bytes past a 16-byte boundary takes the 4-byte
+    copies."""
+    _flash_folded(2, 200, 300, d, "float32", "flash_f32", offset=1,
+                  window=48, softcap=50.0, seed=d)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", EDGE_LENGTHS)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_f32_tile_edges(Sq, Skv, causal, d):
+    _flash_folded(2, Sq, Skv, d, "float32", "flash_f32", offset=0,
+                  causal=causal, seed=Sq + Skv)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -18,7 +18,11 @@ Tolerances, all compared in float32:
   gives 3.1e-6);
 - chunked attention JAX vs port: 1e-5 (the same chunked online softmax;
   the einsums' summation order differs);
-- port kernel entry vs port chunked attention: 3e-5, the JAX test's own.
+- port kernel entry vs port chunked attention: 3e-5, the JAX test's own;
+- the float32 kernel's number design (3xTF32, emulated here) vs the plain
+  version: ``tests/test_flash.py``'s 2e-5 and a relative L2 of 1e-5, the
+  limits ``chip_smoke.py`` holds the kernel to on the card; one TF32 pass
+  must exceed that relative L2 at d=128 (the negative control).
 """
 import ctypes
 
@@ -183,8 +187,8 @@ def test_launch_passes_floats_as_c_float(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,ret,key", [
-    (torch.bfloat16, 0, "flash"), (torch.bfloat16, -1, "flash_mma"),
-    (torch.float32, 0, "flash_fma"), (torch.bfloat16, 700, None),
+    (torch.bfloat16, 0, "flash"), (torch.bfloat16, -1, "flash_general"),
+    (torch.float32, 0, "flash_f32"), (torch.bfloat16, 700, None),
     (torch.bfloat16, -2, None), (torch.float32, -1, None)])
 def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
                                                          ret, key):
@@ -236,3 +240,113 @@ def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
     assert calls[fn][0] == q.data_ptr()
     assert calls[fn][4:11] == (3, 5, 7, 24, 0, 4, 30.0)
     assert calls[fn][11] == pytest.approx(24 ** -0.5, rel=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# The float32 kernel's number design, emulated on the CPU.  flash.cu's
+# flash_f32_kernel computes both products on the tensor cores in 3xTF32:
+# each float32 operand x is split into hi = tf32(x) and lo = tf32(x - hi),
+# both rounded by cvt.rna (to nearest, ties away from zero, 10 mantissa
+# bits), and a b is summed as lo(a) hi(b) + hi(a) lo(b), then hi(a) hi(b),
+# in float32.  Key tiles as the kernel's (64 keys at d <= 64, else 32),
+# with its online softmax in float32.
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the int32 view of the bits: add half of the
+    13 dropped bits' unit to the magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the tensor cores take it: 3xTF32, or one TF32 pass."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _attention_tf32(q, k, v, *, causal, window, softcap, passes=3):
+    """(BH, S, d) float32 attention with the kernel's products and online
+    softmax over its key tiles."""
+    BH, Sq, d = q.shape
+    Skv = k.shape[1]
+    BK = 64 if d <= 64 else 32
+    scale = d ** -0.5
+    m = torch.full((BH, Sq, 1), -1e30)
+    l = torch.zeros((BH, Sq, 1))
+    acc = torch.zeros((BH, Sq, d))
+    i = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, BK):
+        j = torch.arange(k0, min(k0 + BK, Skv))[None, :]
+        s = _mm(q, k[:, k0:k0 + BK].transpose(1, 2), passes) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        ok = torch.ones_like(s[0], dtype=torch.bool)
+        if causal:
+            ok &= j <= i
+        if window > 0:
+            ok &= i - j < window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _mm(p, v[:, k0:k0 + BK], passes)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def _fold_case(B, Sq, Skv, H, d, seed=0):
+    return tuple(torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 2, 1, 3).reshape(B * H, -1, d)))
+        for x in qkv(B, Sq, Skv, H, d, seed))
+
+
+def _rel_l2(got, want) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def test_tf32_rounds_half_away_from_zero():
+    """The emulation's cvt.rna: ties go away from zero on both signs, and
+    the result keeps 10 mantissa bits."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2**-23,
+                      3.0, one + 3 * ulp / 2], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, 3.0, one + 2 * ulp])
+    assert torch.equal(_tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(1000)
+                         .astype(np.float32))
+    assert bool(((_tf32(r).view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((_tf32(r) - r).abs() / r.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", FLASH_CASES)
+def test_3xtf32_design_matches_plain(B, Sq, Skv, H, d, causal, window,
+                                     softcap):
+    """3xTF32 products in the kernel's tiles keep the float32 contract:
+    2e-5 (``tests/test_flash.py``) and relative L2 1e-5 (``chip_smoke.py``)
+    against the plain version in full float32."""
+    q, k, v = _fold_case(B, Sq, Skv, H, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _attention_tf32(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert _rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_one_tf32_pass_misses_the_float32_contract(d):
+    """The negative control: the same attention with one TF32 pass a
+    product (hi x hi) is further off than the relative L2 limit, so the
+    test above can tell 3xTF32 from plain TF32."""
+    q, k, v = _fold_case(1, 100, 100, 1, d)
+    want = attention_ref(q, k, v, causal=True)
+    one = _attention_tf32(q, k, v, causal=True, window=0, softcap=0.0,
+                          passes=1)
+    three = _attention_tf32(q, k, v, causal=True, window=0, softcap=0.0)
+    assert _rel_l2(one, want) > 1e-5
+    assert _rel_l2(three, want) <= 1e-5
