@@ -1070,10 +1070,12 @@ def run_registry(cuda: torch.device) -> list:
         f"{k} {v * 1e3:.1f} ms" for k, v in secs.items()))
 
     # -- 19. K2's general route at the 1D solver's shape -------------------
+    from repro_torch.kernels.probe.compare import walk_steps
     n = N_1D[-1]
     key = ((1, n + 1), "int32", 15, M)
     p, cand, counts = k2_calls[key][0]      # the solver's first round
     steps = int(torch.clamp(counts, max=M).sum())
+    longest = int(walk_steps(p, cand, M).max())   # the walks' longest chain
     nbytes = p.numel() * 4 + cand.numel() * 4 * 2
     b_ms, b_by = bound(nbytes, steps * (math.ceil(math.log2(n + 1)) + 2))
     entry = {
@@ -1088,8 +1090,14 @@ def run_registry(cuda: torch.device) -> list:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     log("probe", f"K2's general route (probe_general) at the 1D solver's "
         f"first round: a {tuple(p.shape)} int32 row, 15 candidates, cap {M}, "
-        f"{steps} greedy steps: {entry['ms']:.4f} ms against a bound of "
-        f"{b_ms:.4f} ms ({b_by}); plain version {entry['plain_ms']:.4f} ms")
+        f"{steps} greedy steps, one warp a walk, the longest walk {longest} "
+        f"steps: {entry['ms']:.4f} ms on {card_line()} "
+        f"({entry['ms'] * 1e3 / longest:.3f} us a step of the longest walk) "
+        f"against a bound of {b_ms:.4f} ms ({b_by}); plain version "
+        f"{entry['plain_ms']:.4f} ms; the solver's 5 rounds "
+        f"(nicol_optimal_device_impl n={n}) "
+        f"{secs[f'nicol_optimal_device_impl n={n}'] * 1e3:.1f} ms on the "
+        f"host clock")
     return [entry]
 
 

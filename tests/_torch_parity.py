@@ -190,6 +190,79 @@ def long_run_case(S, n, K, seed=0):
     return p, Ls
 
 
+def alternating_case(S, n, K, seed=0):
+    """Rows of spikes (load 1000) whose runs of zero loads between them
+    alternate between 1-4 entries and 10,000-40,000, so consecutive greedy
+    intervals alternate between a few entries and tens of thousands and a
+    window predicted from the last interval misses on both sides;
+    candidates from one spike (each interval a spike and the zeros after
+    it) past two and three, then up to the row total."""
+    rng = np.random.default_rng(seed)
+    loads = np.zeros((S, n), np.int64)
+    for s in range(S):
+        i, short = int(rng.integers(0, 8)), True
+        while i < n:
+            loads[s, i] = 1000
+            i += int(rng.integers(1, 5) if short
+                     else rng.integers(10_000, 40_000))
+            short = not short
+    p = np.zeros((S, n + 1), np.int64)
+    p[:, 1:] = np.cumsum(loads, axis=1)
+    Ls = np.stack([np.r_[1000, 1999, 2000, 3000, 4999,
+                         np.linspace(1000, max(int(p[s, -1]), 1000), K)]
+                   for s in range(S)])[:, :K].astype(np.int64)
+    return p, Ls
+
+
+def plateau_case(S, n, K, seed=0):
+    """Rows of unit loads 129 to 5,000 entries apart, so the prefix is runs
+    of equal entries each longer than the general route's window (128);
+    candidates 1..K put every target exactly on a run, whose last entry
+    ends the interval."""
+    rng = np.random.default_rng(seed)
+    loads = np.zeros((S, n), np.int64)
+    for s in range(S):
+        i = int(rng.integers(0, 129))
+        while i < n:
+            loads[s, i] = 1
+            i += int(rng.integers(129, 5001))
+    p = np.zeros((S, n + 1), np.int64)
+    p[:, 1:] = np.cumsum(loads, axis=1)
+    Ls = np.tile(np.arange(1, K + 1), (S, 1)).astype(np.int64)
+    return p, Ls
+
+
+def solver_case(S, n, K, m=1024, seed=0):
+    """Rows as the exact 1D solver's (loads in [0, 1000), 16 spikes of
+    200,000) and candidates about the bisection's first round at m parts,
+    so walks run up to about m steps: one below the largest load (stuck
+    at the first spike), then total/m x 0.98 ... 1.4."""
+    rng = np.random.default_rng(seed)
+    loads = rng.integers(0, 1000, (S, n))
+    for s in range(S):
+        loads[s, rng.choice(n, min(16, n), replace=False)] = 200_000
+    p = np.zeros((S, n + 1), np.int64)
+    p[:, 1:] = np.cumsum(loads, axis=1)
+    Ls = np.stack([np.linspace(0.98, 1.4, K) * p[s, -1] / m
+                   for s in range(S)]).astype(np.int64)
+    if K > 2 and n > 0:
+        Ls[:, 0] = loads.max(axis=1) - 1
+    return p, Ls
+
+
+def big_total_case(S, n, K, seed=0):
+    """Rows whose int32 totals are 2**30 - 1, just below the exact path's
+    limit (P7): random loads rescaled so the prefix ends there; candidates
+    from the largest load up to the total, so targets pass 2**30."""
+    rng = np.random.default_rng(seed)
+    raw = np.zeros((S, n + 1), np.int64)
+    raw[:, 1:] = np.cumsum(rng.integers(0, 20_000, (S, n)), axis=1)
+    p = raw * (2 ** 30 - 1) // raw[:, -1:]
+    Ls = np.stack([np.linspace(np.diff(p[s]).max(), p[s, -1], K)
+                   for s in range(S)]).astype(np.int64)
+    return p, Ls
+
+
 def rectload_case(B, n1, n2, P, Q, seed=0):
     """(Gamma (B, n1+1, n2+1) int64, row cuts (B, P+1), col cuts
     (B, P, Q+1) int32, loads (B, n1, n2)); random cuts may repeat, so

@@ -32,8 +32,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (FLASH_CASES, FLASH_TOL, int_loads, long_run_case,
-                           need_card, probe_case, qkv, rectload_case)
+from _torch_parity import (FLASH_CASES, FLASH_TOL, alternating_case,
+                           big_total_case, int_loads, long_run_case,
+                           need_card, plateau_case, probe_case, qkv,
+                           rectload_case, solver_case)
 from repro_torch import configs
 from repro_torch.core import device, prefix, registry, sgorp
 from repro_torch.kernels import _build
@@ -165,6 +167,52 @@ def test_probe_general_kernel_on_short_rows(case, S, n, K, cap, dtype):
     got = probe_ops._launch(p, Ls, cap, "probe_general")
     assert _build.launches["probe_general"] == c + 1
     assert torch.equal(got, probe_ref.probe_counts_ref(p, Ls, cap))
+
+
+# the general route's design at its edges: windows predicted from the last
+# interval that miss on both sides (intervals alternating between a few
+# entries and tens of thousands), runs of equal prefixes longer than a
+# window (the interval ends at a run's last entry), one row with 1 to 200
+# walks (a warp each), 12,000 walks on rows of 58,114 entries
+GENERAL_EDGES = {"alternating": alternating_case, "plateau": plateau_case,
+                 "solver": solver_case, "probe": probe_case}
+
+
+@pytest.mark.parametrize("case,S,n,K,cap", [
+    ("alternating", 2, 300000, 8, 64), ("alternating", 1, 1048576, 6, 200),
+    ("plateau", 3, 200000, 6, 200), ("plateau", 1, 58112, 4, 450),
+    ("solver", 1, 1048576, 1, 1024), ("solver", 1, 1048576, 15, 1024),
+    ("solver", 1, 1048576, 33, 1024), ("solver", 1, 1048576, 200, 1024),
+    ("probe", 300, 58113, 40, 32)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_probe_general_route_design_edges(case, S, n, K, cap, dtype):
+    _probe_case_on_card(*GENERAL_EDGES[case](S, n, K), cap, dtype,
+                        key="probe_general")
+
+
+def test_probe_general_route_int32_totals_below_2_30():
+    """int32 rows whose totals are 2**30 - 1: targets pass 2**30 and stay
+    below 2**31, bit-identical to the plain version's int32 adds."""
+    p, Ls = big_total_case(3, 100000, 12)
+    assert p[:, -1].max() == 2 ** 30 - 1
+    _probe_case_on_card(p, Ls, 64, "int32", key="probe_general")
+
+
+@pytest.mark.parametrize("S,n,K,cap", [(1, 0, 1, 5), (3, 0, 15, 0),
+                                       (2, 58112, 15, 0),
+                                       (1, 1048576, 200, 0)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_probe_general_kernel_at_n_0_and_cap_0(S, n, K, cap, dtype):
+    """An empty row counts 1; cap = 0 gives cap + 1 = 1 on a row that has
+    entries: both through the general kernel (``ops._launch``)."""
+    dev = need_card()
+    p, Ls = (torch.from_numpy(x).to(DTYPES[dtype]).to(dev)
+             for x in solver_case(S, n, K))
+    c = _build.launches["probe_general"]
+    got = probe_ops._launch(p, Ls, cap, "probe_general")
+    assert _build.launches["probe_general"] == c + 1
+    assert torch.equal(got, probe_ref.probe_counts_ref(p, Ls, cap))
+    assert bool((got == 1).all())
 
 
 def _rectload_on_card(g, rc, cc):

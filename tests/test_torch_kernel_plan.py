@@ -5,7 +5,9 @@ it holds them bit for bit against the plain versions at the same edges as
 here.  This file keeps a documented model of each design, replayed in NumPy
 and torch step by step as the CUDA sources do it: K2's 32-entry window and
 the count of its hits, its 32-ary search for long intervals and its
-warp-uniform stop; K3's per-column stripe values in warp runs of 32 cut
+warp-uniform stop; K2's general route, one warp a walk with a 128-entry
+window centred on the predicted end, its gallop on a miss and its search
+of the bracket; K3's per-column stripe values in warp runs of 32 cut
 columns and their differences.  Each replay is held bit for bit against the
 plain version (tolerance: none; every case has integer loads, int32 and
 float32 alike), which shows that the design computes the plain version's
@@ -15,7 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import long_run_case, probe_case, rectload_case
+from _torch_parity import (alternating_case, big_total_case, long_run_case,
+                           plateau_case, probe_case, rectload_case,
+                           solver_case)
+from repro_torch.kernels.probe import compare as probe_compare
 from repro_torch.kernels.probe import ops as probe_ops
 from repro_torch.kernels.probe import ref as probe_ref
 from repro_torch.kernels.rectload import ref as rl_ref
@@ -23,6 +28,8 @@ from repro_torch.rebalance.batch_device import Plan
 
 WINDOW = 32  # probe.cu: kWindow
 WALKS = 8  # probe.cu: kWalks, the candidates a warp walks at once
+GEN_WINDOW = 128  # probe.cu: kGenWindow, 32 lanes x kGenPerLane entries
+LANES = 32
 RUN = 32  # rectload.cu: kRun, the cut columns of a warp's run
 DTYPES = {"int32": (np.int32, torch.int32),
           "float32": (np.float32, torch.float32)}
@@ -176,6 +183,174 @@ def test_probe_rows_past_shared_memory_have_a_plain_version():
                                  torch.from_numpy(Ls.astype(np.int32)), 20)
     np.testing.assert_array_equal(got.numpy(),
                                   window_scan_counts(p, Ls, 20))
+
+
+# ---------------------------------------------------------------------------
+# K2's general route: one warp a walk, replayed
+
+def _round(row, b, d, top, t, st):
+    """One round of a walk's warp (probe.cu: read_slots, count_slots):
+    slot q reads row[b + q d] where that is below top.  The entries <= t
+    must be the first slots; returns their count and the last of them."""
+    st["rounds"] += 1
+    idx = b + np.arange(GEN_WINDOW, dtype=np.int64) * d
+    ok = idx < top
+    hit = np.zeros(GEN_WINDOW, bool)
+    hit[ok] = row[idx[ok]] <= t
+    c = int(hit.sum())
+    assert (hit == (np.arange(GEN_WINDOW) < c)).all(), "not a prefix"
+    return c, (row[idx[c - 1]] if c else None)
+
+
+def _prefix(flags):
+    c = int(flags.sum())
+    assert (flags == (np.arange(LANES) < c)).all(), "not a prefix"
+    return c
+
+
+def general_next(row, pos, n, t, base, st):
+    """probe.cu: next_pos.  The last index in (pos, n] whose entry is <= t
+    (pos if none) and its entry, from the window of 128 entries at base:
+    inside it, by the window's count; before it, by a gallop back from
+    base (lane i reads base - 128 * 2**i) down to pos; past it, by a
+    gallop on from its end; then 128-ary rounds over the bracket."""
+    c, v = _round(row, base, 1, n + 1, t, st)
+    shifts = GEN_WINDOW << np.arange(LANES, dtype=np.int64)
+    if c == 0:
+        if base == pos + 1:
+            return pos, None                       # stuck
+        st["short"] += 1
+        st["rounds"] += 1
+        lo, top = pos, base
+        j = base - shifts
+        inside = j > pos
+        above = np.zeros(LANES, bool)
+        above[inside] = ~(row[j[inside]] <= t)
+        m = _prefix(above)
+        if m:
+            top = int(j[m - 1])
+        if m < LANES and inside[m]:
+            lo, v = int(j[m]), row[j[m]]
+    elif c == GEN_WINDOW and base + GEN_WINDOW - 1 < n:
+        st["long"] += 1
+        st["rounds"] += 1
+        lo, top = base + GEN_WINDOW - 1, n + 1
+        j = lo + shifts
+        inside = j < top
+        hit = np.zeros(LANES, bool)
+        hit[inside] = row[j[inside]] <= t
+        h = _prefix(hit)
+        if h < LANES:
+            top = min(top, int(j[h]))
+        if h:
+            lo, v = int(j[h - 1]), row[j[h - 1]]
+    else:
+        return base + c - 1, v                     # the window holds it
+    while top - lo > 1:
+        d = (top - lo - 2) // GEN_WINDOW + 1
+        c2, z = _round(row, lo + d, d, top, t, st)
+        if c2 < GEN_WINDOW:
+            top = min(top, lo + (c2 + 1) * d)
+        if c2:
+            lo, v = lo + c2 * d, z
+    return lo, v
+
+
+def general_walk(row, L, cap, st):
+    """probe.cu: probe_general_kernel for one walk: the first window right
+    after pos, then each centred on pos + the last interval's length."""
+    n = len(row) - 1
+    pos = cnt = last = 0
+    base = 1
+    t = row[0] + L if n > 0 else 0
+    for _ in range(cap):
+        if pos >= n:
+            break
+        st["steps"] += 1
+        nxt, v = general_next(row, pos, n, t, base, st)
+        if nxt == pos:
+            break
+        last, pos, cnt = nxt - pos, nxt, cnt + 1
+        t = v + L
+        base = max(pos + 1, min(pos + last - GEN_WINDOW // 2,
+                                n + 1 - GEN_WINDOW))
+    return cap + 1 if pos < n else max(cnt, 1)
+
+
+def general_counts(p, Ls, cap):
+    """Every walk of (S, K) replayed; returns the counts and, per walk, its
+    steps, rounds of reads and misses on either side."""
+    S, K = Ls.shape
+    out = np.zeros((S, K), np.int32)
+    stats = []
+    with np.errstate(over="ignore"):
+        for s in range(S):
+            for k in range(K):
+                st = dict(steps=0, rounds=0, short=0, long=0)
+                out[s, k] = general_walk(p[s], Ls[s, k], cap, st)
+                stats.append(st)
+    return out, stats
+
+
+def _check_general(p, Ls, cap, dtype):
+    npd, _ = DTYPES[dtype]
+    p, Ls = p.astype(npd), Ls.astype(npd)
+    want = probe_ref.probe_counts_ref(torch.from_numpy(p),
+                                      torch.from_numpy(Ls), cap).numpy()
+    got, stats = general_counts(p, Ls, cap)
+    np.testing.assert_array_equal(got, want)
+    return want, stats
+
+
+@pytest.mark.parametrize("S,n,K,cap", [
+    (1, 0, 3, 2), (3, 1, 4, 1), (5, 17, 7, 4), (4, 130, 9, 16),
+    (6, 33, 40, 3), (2, 9, 5, 0), (16, 512, 8, 32), (3, 300, 5, 20)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_general_walk_matches_plain_on_probe_cases(S, n, K, cap, dtype):
+    _check_general(*probe_case(S, n, K), cap, dtype)
+
+
+@pytest.mark.parametrize("case,S,n,K,cap", [
+    ("long", 4, 20000, 4, 40), ("long", 2, 58112, 6, 24),
+    ("alternating", 2, 300000, 8, 64), ("plateau", 3, 200000, 6, 200),
+    ("solver", 2, 100000, 7, 128)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_general_walk_matches_plain_at_its_edges(case, S, n, K, cap, dtype):
+    make = {"long": long_run_case, "alternating": alternating_case,
+            "plateau": plateau_case,
+            "solver": lambda S, n, K: solver_case(S, n, K, m=128)}[case]
+    _check_general(*make(S, n, K), cap, dtype)
+
+
+def test_general_walk_misses_on_both_sides():
+    """Intervals alternating between a few entries and tens of thousands:
+    a window centred on the last interval's end misses short and long,
+    and the gallops still find the plain version's ends."""
+    _, stats = _check_general(*alternating_case(2, 300000, 8), 64, "int32")
+    assert sum(st["short"] for st in stats) > 10
+    assert sum(st["long"] for st in stats) > 10
+
+
+def test_general_walk_int32_totals_below_2_30():
+    p, Ls = big_total_case(2, 100000, 6)
+    assert p[:, -1].max() == 2 ** 30 - 1
+    _check_general(p, Ls, 40, "int32")
+
+
+def test_general_walk_takes_one_round_a_step_on_the_solver_row():
+    """The 1D solver's first round at (1, 1048577) x 15, cap 1024 (the
+    row and candidates ``kernels.probe.compare`` times): the window
+    centred on pos + the last interval's length holds the end at most
+    steps, so the longest walk reads at most 1.2 rounds a step (the
+    staged route's design read about six, one after the other)."""
+    row = probe_compare.solver_row()
+    cand = probe_compare.first_round(row).numpy()
+    want, stats = _check_general(row[None], cand, 1024, "int32")
+    longest = max(stats, key=lambda st: st["steps"])
+    assert longest["steps"] == 1001
+    assert longest["rounds"] <= 1.2 * longest["steps"]
+    assert sum(st["rounds"] for st in stats) <= 1.2 * sum(
+        st["steps"] for st in stats)
 
 
 # ---------------------------------------------------------------------------

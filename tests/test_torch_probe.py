@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_same, probe_case
+from _torch_parity import (alternating_case, assert_same, long_run_case,
+                           plateau_case, probe_case)
 from repro.kernels.probe import ops as jax_probe
 from repro_torch.kernels.probe import ops as probe_ops
 
@@ -27,6 +28,34 @@ def test_probe_counts_match_jax(S, n, K, cap, dtype):
     got = probe_ops.probe_counts(torch.from_numpy(p).to(td),
                                  torch.from_numpy(Ls).to(td), cap)
     for use_pallas in (True, False):
+        want = jax_probe.probe_counts(jnp.asarray(p.astype(npd)),
+                                      jnp.asarray(Ls.astype(npd)), cap,
+                                      use_pallas=use_pallas, interpret=True)
+        assert_same(want, got)
+
+
+# the general route's lengths: rows just past the shared-memory limit
+# (58,112 and 58,113 loads; the staged route takes up to 58,111) and a
+# 4 MB row (1,048,576 loads), with intervals
+# of hundreds to thousands of entries; intervals alternating between a
+# few entries and tens of thousands, and runs of equal prefixes longer
+# than the general route's window.  Pallas in interpret mode where the
+# row is below 10**5 entries, the JAX package's oracle everywhere.
+@pytest.mark.parametrize("case,S,n,K,cap", [
+    ("long", 2, 58112, 4, 24), ("long", 2, 58113, 4, 40),
+    ("long", 1, 1048576, 4, 64), ("alternating", 1, 300000, 6, 64),
+    ("plateau", 2, 58113, 5, 48)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_probe_counts_match_jax_at_general_lengths(case, S, n, K, cap,
+                                                   dtype):
+    make = {"long": long_run_case, "alternating": alternating_case,
+            "plateau": plateau_case}[case]
+    p, Ls = make(S, n, K)
+    npd, td = DTYPES[dtype]
+    got = probe_ops.probe_counts(torch.from_numpy(p).to(td),
+                                 torch.from_numpy(Ls).to(td), cap)
+    assert probe_ops.route(n + 1) == "probe_general"
+    for use_pallas in (True, False) if n + 1 < 10 ** 5 else (False,):
         want = jax_probe.probe_counts(jnp.asarray(p.astype(npd)),
                                       jnp.asarray(Ls.astype(npd)), cap,
                                       use_pallas=use_pallas, interpret=True)
