@@ -64,17 +64,24 @@ and Qwen3-0.6B's (16 heads from 8 KV heads, head dim 128) — with its own
 launch counts, each output held against the plain version on the card
 (rtol = atol = 2e-2, as ``tests/test_flash.py``, and a relative L2 error
 of at most 1e-2), every shape through the Hopper kernel (launch key
-``flash``, none through ``flash_general``).  Then the general bf16 route
+``flash``, nothing else).  Then the general bf16 route
 with its own launch counts: the same inputs, folded to ``(BH, S, d)`` and
 copied one element past a 16-byte boundary, which TMA cannot describe,
 through ``kernels.flash.ops.flash_attention`` (every shape through
-``flash_general``, none through ``flash``), held to the same limits.  Last
+``flash_general``, nothing else), held to the same limits.  The same
+again at float16 (``flash_f16``, ``flash_f16_general``; rtol = atol =
+5e-3, relative L2 2.5e-3).  The Gemma-2 queries are drawn large enough
+that the softcap changes the logits; ``flex_attention`` (compiled) is
+timed there as the library yardstick at each dtype, SDPA at Qwen3.  Then
 one float32 check at Qwen3 width and S=2048 (2e-5, relative L2 1e-5)
-with its own launch count (``flash_f32``, the 3xTF32 kernel).  The
-Gemma-2 queries are drawn large enough that the softcap changes the
-logits; ``flex_attention`` (compiled) is timed
-there as the library yardstick, SDPA at Qwen3 and SDPA on float32 beside
-the float32 check.  Then the decoder-only model path (``run_models``)
+with its own launch count (``flash_f32``, the 3xTF32 kernel), SDPA on
+float32 beside it.
+Then the wide route (``flash_wide``, d > 256) at DeepSeek-V2-236B's
+absorbed MLA width, d = 576, causal, Sq = Skv = 4096, 16 of its 128 heads
+(a cut), at float32, bfloat16 and float16, one launch each, each held to
+the plain version at its dtype's limits and timed beside SDPA at that
+dtype (the backend it picks named).  Then the decoder-only model path
+(``run_models``)
 with its own launch counts: Qwen3-0.6B at full width in bf16, through
 ``models.api``, serving two groups of ``serve.batcher.plan``'s replicas
 (left-padded prompts, prefill and greedy decode steps) with times beside
@@ -1434,7 +1441,17 @@ FLASH_SHAPES = [
 ]
 S_FLASH = 8192
 Q_STD_SOFTCAP = 8.0   # logits of standard deviation 8 where softcap is 50
-FLASH_REL_L2 = 1e-2   # ||kernel - plain|| / ||plain|| in bf16
+#: K5's limits by dtype, compared in float32: elementwise (rtol = atol) and
+#: relative L2; float16's is about two float16 ulps at the outputs' size
+FLASH_LIMITS = {torch.float32: (2e-5, 1e-5),
+                torch.bfloat16: (2e-2, 1e-2),
+                torch.float16: (5e-3, 2.5e-3)}
+# K5's wide route at DeepSeek-V2-236B's absorbed MLA width: attention over
+# the latent keys, kv_lora_rank 512 + qk_rope_dim 64 wide
+# (src/repro/configs/deepseek_v2_236b.py), causal, Sq = Skv = 4096, 16 of
+# its 128 heads (a cut)
+WIDE_SRC = "src/repro/configs/deepseek_v2_236b.py"
+WIDE_D, WIDE_S, WIDE_H, WIDE_H_FULL = 576, 4096, 16, 128
 
 
 def flex_yardstick(qf, kf, vf, window: int, softcap: float):
@@ -1472,80 +1489,181 @@ def causal_pairs(S: int, window: int) -> int:
     return int((np.minimum(kept, window) if window > 0 else kept).sum())
 
 
-def unaligned(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``x`` whose base lies one element past the
-    start of its buffer, so not on a 16-byte boundary."""
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    return buf[1:].view(x.shape).copy_(x)
+def sdpa_backend(q4, k4, v4) -> str:
+    """The backend SDPA picks for these inputs, causal
+    (``torch._fused_sdp_choice``)."""
+    from torch.nn.attention import SDPBackend
+    names = {m.value: n for n, m in SDPBackend.__members__.items()}
+    return names[torch._fused_sdp_choice(q4, k4, v4, is_causal=True)]
 
 
-def run_flash(cuda: torch.device) -> list:
-    """K5 at full model width: ``ops.attention`` on the three shapes with
-    its own launch counts (the Hopper kernel), then the same inputs at
-    unaligned bases through ``ops.flash_attention`` with their own launch
-    counts (the general kernel), each output against the plain version on
-    the card, one float32 check with its own launch count, and times.
-    Returns K5's three entries of the kernels' record, ``flash``,
-    ``flash_general`` (top-level numbers at the Qwen3 shape, the one with
-    SDPA as its yardstick; every shape's numbers under ``shapes``) and
-    ``flash_f32``."""
+def within_limits(name: str, got: torch.Tensor, want: torch.Tensor,
+         dtype: torch.dtype) -> tuple[float, float]:
+    """max |got - want| and relative L2 in float32, both checked at
+    ``dtype``'s limits (``FLASH_LIMITS``)."""
+    tol, rel_max = FLASH_LIMITS[dtype]
+    got, want = got.float(), want.float()
+    e = float((got - want).abs().max())
+    rel = float((got - want).norm() / want.norm())
+    check(torch.allclose(got, want, rtol=tol, atol=tol), f"flash {name}: "
+          f"kernel is {e:.3g} off the plain version (limit rtol = atol = "
+          f"{tol})")
+    check(rel <= rel_max, f"flash {name}: kernel's relative L2 error "
+          f"{rel:.3g} (limit {rel_max})")
+    return e, rel
+
+
+def run_flash_wide(cuda: torch.device, normal) -> dict:
+    """K5's wide route (d > 256) at DeepSeek-V2's absorbed MLA width: q,
+    k, v of (16, 4096, 576), causal, at float32, bfloat16 and float16,
+    each through ``ops.flash_attention`` with its own launch count (one
+    ``flash_wide`` launch, nothing else), held to the plain version at its
+    dtype's limits and timed beside its bound, the plain version and SDPA
+    at that dtype (the backend it picks named).  Returns the entry
+    ``flash_wide`` of the kernels' record (top-level numbers at bfloat16;
+    every dtype's under ``shapes``)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    t_phase = time.perf_counter()
+    log("wide", f"DeepSeek-V2-236B absorbed attention ({WIDE_SRC}): d "
+        f"{WIDE_D} (kv_lora_rank 512 + qk_rope_dim 64), causal, Sq = Skv = "
+        f"{WIDE_S}; cut: {WIDE_H} of its {WIDE_H_FULL} heads")
+    pairs = causal_pairs(WIDE_S, 0)
+    ops = 4 * WIDE_H * WIDE_D * pairs
+    rows, n = [], 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v = (normal((WIDE_H, WIDE_S, WIDE_D), torch.float32).to(dtype)
+                   for _ in range(3))
+        _build.launches.clear()
+        out = flash_ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        check(launches == {"flash_wide": 1}, f"flash wide {dtype}: "
+              f"launches {launches}, not one flash_wide and nothing else")
+        n += launches.get("flash_wide", 0)
+        check(out.shape == q.shape and out.dtype == dtype
+              and bool(torch.isfinite(out).all()), f"flash wide {dtype}: "
+              f"output is not finite {dtype} of shape {tuple(q.shape)}")
+        want = flash_ref.attention_ref(q, k, v, causal=True).float()
+        e, rel = within_limits(f"wide {dtype}", out, want, dtype)
+        nbytes = 4 * q.numel() * q.element_size()
+        if dtype == torch.float32:   # 3xTF32: three tensor-core passes
+            b_ms, b_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+        else:
+            b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
+
+        def sdpa(q4=q[None], k4=k[None], v4=v[None]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True)[0]
+        lib_rel = float((sdpa().float() - want).norm() / want.norm())
+        lib_ok = lib_rel <= FLASH_LIMITS[dtype][1]
+        row = {"shape": f"deepseek-v2 absorbed {str(dtype)[6:]}",
+               "source": WIDE_SRC, "dtype": str(dtype)[6:], "BH": WIDE_H,
+               "S": WIDE_S, "d": WIDE_D, "window": 0, "softcap": 0.0,
+               "max_abs_err": e, "rel_l2_err": rel,
+               "ms": device_ms(lambda: flash_ops.flash_attention(
+                   q, k, v, causal=True)),
+               "plain_ms": device_ms(lambda: flash_ref.attention_ref(
+                   q, k, v, causal=True), reps=3),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": device_ms(sdpa) if lib_ok else None,
+               "library": sdpa_backend(q[None], k[None], v[None])}
+        log("wide", f"{row['shape']} (BH {WIDE_H}, {WIDE_S}, {WIDE_D}): "
+            f"max |kernel - plain| {e:.3g}, relative L2 {rel:.3g} (limits "
+            f"{FLASH_LIMITS[dtype]}); ms {row['ms']:.4f}, plain_ms "
+            f"{row['plain_ms']:.4f}, bound_ms {b_ms:.4f} ({b_by}; {ops} "
+            f"operations{', x3 over TF32' if dtype == torch.float32 else ''}"
+            f", {nbytes} bytes); library_ms {row['library_ms']} (SDPA, "
+            f"is_causal, backend {row['library']}; relative L2 "
+            f"{lib_rel:.3g} off the plain version"
+            + ("" if lib_ok else ": above the limit, so not timed as this "
+               "function") + ")")
+        rows.append(row)
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+    log("wide", f"the wide phase took {time.perf_counter() - t_phase:.1f} s")
+    return flash_entry("flash_wide", n, max(r["max_abs_err"] for r in rows),
+                       rows, "deepseek-v2 absorbed bfloat16")
+
+
+def flash_entry(name: str, n: int, e: float, shape_rows: list,
+                top: str) -> dict:
+    """One K5 route's entry of the kernels' record: the top-level numbers
+    from the row of shape ``top``, every row under ``shapes``."""
+    top = next(r for r in shape_rows if r["shape"] == top)
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/flash/flash.cu",
+        "replaces": "src/repro/kernels/flash/flash.py:94",
+        "launches": n, "max_abs_err": e,
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": top["library_ms"], "shapes": shape_rows}
+
+
+def run_flash_16(normal, dtype: torch.dtype, key: str, gkey: str) -> list:
+    """K5 at a 16-bit ``dtype`` on ``FLASH_SHAPES``: ``ops.attention`` on
+    the aligned inputs with its own launch counts (the Hopper kernel, one
+    launch of ``key`` a shape and nothing else), then the same inputs,
+    folded and copied to unaligned bases, through ``ops.flash_attention``
+    with their own (the general kernel, ``gkey``), each output held to
+    the plain version at ``dtype``'s limits, and times beside the bound,
+    the plain version and the library yardstick (compiled
+    ``flex_attention`` under the softcap, SDPA elsewhere).  Returns the
+    entries ``key`` and ``gkey`` of the kernels' record (top-level
+    numbers at the Qwen3 shape; every shape's under ``shapes``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._compare import unaligned
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
     from repro_torch.models import layers
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
-    check(torch.get_float32_matmul_precision() == "highest",
-          "float32 matmuls must run in full float32")
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(SEED)
-
-    def normal(shape, dtype):
-        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
-
-    # -- 12. data: random q, k, v from a seed, on the card -----------------
+    t_phase = time.perf_counter()
+    tag, dname = ("flash" if dtype == torch.bfloat16 else "flash16",
+                  str(dtype)[6:])
+    tol, rel_max = FLASH_LIMITS[dtype]
+    # -- data: random q, k, v from a seed, on the card --------------------
     # Where there is a softcap, q has standard deviation Q_STD_SOFTCAP, so
     # the logits spread as far (the largest reach about 50) and the softcap
     # changes them; elsewhere q, k and v are unit normals.
     inputs = {}
     for name, _, H, Hkv, d, _, softcap in FLASH_SHAPES:
         q = normal((1, S_FLASH, H, d), torch.float32)
-        q = (q * (Q_STD_SOFTCAP if softcap else 1.0)).to(torch.bfloat16)
-        k, v = (layers.repeat_kv(normal((1, S_FLASH, Hkv, d),
-                                        torch.bfloat16), H // Hkv)
-                for _ in range(2))
+        q = (q * (Q_STD_SOFTCAP if softcap else 1.0)).to(dtype)
+        k, v = (layers.repeat_kv(normal((1, S_FLASH, Hkv, d), dtype),
+                                 H // Hkv) for _ in range(2))
         inputs[name] = (q, k, v)
 
-    # -- 13. the attention path at full width -----------------------------
+    # -- the attention path at full width ---------------------------------
     _build.launches.clear()
     outs = {}
     t0 = time.perf_counter()
     for name, _, H, _, d, window, softcap in FLASH_SHAPES:
-        q, k, v = inputs[name]
-        outs[name] = flash_ops.attention(q, k, v, causal=True, window=window,
-                                         softcap=softcap)
+        outs[name] = flash_ops.attention(*inputs[name], causal=True,
+                                         window=window, softcap=softcap)
     torch.cuda.synchronize()
-    log("flash", f"attention on the 3 shapes in "
+    log(tag, f"{dname} attention on the 3 shapes in "
         f"{time.perf_counter() - t0:.2f} s (host clock, first calls)")
     launches = dict(_build.launches)
-    log("flash", f"kernel launches on the attention path: {launches}")
-    check(launches.get("flash", 0) >= len(FLASH_SHAPES)
-          and launches.get("flash_general", 0) == 0,
-          "the attention path did not take the Hopper kernel (flash) at "
-          "every shape, or took the general one (flash_general)")
+    log(tag, f"kernel launches on the {dname} attention path: {launches}")
+    check(launches == {key: len(FLASH_SHAPES)}, f"the {dname} attention "
+          f"path did not take the Hopper kernel ({key}) once a shape and "
+          f"nothing else")
 
     def fold(x):
         return x.transpose(1, 2).reshape(-1, S_FLASH,
                                          x.shape[-1]).contiguous()
 
-    # -- 14. the general bf16 route at full width -------------------------
+    # -- the general route at full width ----------------------------------
     # The same inputs, folded, at bases TMA cannot describe: the C entry
     # point gives every shape to the general kernel (the Hopper kernel's
     # wgmma consumers behind a producer of threads).
     general = {name: tuple(unaligned(fold(x)) for x in inputs[name])
                for name, *_ in FLASH_SHAPES}
     check(all(x.data_ptr() % 16 != 0 for g in general.values() for x in g),
-          "flash: the unaligned copies lie on 16-byte boundaries")
+          f"flash {dname}: the unaligned copies lie on 16-byte boundaries")
     _build.launches.clear()
     gouts = {}
     for name, _, _, _, _, window, softcap in FLASH_SHAPES:
@@ -1553,49 +1671,37 @@ def run_flash(cuda: torch.device) -> list:
             *general[name], causal=True, window=window, softcap=softcap)
     torch.cuda.synchronize()
     glaunches = dict(_build.launches)
-    log("flash", f"kernel launches on the general route (unaligned "
+    log(tag, f"kernel launches on the {dname} general route (unaligned "
         f"bases): {glaunches}")
-    check(glaunches.get("flash_general", 0) == len(FLASH_SHAPES)
-          and glaunches.get("flash", 0) == 0,
-          "the unaligned inputs did not take the general kernel "
-          "(flash_general) at every shape, or took the Hopper one (flash)")
+    check(glaunches == {gkey: len(FLASH_SHAPES)}, f"the unaligned {dname} "
+          f"inputs did not take the general kernel ({gkey}) once a shape "
+          f"and nothing else")
 
     def rel_l2(got, want):
         return float((got - want).norm() / want.norm())
-
-    def held_to_plain(name, route, got, want):
-        """max |got - want| and relative L2, both checked."""
-        e = float((got - want).abs().max())
-        rel = rel_l2(got, want)
-        check(torch.allclose(got, want, rtol=2e-2, atol=2e-2),
-              f"flash {name} ({route}): kernel is {e:.3g} off the plain "
-              f"version (limit rtol = atol = 2e-2)")
-        check(rel <= FLASH_REL_L2, f"flash {name} ({route}): kernel's "
-              f"relative L2 error {rel:.3g} (limit {FLASH_REL_L2})")
-        return e, rel
 
     rows, grows, err, gerr = [], [], 0.0, 0.0
     for name, src, H, Hkv, d, window, softcap in FLASH_SHAPES:
         q, k, v = inputs[name]
         out = outs[name]
-        check(out.shape == (1, S_FLASH, H, d) and out.dtype == torch.bfloat16
+        check(out.shape == (1, S_FLASH, H, d) and out.dtype == dtype
               and bool(torch.isfinite(out).all()),
-              f"flash {name}: output is not finite bf16 of shape "
-              f"{(1, S_FLASH, H, d)}")
+              f"flash {name} ({key}): output is not finite {dname} of "
+              f"shape {(1, S_FLASH, H, d)}")
         qf, kf, vf = fold(q), fold(k), fold(v)
         kw = dict(causal=True, window=window, softcap=softcap)
         want = flash_ref.attention_ref(qf, kf, vf, **kw).float()
         got = fold(out).float()
-        e, rel = held_to_plain(name, "flash", got, want)
+        e, rel = within_limits(f"{name} ({key})", got, want, dtype)
         gout = gouts[name]
-        check(gout.shape == qf.shape and gout.dtype == torch.bfloat16
+        check(gout.shape == qf.shape and gout.dtype == dtype
               and bool(torch.isfinite(gout).all()),
-              f"flash {name} (flash_general): output is not finite bf16 of "
+              f"flash {name} ({gkey}): output is not finite {dname} of "
               f"shape {tuple(qf.shape)}")
-        ge, grel = held_to_plain(name, "flash_general", gout.float(), want)
+        ge, grel = within_limits(f"{name} ({gkey})", gout, want, dtype)
         held = (f"max |kernel - plain| {e:.3g} (held at rtol = atol = "
-                f"2e-2), relative L2 {rel:.3g} (limit {FLASH_REL_L2}; "
-                f"|plain| median {float(want.abs().median()):.3g}, max "
+                f"{tol}), relative L2 {rel:.3g} (limit {rel_max}; |plain| "
+                f"median {float(want.abs().median()):.3g}, max "
                 f"{float(want.abs().max()):.3g})")
         if softcap:
             # the data is such that a kernel ignoring the softcap would fail
@@ -1603,7 +1709,7 @@ def run_flash(cuda: torch.device) -> list:
                                             window=window).float()
             rel_nocap = rel_l2(nocap, want)
             del nocap
-            check(rel_nocap > FLASH_REL_L2, f"flash {name}: without the "
+            check(rel_nocap > rel_max, f"flash {name} {dname}: without the "
                   f"softcap the plain version moves by only {rel_nocap:.3g}"
                   f" (relative L2), within the limit: the check cannot see "
                   f"the softcap")
@@ -1616,7 +1722,8 @@ def run_flash(cuda: torch.device) -> list:
                            BF16_TC_OPS_PER_S)
         row = {"shape": name, "source": src, "B": 1, "S": S_FLASH, "H": H,
                "kv_heads": Hkv, "d": d, "window": window,
-               "softcap": softcap, "max_abs_err": e, "rel_l2_err": rel,
+               "softcap": softcap, "dtype": dname, "max_abs_err": e,
+               "rel_l2_err": rel,
                "ms": device_ms(lambda: flash_ops.flash_attention(
                    qf, kf, vf, **kw)),
                "plain_ms": device_ms(lambda: flash_ref.attention_ref(
@@ -1628,28 +1735,28 @@ def run_flash(cuda: torch.device) -> list:
             def lib_fn(q4=qf[None], k4=kf[None], v4=vf[None]):
                 return torch.nn.functional.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=True)[0]
-            lib_name = "SDPA, is_causal"
+            lib_name = (f"SDPA, is_causal, backend "
+                        f"{sdpa_backend(qf[None], kf[None], vf[None])}")
         lib_out = lib_fn().float()
         lib_rel = rel_l2(lib_out, want)
         lib_err = float((lib_out - got).abs().max())
         del lib_out, want, got
-        check(lib_rel <= FLASH_REL_L2, f"flash {name}: the library yardstick "
-              f"({lib_name}) is {lib_rel:.3g} off the plain version "
-              f"(relative L2): it does not compute this function")
+        check(lib_rel <= rel_max, f"flash {name} {dname}: the library "
+              f"yardstick ({lib_name}) is {lib_rel:.3g} off the plain "
+              f"version (relative L2): it does not compute this function")
         row["library_ms"] = device_ms(lib_fn)
-        lib = (f"library_ms {row['library_ms']:.4f} ({lib_name}; a "
-               f"yardstick only: relative L2 {lib_rel:.3g} off the plain "
-               f"version, max |library - kernel| {lib_err:.3g})")
+        lib = (f"library_ms {row['library_ms']:.4f} ({lib_name} at "
+               f"{dname}; a yardstick only: relative L2 {lib_rel:.3g} off "
+               f"the plain version, max |library - kernel| {lib_err:.3g})")
         grow = dict(row, max_abs_err=ge, rel_l2_err=grel,
                     ms=device_ms(lambda: flash_ops.flash_attention(
                         *general[name], **kw)))
-        log("flash", f"{name} ({src}): q (1, {S_FLASH}, {H}, {d}) bf16, "
+        log(tag, f"{name} ({src}): q (1, {S_FLASH}, {H}, {d}) {dname}, "
             f"{Hkv} KV heads repeated to {H}, causal, window {window}, "
             f"softcap {softcap}: {held}; "
             f"ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, bound_ms "
             f"{b_ms:.4f} ({b_by}; {pairs * H} unmasked pairs, {nbytes} "
-            f"bytes); {lib}; general route (flash_general, unaligned "
-            f"copies): "
+            f"bytes); {lib}; general route ({gkey}, unaligned copies): "
             f"max |kernel - plain| {ge:.3g}, relative L2 {grel:.3g}, ms "
             f"{grow['ms']:.4f}")
         rows.append(row)
@@ -1660,8 +1767,42 @@ def run_flash(cuda: torch.device) -> list:
     by = {r["shape"]: r for r in rows}
     ratio = by["gemma2-9b local"]["ms"] / by["gemma2-9b global"]["ms"]
     pair_ratio = causal_pairs(S_FLASH, 4096) / causal_pairs(S_FLASH, 0)
-    log("flash", f"local/global time {ratio:.3f} (unmasked pairs "
-        f"{pair_ratio:.3f}): the key-tile skip under the window")
+    log(tag, f"{dname} local/global time {ratio:.3f} (unmasked pairs "
+        f"{pair_ratio:.3f}): the key-tile skip under the window; the "
+        f"{dname} phase took {time.perf_counter() - t_phase:.1f} s")
+    return [flash_entry(key, launches.get(key, 0), err, rows, "qwen3-0.6b"),
+            flash_entry(gkey, glaunches.get(gkey, 0), gerr, grows,
+                        "qwen3-0.6b")]
+
+
+def run_flash(cuda: torch.device) -> list:
+    """K5 at full model width: bf16, then float16, on the three shapes
+    (``run_flash_16``: the Hopper kernel and the general one, each with
+    its own launch counts), one float32 check with its own launch count,
+    and the wide route at d = 576 (``run_flash_wide``).  Returns K5's
+    entries of the kernels' record: ``flash``, ``flash_general``,
+    ``flash_f16``, ``flash_f16_general``, ``flash_f32`` and
+    ``flash_wide``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain version: fp32
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls must run in full float32")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SEED)
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    def rel_l2(got, want):
+        return float((got - want).norm() / want.norm())
+
+    entries = [*run_flash_16(normal, torch.bfloat16, "flash",
+                             "flash_general"),
+               *run_flash_16(normal, torch.float16, "flash_f16",
+                             "flash_f16_general")]
 
     # float32: Qwen3 width at S=2048, 3xTF32 on the tensor cores, against
     # the plain version in full float32, with its own launch count; SDPA
@@ -1676,12 +1817,8 @@ def run_flash(cuda: torch.device) -> list:
     check(launches32 == {"flash_f32": 1}, "the float32 check did not take "
           "the float32 kernel (flash_f32) once and nothing else")
     want = flash_ref.attention_ref(q, k, v, causal=True)
-    e32, rel32 = float((got - want).abs().max()), rel_l2(got, want)
-    check(torch.allclose(got, want, rtol=2e-5, atol=2e-5), f"flash float32: "
-          f"kernel is {e32:.3g} off the plain version (limit rtol = atol = "
-          f"2e-5)")
-    check(rel32 <= 1e-5, f"flash float32: kernel's relative L2 error "
-          f"{rel32:.3g} (limit 1e-5)")
+    e32, rel32 = within_limits("float32 (flash_f32)", got, want,
+                               torch.float32)
     # the bound of 3xTF32: three tensor-core passes of both products;
     # beside it, for the record, the bound on the CUDA cores
     ops32 = 4 * 16 * 128 * causal_pairs(S32, 0)
@@ -1712,23 +1849,11 @@ def run_flash(cuda: torch.device) -> list:
         + ("" if lib32 is not None else ": above 1e-5, so not timed as "
            "this function") + ")")
     del q, k, v, got, want
-
-    def entry(name, n, e, shape_rows, top):
-        top = next(r for r in shape_rows if r["shape"] == top)
-        return {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/flash/flash.cu",
-            "replaces": "src/repro/kernels/flash/flash.py:94",
-            "launches": n, "max_abs_err": e,
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": top["library_ms"], "shapes": shape_rows}
-    return [entry("flash", launches.get("flash", 0), err, rows,
-                  "qwen3-0.6b"),
-            entry("flash_general", glaunches.get("flash_general", 0), gerr,
-                  grows, "qwen3-0.6b"),
-            entry("flash_f32", launches32.get("flash_f32", 0), e32, [row32],
-                  "qwen3-0.6b float32")]
+    torch.cuda.empty_cache()
+    return [*entries,
+            flash_entry("flash_f32", launches32.get("flash_f32", 0), e32,
+                        [row32], "qwen3-0.6b float32"),
+            run_flash_wide(cuda, normal)]
 
 
 # The model phase (``run_models``): serving as ``examples/serve_balanced.py``

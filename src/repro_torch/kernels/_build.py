@@ -36,8 +36,10 @@ BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 #: Kernel launches by kernel name (``sat``, ``rectload``; K2 by route:
 #: ``probe`` for rows that fit shared memory, ``probe_general`` for the
 #: rest; K4 by route: ``sat3`` for planes that fit a block, ``sat3_general``
-#: for the rest; K5 by route: ``flash`` for the Hopper bf16 kernel,
-#: ``flash_general`` for the general bf16 kernel, ``flash_f32`` for float32).
+#: for the rest; K5 by route: ``flash`` and ``flash_f16`` for the Hopper
+#: kernel at bf16 and float16, ``flash_general`` and ``flash_f16_general``
+#: for the general kernel at bf16 and float16, ``flash_f32`` for float32,
+#: each at d <= 256, and ``flash_wide`` for d > 256 at every dtype).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -64,6 +66,8 @@ _SIGNATURES = {
                              _P],
     "repro_flash_attn_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                               _P],
+    "repro_flash_attn_f16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                             _P],
 }
 
 _lib: ctypes.CDLL | None = None

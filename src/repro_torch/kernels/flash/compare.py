@@ -1,0 +1,238 @@
+"""Hold builds of K5's CUDA source against each other on the card.
+
+Run from the root of a checkout on a machine with an NVIDIA H100::
+
+    PYTHONPATH=src python -m repro_torch.kernels.flash.compare \\
+        --build parent=build/parent/flash.cu
+
+This checkout's ``flash.cu`` is always built, as ``this``, and each
+``--build NAME=PATH`` adds another source (an older commit's, or an
+edited copy).  ``nvcc`` builds every source at once, each into a shared
+library of its own under ``build/flash_compare/`` (its C entry points as
+``kernels/_build.py`` declares them), with ``-Xptxas -v``.  Then, on one
+card:
+
+- each build's bfloat16 kernels' SASS (``cuobjdump -sass``: the Hopper
+  kernel ``flash_wgmma_kernel`` and the general kernel
+  ``flash_general_kernel`` at each compiled width, the element type
+  dropped from the name) against ``this``'s;
+- ``repro_flash_attn_bf16`` at ``chip_smoke.py``'s three K5 shapes
+  (Gemma-2-9B local and global, Qwen3-0.6B; B=1, S=8192, 16 heads,
+  causal), on aligned inputs (the Hopper kernel, return code 0) and on
+  copies one element past a 16-byte boundary (the general kernel, -1),
+  each build's output finite and held to ``this``'s (rtol = atol = 2e-2,
+  the bf16 contract; ``chip_smoke.py`` holds ``this`` to the plain
+  version), with the largest difference printed, and timed;
+- the wide route (return code -2 at bf16, -1 at float32) at
+  ``chip_smoke.py``'s d = 576 shape, (16, 4096, 576) causal, at bfloat16
+  and float32, held to ``this``'s output at each dtype's limit (2e-2,
+  2e-5) and timed the same way;
+- ``flash_f32`` (return code 0 at float32) at (16, 2048, d) causal: d =
+  128 (``chip_smoke.py``'s float32 check), and d = 256 with softcap 50
+  and q 8x larger (held at 1e-4: a build that sums a row on the tensor
+  cores is about 5e-5 off float64 there), timed the same way;
+- float32 accuracy at large logits: (2, 1024, d)
+  causal with softcap 50 at d = 128, 256 (``flash_f32``) and 576
+  (``flash_wide``), q drawn 1x and 8x larger (logits of order 1, and up
+  to about 40), ``this``'s kernel through ``ops.flash_attention`` and
+  the plain version (the wrapper on CPU tensors, float32) each against
+  the same function computed in float64: max |error| and relative L2.
+
+Times are device times per call (CUDA events over 20 calls queued
+behind a sleep kernel), taken in turns: the builds in order, then in
+reverse (parent, this, this, parent).  The last line is one JSON object
+with every number; the card's name and power limit come first.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import re
+import time
+
+import torch
+
+from .. import _build, _compare
+
+_HERE = pathlib.Path(__file__).resolve().parent
+OUT_DIR = _build.BUILD_DIR.parent / "flash_compare"
+FN = "repro_flash_attn_bf16"
+FN32 = "repro_flash_attn_f32"
+S = 8192
+#: (name, heads, KV heads, head dim, window, softcap), as chip_smoke.py's
+SHAPES = [("gemma2-9b local", 16, 8, 256, 4096, 50.0),
+          ("gemma2-9b global", 16, 8, 256, 0, 50.0),
+          ("qwen3-0.6b", 16, 8, 128, 0, 0.0)]
+TOL = 2e-2
+
+
+def inputs(cuda: torch.device) -> dict:
+    """Folded (BH, S, d) bf16 q, k, v of each shape from seed 0: q of
+    standard deviation 8 where there is a softcap, k and v drawn for the
+    KV heads and repeated."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    out = {}
+    for name, H, Hkv, d, _, softcap in SHAPES:
+        q = torch.randn((1, S, H, d), generator=gen, device=cuda)
+        q = (q * (8.0 if softcap else 1.0)).to(torch.bfloat16)
+        k, v = (torch.randn((1, S, Hkv, d), generator=gen, device=cuda)
+                .to(torch.bfloat16).repeat_interleave(H // Hkv, dim=2)
+                for _ in range(2))
+        out[name] = tuple(x.transpose(1, 2).reshape(H, S, d).contiguous()
+                          for x in (q, k, v))
+    return out
+
+
+def call(lib, q, k, v, o, window: int, softcap: float) -> int:
+    BH, Sq, d = q.shape
+    fn = FN32 if q.dtype == torch.float32 else FN
+    return getattr(lib, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), BH, Sq, k.shape[1], d, 1, window,
+                            ctypes.c_float(softcap),
+                            ctypes.c_float(d ** -0.5),
+                            torch.cuda.current_stream().cuda_stream)
+
+
+def accuracy(cuda: torch.device) -> dict:
+    """float32 against float64 at logits of order 1 and near 40."""
+    from . import ops, ref
+
+    out = {}
+    for d in (128, 256, 576):
+        for scale in (1.0, 8.0):
+            gen = torch.Generator(device=cuda)
+            gen.manual_seed(d)
+            q, k, v = (torch.randn((2, 1024, d), generator=gen, device=cuda)
+                       for _ in range(3))
+            q = q * scale
+            kw = dict(causal=True, window=0, softcap=50.0)
+            want = ref.attention_f64(q, k, v, **kw)
+            got = {"kernel": ops.flash_attention(q, k, v, **kw),
+                   "plain": ops.flash_attention(q.cpu(), k.cpu(), v.cpu(),
+                                                **kw).to(cuda)}
+            row = {}
+            for name, x in got.items():
+                diff = x.double() - want
+                row[name] = (float(diff.abs().max()),
+                             float(diff.norm() / want.norm()))
+            out[f"d {d} q x{scale:g}"] = row
+            print(f"float32 (2, 1024, {d}) causal softcap 50, q x{scale:g}: "
+                  + "; ".join(f"{n} vs float64 max {e:.3g}, relative L2 "
+                              f"{r:.3g}" for n, (e, r) in row.items()),
+                  flush=True)
+    return out
+
+
+def _bf16_name(name: str) -> str:
+    """A kernel's name without ``hop::``, its bf16 element type and its
+    signature."""
+    name = re.sub(r"hop::", "", name).replace("__nv_bfloat16, ", "")
+    return name.split("(")[0].removeprefix("void ")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--build", action="append", default=[],
+                    metavar="NAME=PATH")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare: CUDA is not available; this script runs on the "
+              "card only")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    builds = {"this": _HERE / "flash.cu"}
+    for spec in args.build:
+        name, path = spec.split("=", 1)
+        builds[name] = pathlib.Path(path)
+    card = _compare.card()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    libs, ptxas = _compare.build(builds, OUT_DIR, (FN, FN32))
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, lines in ptxas.items():
+        print(f"ptxas {name}: " + " | ".join(lines), flush=True)
+    record = {"card": card, "reps": _compare.REPS, "ptxas": ptxas,
+              "sass_equal": {}, "ms": {}, "max_abs_err": {}}
+
+    this = _compare.sass(OUT_DIR / "this.so", _bf16_name)
+    for name in [n for n in libs if n != "this"]:
+        other = _compare.sass(OUT_DIR / f"{name}.so", _bf16_name)
+        for kern in ("flash_wgmma_kernel", "flash_general_kernel"):
+            for D in (64, 128, 256):
+                key = f"{kern}<{D}>"
+                same = key in this and this.get(key) == other.get(key)
+                record["sass_equal"][f"{name} {key}"] = same
+                print(f"{key} SASS: {name} {'=' if same else '!='} this "
+                      f"({len(other.get(key, []))} and "
+                      f"{len(this.get(key, []))} instructions)", flush=True)
+
+    cuda = torch.device("cuda")
+    data = inputs(cuda)
+    cases = []
+    for shape, *_, window, softcap in SHAPES:
+        q, k, v = data[shape]
+        cases += [(shape, "flash", 0, (q, k, v), window, softcap, TOL),
+                  (shape, "flash_general", -1,
+                   tuple(_compare.unaligned(x) for x in (q, k, v)), window, softcap,
+                   TOL)]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    for dt, code, tol in ((torch.bfloat16, -2, TOL),
+                          (torch.float32, -1, 2e-5)):
+        xs = tuple(torch.randn((16, 4096, 576), generator=gen,
+                               device=cuda).to(dt) for _ in range(3))
+        cases.append((f"deepseek-v2 absorbed {str(dt)[6:]}", "flash_wide",
+                      code, xs, 0, 0.0, tol))
+    # float32 up to d = 256: chip_smoke.py's check, and Gemma-2's width
+    # and softcap with q 8x larger, where a build that sums each row on
+    # the tensor cores is about 5e-5 off float64 (so 1e-4 between builds)
+    for d, softcap, scale, tol in ((128, 0.0, 1.0, 2e-5),
+                                   (256, 50.0, 8.0, 1e-4)):
+        q, k, v = (torch.randn((16, 2048, d), generator=gen, device=cuda)
+                   for _ in range(3))
+        cases.append((f"float32 d {d} softcap {softcap:g} q x{scale:g}",
+                      "flash_f32", 0, (q * scale, k, v), 0, softcap, tol))
+    for shape, route, code, xs, window, softcap, tol in cases:
+        o = torch.empty_like(xs[0])
+        want = None
+        for name, lib in libs.items():
+            o.zero_()
+            ret = call(lib, *xs, o, window, softcap)
+            torch.cuda.synchronize()
+            if ret != code:
+                raise RuntimeError(f"{name} {shape} {route}: returned "
+                                   f"{ret}, not {code}")
+            if not bool(torch.isfinite(o).all()):
+                raise RuntimeError(f"{name} {shape} {route}: output "
+                                   f"not finite")
+            if want is None:   # this build's
+                want = o.float()
+            err = float((o.float() - want).abs().max())
+            if not torch.allclose(o.float(), want, rtol=tol, atol=tol):
+                raise RuntimeError(f"{name} {shape} {route}: {err:.3g} "
+                                   f"off this build's output")
+            record["max_abs_err"][f"{name} {shape} {route}"] = err
+        times = {name: [] for name in libs}
+        for name in list(libs) + list(libs)[::-1]:
+            times[name].append(_compare.device_ms(
+                lambda lib=libs[name]: call(lib, *xs, o, window,
+                                            softcap)))
+        record["ms"][f"{shape} {route}"] = times
+        for name, ts in times.items():
+            print(f"{shape} {route} {tuple(xs[0].shape)} "
+                  f"{str(xs[0].dtype)[6:]}: {name} "
+                  + ", ".join(f"{t:.4f}" for t in ts) + " ms, max "
+                  f"|{name} - this| "
+                  f"{record['max_abs_err'][f'{name} {shape} {route}']:.3g}",
+                  flush=True)
+    record["accuracy"] = accuracy(cuda)
+    print(json.dumps(record))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

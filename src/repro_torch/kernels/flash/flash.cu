@@ -6,7 +6,8 @@
 //   s_ij = q_i . k_j * scale;  s_ij = softcap * tanh(s_ij / softcap) if
 //   softcap > 0;  kept where j < Skv, i < Sq, (j <= i if causal) and
 //   (i - j < window if window > 0);  out_i = sum_j p_ij v_j / sum_j p_ij,
-// accumulated in float32 and written in the input dtype.  The TPU
+// accumulated in float32 and written in the input dtype (float32,
+// bfloat16 or float16; any d >= 1, as the reference takes).  The TPU
 // kernel's subtle points are kept: masked scores are NEG_INF = -1e30 (not
 // -inf); p is zeroed where masked after the exp, so a row that has seen no
 // valid key yet adds nothing; corr = exp(m_prev - m_new); out = acc /
@@ -17,20 +18,24 @@
 // write of out in bf16 that is S / 4 operations per byte under a causal
 // mask, 2,048 at S = 8192, far above the H100's bf16 ridge of about 295.
 //
-// Every kernel owns one (query tile, bh) and loops over the key tiles
-// itself, with m, l and the output accumulator in registers; the TPU's
-// sequential kv grid axis becomes that loop.  The grid is (query tiles x
-// BH) flattened into one dimension (BH reaches 16 x batch; a y dimension
-// would stop at 65,535), heaviest query tiles first so the causal tail
-// does not run alone.  The key-tile loop starts at the first tile the
-// window can reach and stops after the last tile the causal mask allows.
+// Every kernel owns one (query tile, bh) (the wide kernel one output
+// slice of it) and loops over the key tiles itself, with m, l and the
+// output accumulator in registers; the TPU's sequential kv grid axis
+// becomes that loop.  The grid is (query tiles x BH) flattened into one
+// dimension (BH reaches 16 x batch; a y dimension would stop at 65,535),
+// heaviest query tiles first so the causal tail does not run alone.  The
+// key-tile loop starts at the first tile the window can reach and stops
+// after the last tile the causal mask allows.
 // No padded copies: rows past Sq and Skv arrive as zeros, and only Sq rows
 // are written.
 //
-// Three kernels, chosen by dtype and shape in the C entry points:
+// Four kernels, chosen by dtype and shape in the C entry points:
 //
-// * bfloat16 on Hopper (flash_wgmma_kernel; launch key "flash"), for
-//   d % 8 == 0 and 16-byte aligned tensors — what TMA can describe.  384
+// * bfloat16 and float16 on Hopper (flash_wgmma_kernel<T, D>; launch keys
+//   "flash" and "flash_f16"), for d <= 256, d % 8 == 0 and 16-byte aligned
+//   tensors — what TMA can describe.  The two types share the code: the
+//   wgmma instructions' operand type (.bf16 or .f16), the tensor maps'
+//   element type, P's rounding and the epilogue's stores follow T.  384
 //   threads: one producer warpgroup (trimmed to 24 registers by
 //   setmaxnreg; one thread issues every load) and two consumer warpgroups
 //   (raised to 240), each owning 64 of the block's 128 query rows.
@@ -41,12 +46,13 @@
 //     and K's slot is freed once S is done, before P V, so the loads of the
 //     next tiles overlap this tile's math and no consumer thread spends an
 //     instruction on a copy;
-//   - products (consume<D>, shared with the general kernel): S = Q K^T is
-//     wgmma m64nBKk16 with Q and K both read by the tensor cores from
+//   - products (consume<T, D>, shared with the general kernel): S = Q K^T
+//     is wgmma m64nBKk16 with Q and K both read by the tensor cores from
 //     shared memory (K-major as stored, d contiguous), and O += P V is
 //     wgmma with P from registers (the f32 score accumulators rounded to
 //     bf16 A fragments: wgmma's accumulator layout per 8 columns is
-//     mma.sync's m16n8 layout) and V from shared memory as the MN-major
+//     mma.sync's m16n8 layout; float16 A fragments at float16) and V
+//     from shared memory as the MN-major
 //     B operand.  Each warpgroup issues S of tile i together with P V of
 //     tile i - 1 and runs tile i's softmax while that P V runs; the two
 //     warpgroups overlap each other on their own (an explicit ping-pong on
@@ -55,25 +61,32 @@
 //     warpgroup; only tiles that cross the causal diagonal, the window's
 //     edge or the end of the keys evaluate keep(), interior tiles skip it;
 //     log2(e) is folded into the scale, so p is one FMA and one ex2.approx
-//     an element; under a softcap tanh is tanh.approx.f32, one MUFU
-//     operation, held by chip_smoke.py's bf16 checks (including the one
-//     that the softcap matters) at Gemma-2's widths;
+//     an element; under a softcap tanh is, at bf16, tanh.approx.f32, one
+//     MUFU operation, held by chip_smoke.py's bf16 checks (including the
+//     one that the softcap matters) at Gemma-2's widths; at float16
+//     1 - 2 / (2^(2x log2(e)) + 1) by ex2.approx and a fast division, two
+//     MUFU operations (tanh.approx's 2^-11 moves a logit of 50 by 0.025,
+//     past float16's contract);
 //   - d = 256: 64-key tiles, 128 + 32 accumulators and 16 P registers a
 //     consumer thread, one block of 193 KB shared memory an SM (Q 64 KB,
 //     K and V 2 x 32 KB each); d = 64 and 128 take 128-key tiles.
-//   p is rounded to bf16 (8 bits of mantissa) before P V while l sums the
-//   float32 p: each output is a p-weighted mean of v with weights off by
-//   at most 2**-9 relative, far inside the bf16 contract of 2e-2.  The
-//   epilogue writes acc / l as bf16 into the warpgroup's own Q rows in the
+//   p is rounded to T before P V while l sums the float32 p: each output
+//   is a p-weighted mean of v with weights off by at most 2**-9 relative
+//   at bf16 (8 bits of mantissa), far inside its contract of 2e-2, and
+//   2**-11 at float16 (11 bits), inside its 5e-3
+//   (tests/test_torch_flash.py emulates both against the plain version).
+//   The epilogue writes acc / l as T into the warpgroup's own Q rows in the
 //   same swizzle and TMA stores them; TMA writes no row past Sq and no
 //   column past d.
-// * bfloat16, general (flash_general_kernel; launch key "flash_general"),
-//   for the shapes TMA cannot describe (d % 8 != 0, a base that is not
+// * bfloat16 and float16, general (flash_general_kernel<T, D>; launch
+//   keys "flash_general" and "flash_f16_general"), for the shapes up to
+//   d = 256 that TMA cannot describe (d % 8 != 0, a base that is not
 //   16-byte aligned, Skv = 0): the same consumer warpgroups, tiles, ring
 //   and shared-memory layout, behind a producer warpgroup of 128 threads
 //   (setmaxnreg 56 for the producer, 224 for the consumers: 128 x 56 +
 //   256 x 224 = 168 x 384, the registers at launch).  A bf16 row may start
-//   at any even byte, and when d % 8 != 0 the offset changes from row to
+//   (or float16 one) at any even byte, and when d % 8 != 0 the offset
+//   changes from row to
 //   row, so no 16-byte load of a row's elements is aligned.  The rows of
 //   a piece (up to 32 KB: the whole K or V tile at d <= 128, half of it
 //   at d = 256; Q in 1-4 pieces) are contiguous in global memory: one
@@ -99,7 +112,8 @@
 //   where a column pair is 4-byte aligned, else 2-byte), no row past Sq,
 //   no column past d; Skv = 0 leaves l = 0 and writes zeros, as the plain
 //   version's acc / max(l, 1e-30) does.
-// * float32 (flash_f32_kernel; launch key "flash_f32"): both products on
+// * float32 up to d = 256 (flash_f32_kernel; launch key "flash_f32"):
+//   both products on
 //   the tensor cores in 3xTF32.  Each float32 operand x is split in
 //   registers into hi = rna(x) and lo = rna(x - hi), rna rounding to tf32
 //   as cvt.rna.tf32.f32 does (to nearest, ties away from zero) in two
@@ -107,7 +121,13 @@
 //   a b is summed as lo(a) hi(b) + hi(a) lo(b), then hi(a) hi(b), in
 //   float32 accumulators (the dropped lo x lo term is about 2**-22
 //   relative; tests/test_torch_flash.py emulates the design against the
-//   plain version at 2e-5 and a relative L2 of 1e-5).  4 warps, each
+//   plain version at 2e-5 and a relative L2 of 1e-5).  Each 8-wide
+//   slice's three products go into fresh accumulators, added to S (or O)
+//   rounded to nearest: the tensor cores' float32 sums do not round to
+//   nearest, and summed there over a whole row (S at d = 256: 96
+//   products) outputs were 5.2e-5 off float64 at Gemma-2's softcap with
+//   logits near 40, 8.3e-6 with the fresh sums, which cost 6% (an H100).
+//   4 warps, each
 //   owning 16 of the block's 64 query rows; K and V through a ring of 2
 //   slots staged by cp.async (16-byte copies where the bases are 16-byte
 //   aligned and d % 4 == 0, 4-byte copies elsewhere: a float32 base is
@@ -131,12 +151,43 @@
 //   Tiles are classified per warp as in the Hopper kernel; a warp skips a
 //   tile its rows keep no key of.  expf and tanhf (no approximations, no
 //   --use_fast_math).
-// All bf16 <-> float conversions go through the intrinsics (the build
-// defines __CUDA_NO_BFLOAT16_CONVERSIONS__).
+// * d > 256, every dtype (flash_wide_kernel<T>; launch key "flash_wide"):
+//   what no register tile of the others holds (an output row of d float32
+//   accumulators).  8 warps, each owning 16 of the block's 128 query
+//   rows (4 warps a block, 2 blocks an SM, ran 4% slower on an H100);
+//   a block computes one output slice of at most 256 columns (the slices
+//   balanced: ceil(d / 256) of them, d = 576 as 3 x 192), so its
+//   accumulators are those of a d = 256 tile.  Q and K stream through a
+//   ring of 2 slots in chunks of 64 columns (a Q chunk and a K chunk a
+//   slot), V's slice through one slot, all by cp.async (16-byte copies
+//   where the bases are 16-byte aligned and d is a multiple of 16 bytes;
+//   else 4-byte copies at float32 and 2-byte loads and stores through the
+//   registers at 16 bits): shared memory does not depend on d (89,088
+//   bytes at 16 bits, 125,440 at float32; one block an SM, as its 255
+//   registers a thread allow).  Step j = (key
+//   tile, chunk) computes while step j + 1's copies are in flight, one
+//   barrier a step; a tile's V slice is issued at its first step, nc - 1
+//   steps before its P V.  S sums in registers over a tile's chunks,
+//   then the online softmax (expf, tanhf, as flash_f32_kernel) and
+//   O += P V_slice.  The products: at 16 bits mma.sync m16n8k16 with
+//   float32 accumulators (Q's and K's fragments by ldmatrix, V's B
+//   fragments transposed by ldmatrix.trans, P's A fragments S's
+//   accumulators rounded to T); at
+//   float32 flash_f32_kernel's 3xTF32 on m16n8k8, each 8-column slice of
+//   S into fresh accumulators then added rounded to nearest (the tensor
+//   cores' float32 sums truncate: over a long chain that bias passes
+//   float32's contract).  The cost of the slices: S = Q K^T is recomputed
+//   for each, ns = ceil(d / 256) times the product, so 2 d (ns + 1)
+//   operations a pair instead of 4 d (2x at d = 576).  Key tiles of 64
+//   (32 at float32); a warp skips a tile its rows keep no key of.
+// All bf16 and float16 <-> float conversions go through the intrinsics
+// (the build defines __CUDA_NO_BFLOAT16_CONVERSIONS__ and
+// __CUDA_NO_HALF_CONVERSIONS__).
 //
 // Widths: compiled D = 64, 128, 256; a smaller d takes the next width
 // with the columns past d zero in shared memory and never written, so
-// every 1 <= d <= 256 works (the wrapper raises above 256).  Above 48 KB
+// every 1 <= d <= 256 works; above 256 the wide kernel takes any d (its
+// columns past d zero, its last slice narrower).  Above 48 KB
 // of shared memory every launch first raises the kernel's dynamic limit
 // (cudaFuncSetAttribute; at most 227 KB).  A refused launch or tensor map
 // returns a CUDA error code and the wrapper raises; it never returns
@@ -145,25 +196,55 @@
 // nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -Xptxas -v (CUDA 12.9,
 // on an NVIDIA H100 80GB HBM3), with the dynamic shared memory each launch
 // asks for:
-//   flash_wgmma_kernel<256>, <128>, <64>: 168 registers a thread at launch
-//     (setmaxnreg then gives the producer 24 and the consumers 240), no
-//     spills; 197,704, 164,936 and 83,016 bytes of shared memory;
-//   flash_general_kernel<256>, <128>, <64>: 168 registers a thread at
-//     launch (setmaxnreg then gives the producer 56 and the consumers
-//     224), no spills; 230,512, 230,552 and 148,712 bytes;
-//   flash_f32_kernel<256>, <128>, <64>: 218, 147 and 128 registers, no
-//     spills; 201,728, 103,424 and 90,112 bytes.
+//   flash_wgmma_kernel<T, 256>, <T, 128>, <T, 64>, T bf16 and float16:
+//     168 registers a thread at launch (setmaxnreg then gives the
+//     producer 24 and the consumers 240), no spills; 197,704, 164,936 and
+//     83,016 bytes of shared memory (bf16: the parent commit's SASS,
+//     kernels/flash/compare.py);
+//   flash_general_kernel<T, 256>, <T, 128>, <T, 64>, T bf16 and float16:
+//     168 registers a thread at launch (setmaxnreg then gives the producer
+//     56 and the consumers 224), no spills; 230,512, 230,552 and 148,712
+//     bytes (bf16: the parent's SASS);
+//   flash_f32_kernel<256>, <128>, <64>: 233, 162 and 128 registers, no
+//     spills; 201,728, 103,424 and 90,112 bytes;
+//   flash_wide_kernel<float>, <bf16>, <float16>: 255 registers, no
+//     spills; 125,440, 89,088 and 89,088 bytes.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+
+// the 16-bit types: float16 (true) or bfloat16
+template <typename T>
+constexpr bool kF16 = std::is_same<T, f16>::value;
+
+// two floats rounded to the 16-bit type T, as its 2-vector
+template <typename T>
+struct Vec2 {
+  typedef __nv_bfloat162 type;
+};
+template <>
+struct Vec2<f16> {
+  typedef __half2 type;
+};
+
+template <typename T>
+__device__ __forceinline__ typename Vec2<T>::type to2(float lo, float hi) {
+  if constexpr (kF16<T>)
+    return __float22half2_rn(make_float2(lo, hi));
+  else
+    return __floats2bfloat162_rn(lo, hi);
+}
 
 constexpr float NEG_INF = -1e30f;
 
@@ -211,13 +292,13 @@ __device__ __forceinline__ float logit(const Params& p, float dot) {
   return s;
 }
 
-// one block a (query tile, bh), after raising the kernel's dynamic
-// shared-memory limit
+// one block a (query tile, bh) (and output slice: ``slices`` of them),
+// after raising the kernel's dynamic shared-memory limit
 template <typename K>
 int launch(K kernel, int BQ, int threads, int smem, Params p,
-           cudaStream_t st) {
+           cudaStream_t st, int slices = 1) {
   p.nq = (p.Sq + BQ - 1) / BQ;
-  const long long blocks = (long long)p.nq * p.BH;
+  const long long blocks = (long long)p.nq * p.BH * slices;
   if (blocks == 0) return 0;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   cudaError_t e = cudaFuncSetAttribute(
@@ -437,6 +518,9 @@ __global__ void __launch_bounds__(32 * NW)
       // S = Q K^T.  Within a slice of 8 columns the fragments' k index t
       // is column 2t and t + 4 is 2t + 1 (the same in A and B, so the sum
       // is unchanged), which makes every operand pair one 64-bit load.
+      // Each slice's three products go into fresh accumulators, added to
+      // S in float32 rounded to nearest (see the header: summed on the
+      // tensor cores, a row of d = 256 missed float32's 2e-5).
       float sc[BK / 8][4];
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
@@ -459,7 +543,10 @@ __global__ void __launch_bounds__(32 * NW)
           for (int j = 0; j < BK / 8; ++j) {
             const float2 kv = *reinterpret_cast<const float2*>(
                 Kt + (8 * j + g) * LQ + 8 * kk + 2 * t);
-            mma3(sc[j], ah, al, kv.x, kv.y);
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3(part, ah, al, kv.x, kv.y);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] += part[e];
           }
         }
       }
@@ -479,7 +566,9 @@ __global__ void __launch_bounds__(32 * NW)
       }
       // O += P V.  Score tile j is P's A fragment of keys 8j .. 8j + 7
       // with k index t as key 2t and t + 4 as key 2t + 1, so V's B
-      // fragment reads rows 2t and 2t + 1; p is split in registers.
+      // fragment reads rows 2t and 2t + 1; p is split in registers.  As
+      // for S, each 8 keys' three products go into fresh accumulators,
+      // added to acc rounded to nearest.
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         uint32_t ah[4], al[4];
@@ -489,8 +578,14 @@ __global__ void __launch_bounds__(32 * NW)
         split(sc[j][3], ah[3], al[3]);
         const float* vp = Vt + (8 * j + 2 * t) * LV + g;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          if (n < kd) mma3(acc[n], ah, al, vp[8 * n], vp[LV + 8 * n]);
+        for (int n = 0; n < D / 8; ++n) {
+          if (n < kd) {
+            float part[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3(part, ah, al, vp[8 * n], vp[LV + 8 * n]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+          }
+        }
       }
     }
     __syncthreads();  // every read of slot i % 2 done before its refill
@@ -628,8 +723,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+template <typename T>
 __device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  const typename Vec2<T>::type h = to2<T>(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
@@ -647,166 +743,115 @@ __device__ __forceinline__ float tanh_fast(float x) {
   return r;
 }
 
-// S = Q K^T, m64n64k16: A (Q) and B (K) K-major in shared memory
+// tanh(x) = 1 - 2 / (2^(2 x log2(e)) + 1) by ex2.approx and a fast
+// division, two MUFU operations: an absolute error of a few 2^-23 over
+// the whole range (2^x overflows to inf for large x and gives 1), which
+// the softcap scales by at most softcap in the logits.  float16's
+// contract (5e-3) is tighter than tanh.approx's 2^-11 at Gemma-2's
+// softcap of 50 (logits off by up to 0.025).
+__device__ __forceinline__ float tanh_acc(float x) {
+  return 1.f - __fdividef(2.f, ex2(2.f * LOG2E * x) + 1.f);
+}
+
+// wgmma's accumulator operands d[i .. i + 7], and the register lists of
+// 32, 64 and 128 of them
+#define WG_D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+#define WG_D128                                                           \
+  WG_D64, WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88), WG_D8(96),          \
+      WG_D8(104), WG_D8(112), WG_D8(120)
+#define WG_R32                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                              \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                    \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "                    \
+  "%30, %31"
+#define WG_R64                                                            \
+  WG_R32                                                                  \
+  ", %32, %33, %34, %35, %36, %37, %38, %39, "                            \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "                    \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                    \
+  "%60, %61, %62, %63"
+#define WG_R128                                                           \
+  WG_R64                                                                  \
+  ", %64, %65, %66, %67, %68, %69, "                                      \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                    \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "                    \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "                    \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "          \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "          \
+  "%120, %121, %122, %123, %124, %125, %126, %127"
+
+// S = Q K^T, m64nNk16 (N = 64, 128): A (Q) and B (K) K-major in shared
+// memory; TY is the operands' type, bf16 or f16
+#define WG_SS(N, R, D, A, B, PRED, TY)                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"         \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY \
+               " {" R "}, " A ", " B ", p, 1, 1, 0, 0;\n}\n"              \
+               : D                                                        \
+               : "l"(da), "l"(db), "r"(acc))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
+  if constexpr (kF16<T>)
+    WG_SS("64", WG_R32, WG_D32, "%32", "%33", "%34", "f16");
+  else
+    WG_SS("64", WG_R32, WG_D32, "%32", "%33", "%34", "bf16");
 }
 
-// S = Q K^T, m64n128k16: A (Q) and B (K) K-major in shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
+  if constexpr (kF16<T>)
+    WG_SS("128", WG_R64, WG_D64, "%64", "%65", "%66", "f16");
+  else
+    WG_SS("128", WG_R64, WG_D64, "%64", "%65", "%66", "bf16");
 }
 
-// O += P V, m64n64k16: A (P) from registers, B (V) MN-major in
-// shared memory
+// O += P V, m64nNk16 (N = 64, 128, 256): A (P) from registers, B (V)
+// MN-major in shared memory
+#define WG_RS(N, R, D, A, B, PRED, TY)                                    \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"         \
+               "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY \
+               " {" R "}, {" A "}, " B ", p, 1, 1, 1;\n}\n"               \
+               : D                                                        \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kF16<T>)
+    WG_RS("64", WG_R32, WG_D32, "%32, %33, %34, %35", "%36", "%37", "f16");
+  else
+    WG_RS("64", WG_R32, WG_D32, "%32, %33, %34, %35", "%36", "%37", "bf16");
 }
 
-// O += P V, m64n128k16: A (P) from registers, B (V) MN-major in
-// shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kF16<T>)
+    WG_RS("128", WG_R64, WG_D64, "%64, %65, %66, %67", "%68", "%69", "f16");
+  else
+    WG_RS("128", WG_R64, WG_D64, "%64, %65, %66, %67", "%68", "%69",
+          "bf16");
 }
 
-// O += P V, m64n256k16: A (P) from registers, B (V) MN-major in
-// shared memory
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
-      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kF16<T>)
+    WG_RS("256", WG_R128, WG_D128, "%128, %129, %130, %131", "%132", "%133",
+          "f16");
+  else
+    WG_RS("256", WG_R128, WG_D128, "%128, %129, %130, %131", "%132", "%133",
+          "bf16");
 }
 
 // the compiler may not hoist what is computed from this value out of a loop
@@ -838,7 +883,7 @@ struct Ring {
 // on exit; m and l are updated and corr returned.  EDGE: the tile crosses
 // the diagonal, the window's edge or the end of the keys, so keep() runs;
 // CAP: the softcap.  Logits are in log2 units (log2(e) folded in).
-template <int BK, bool EDGE, bool CAP>
+template <typename T, int BK, bool EDGE, bool CAP>
 __device__ __forceinline__ void softmax(const Params& p, float (&sc)[BK / 2],
                                         float (&m)[2], float (&l)[2],
                                         float (&corr)[2],
@@ -854,10 +899,14 @@ __device__ __forceinline__ void softmax(const Params& p, float (&sc)[BK / 2],
     for (int e = 0; e < 4; ++e) {
       const int h = e >> 1;
       float x = sc[4 * j + e];
-      if (CAP)
-        x = cl * tanh_fast(x * cs);
-      else if (EDGE)
+      if (CAP) {
+        if constexpr (kF16<T>)
+          x = cl * tanh_acc(x * cs);
+        else
+          x = cl * tanh_fast(x * cs);
+      } else if (EDGE) {
         x *= sl;
+      }
       if (EDGE && !keep(p, rows[h], k0 + 8 * j + 2 * t + (e & 1)))
         x = NEG_INF;
       sc[4 * j + e] = x;
@@ -889,7 +938,7 @@ __device__ __forceinline__ void softmax(const Params& p, float (&sc)[BK / 2],
 // TMA_OUT: the epilogue stores through TMA (the Hopper kernel); else the
 // threads store to global memory directly (the general kernel, whose o
 // may be unaligned)
-template <int D, bool TMA_OUT>
+template <typename T, int D, bool TMA_OUT>
 __device__ __forceinline__ void consume(const Params& p,
                                         const CUtensorMap* to, int q0, int bh,
                                         int kb, int ke, uint32_t sQ,
@@ -918,7 +967,7 @@ __device__ __forceinline__ void consume(const Params& p,
     for (int c = 0; c < CH; ++c)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss(sc, desc(qs + c * BQ * 128 + kk * 32, 16, 1024),
+        wgmma_ss<T>(sc, desc(qs + c * BQ * 128 + kk * 32, 16, 1024),
                  desc(ks + c * BK * 128 + kk * 32, 16, 1024),
                  (c | kk) != 0);
     wg_commit();
@@ -927,7 +976,7 @@ __device__ __forceinline__ void consume(const Params& p,
     const uint32_t vs = sV + (i % ST) * KV;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs(o, pa[kk], desc(vs + kk * 16 * 128, BK * 128, 1024));
+      wgmma_rs<T>(o, pa[kk], desc(vs + kk * 16 * 128, BK * 128, 1024));
     wg_commit();
   };
   auto soft = [&](int i) {
@@ -936,25 +985,28 @@ __device__ __forceinline__ void consume(const Params& p,
                       (p.window > 0 && r0 + 63 - k0 >= p.window);
     if (cap) {
       if (edge)
-        softmax<BK, true, true>(p, sc, m, l, corr, rows, k0, t, sl, cs, cl);
+        softmax<T, BK, true, true>(p, sc, m, l, corr, rows, k0, t, sl, cs,
+                                   cl);
       else
-        softmax<BK, false, true>(p, sc, m, l, corr, rows, k0, t, sl, cs, cl);
+        softmax<T, BK, false, true>(p, sc, m, l, corr, rows, k0, t, sl, cs,
+                                    cl);
     } else {
       // the max of the raw dots is the max of the logits only for a
       // positive scale: any other scale takes the path that scales first
       if (edge || !(sl > 0.f))
-        softmax<BK, true, false>(p, sc, m, l, corr, rows, k0, t, sl, cs, cl);
+        softmax<T, BK, true, false>(p, sc, m, l, corr, rows, k0, t, sl, cs,
+                                    cl);
       else
-        softmax<BK, false, false>(p, sc, m, l, corr, rows, k0, t, sl, cs,
-                                  cl);
+        softmax<T, BK, false, false>(p, sc, m, l, corr, rows, k0, t, sl, cs,
+                                     cl);
     }
   };
-  auto pack = [&]() {  // P's A fragments, p rounded to bf16: score tiles
+  auto pack = [&]() {  // P's A fragments, p rounded to T: score tiles
     // 2kk and 2kk + 1 are the fragment of keys 16kk .. 16kk + 15
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
-      pa[j / 2][2 * (j % 2)] = pack_f(sc[4 * j], sc[4 * j + 1]);
-      pa[j / 2][2 * (j % 2) + 1] = pack_f(sc[4 * j + 2], sc[4 * j + 3]);
+      pa[j / 2][2 * (j % 2)] = pack_f<T>(sc[4 * j], sc[4 * j + 1]);
+      pa[j / 2][2 * (j % 2) + 1] = pack_f<T>(sc[4 * j + 2], sc[4 * j + 3]);
     }
   };
   auto hold_p = [&]() {  // P stays live until the wgmma reading it is done
@@ -1017,7 +1069,7 @@ __device__ __forceinline__ void consume(const Params& p,
     l[h] = fmaxf(l[h], 1e-30f);
   }
   if constexpr (TMA_OUT) {
-    // acc / l as bf16 into this warpgroup's own Q rows (free now: only its
+    // acc / l as T into this warpgroup's own Q rows (free now: only its
     // products read them), in the 128-byte swizzle, then one TMA store a
     // 64-column chunk; TMA writes no row past Sq, no column past d.
     const uint32_t so = sQ + wg * 64 * 128;
@@ -1027,7 +1079,7 @@ __device__ __forceinline__ void consume(const Params& p,
 #pragma unroll
       for (int x = 0; x < D / 8; ++x) {
         const uint32_t at = swizzled(so, BQ, r + 8 * h, x) + t * 4;
-        const uint32_t v2 = pack_f(o[4 * x + 2 * h] / l[h],
+        const uint32_t v2 = pack_f<T>(o[4 * x + 2 * h] / l[h],
                                    o[4 * x + 2 * h + 1] / l[h]);
         asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(v2)
                      : "memory");
@@ -1047,23 +1099,23 @@ __device__ __forceinline__ void consume(const Params& p,
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
   } else {
-    // acc / l as bf16 straight from the registers: no row past Sq, no
+    // acc / l as T straight from the registers: no row past Sq, no
     // column past d; a pair of columns is one 4-byte store where it is
     // 4-byte aligned
-    bf16* og = static_cast<bf16*>(p.o) + (long long)bh * p.Sq * p.d;
+    T* og = static_cast<T*>(p.o) + (long long)bh * p.Sq * p.d;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (rows[h] >= p.Sq) continue;
-      bf16* orow = og + (long long)rows[h] * p.d;
+      T* orow = og + (long long)rows[h] * p.d;
 #pragma unroll
       for (int x = 0; x < D / 8; ++x) {
         const int col = 8 * x + 2 * t;
         if (col >= p.d) continue;
-        const __nv_bfloat162 v2 = __floats2bfloat162_rn(
-            o[4 * x + 2 * h] / l[h], o[4 * x + 2 * h + 1] / l[h]);
+        const typename Vec2<T>::type v2 =
+            to2<T>(o[4 * x + 2 * h] / l[h], o[4 * x + 2 * h + 1] / l[h]);
         if (col + 1 < p.d &&
             reinterpret_cast<uintptr_t>(orow + col) % 4 == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) = v2;
+          *reinterpret_cast<typename Vec2<T>::type*>(orow + col) = v2;
         } else {
           orow[col] = v2.x;
           if (col + 1 < p.d) orow[col + 1] = v2.y;
@@ -1073,7 +1125,7 @@ __device__ __forceinline__ void consume(const Params& p,
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NTH, 1)
     flash_wgmma_kernel(const __grid_constant__ Params p,
                        const __grid_constant__ CUtensorMap tq,
@@ -1129,7 +1181,7 @@ __global__ void __launch_bounds__(NTH, 1)
     }
   } else {  // consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<D, true>(p, &to, q0, bh, kb, ke, sQ, sK, sV, bar);
+    consume<T, D, true>(p, &to, q0, bh, kb, ke, sQ, sK, sV, bar);
   }
 }
 
@@ -1393,7 +1445,7 @@ __device__ __forceinline__ void produce(const Params& p, int q0, int bh,
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NTH, 1)
     flash_general_kernel(const __grid_constant__ Params p) {
   constexpr int BK = Tile<D>::BK;
@@ -1428,7 +1480,7 @@ __global__ void __launch_bounds__(NTH, 1)
     produce<D>(p, q0, bh, kb, ke, sQ, sK, sV, sS, bar);
   } else {  // consumer warpgroups
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(GEN_CREG));
-    consume<D, false>(p, nullptr, q0, bh, kb, ke, sQ, sK, sV, bar);
+    consume<T, D, false>(p, nullptr, q0, bh, kb, ke, sQ, sK, sV, bar);
   }
 }
 
@@ -1459,51 +1511,436 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// the (d, S, BH) bf16 tensor at ``ptr`` in boxes of 64 columns x ``rows``,
-// 128-byte swizzle; loads read zeros out of bounds, stores skip it
-bool encode(CUtensorMap* map, const void* ptr, int d, int S, int BH,
-            int rows) {
+// the (d, S, BH) tensor of 16-bit ``type`` at ``ptr`` in boxes of 64
+// columns x ``rows``, 128-byte swizzle; loads read zeros out of bounds,
+// stores skip it
+bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+            int d, int S, int BH, int rows) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)S * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t one[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+  return fn(map, type, 3, const_cast<void*>(ptr),
             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <typename T, int D>
 int launch(Params p, cudaStream_t st) {
   p.nq = (p.Sq + BQ - 1) / BQ;
   const long long blocks = (long long)p.nq * p.BH;
   if (blocks == 0) return 0;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  constexpr CUtensorMapDataType ty = kF16<T>
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv, to;
-  if (!encode(&tq, p.q, p.d, p.Sq, p.BH, BQ) ||
-      !encode(&tk, p.k, p.d, p.Skv, p.BH, Tile<D>::BK) ||
-      !encode(&tv, p.v, p.d, p.Skv, p.BH, Tile<D>::BK) ||
-      !encode(&to, p.o, p.d, p.Sq, p.BH, 64))
+  if (!encode(&tq, ty, p.q, p.d, p.Sq, p.BH, BQ) ||
+      !encode(&tk, ty, p.k, p.d, p.Skv, p.BH, Tile<D>::BK) ||
+      !encode(&tv, ty, p.v, p.d, p.Skv, p.BH, Tile<D>::BK) ||
+      !encode(&to, ty, p.o, p.d, p.Sq, p.BH, 64))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
-  flash_wgmma_kernel<D><<<(unsigned)blocks, NTH, smem, st>>>(p, tq, tk, tv,
-                                                              to);
+  flash_wgmma_kernel<T, D><<<(unsigned)blocks, NTH, smem, st>>>(p, tq, tk,
+                                                                 tv, to);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_general(const Params& p, cudaStream_t st) {
-  return ::launch(flash_general_kernel<D>, BQ, NTH, smem_bytes_general<D>(),
-                  p, st);
+  return ::launch(flash_general_kernel<T, D>, BQ, NTH,
+                  smem_bytes_general<D>(), p, st);
 }
 
 }  // namespace hop
+
+// ---------------------------------------------------------------------------
+// d > 256, every dtype: Q and K streamed in chunks of 64 columns, S summed
+// in registers over the chunks, the output in slices of at most 256
+// columns, one slice a block
+
+namespace wide {
+
+constexpr int NW = 8;        // warps, 16 query rows each
+constexpr int BQ = 16 * NW;  // query rows a block
+constexpr int CW = 64;       // columns of Q and K a chunk
+constexpr int DV = 256;      // output columns a slice, at most
+// chunk slots: a deeper ring (3 or 4 slots at 16 bits) spilled registers
+// and ran 17-18% slower on an H100 (kernels/flash/compare.py)
+constexpr int NA = 2;
+
+template <typename T>
+struct Cfg {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int BK = F32 ? 32 : 64;  // keys a tile
+  // chunk rows and V rows in elements: the fragment loads of a warp hit
+  // 32 distinct banks (and V's rows stay 16-byte aligned for ldmatrix)
+  static constexpr int LC = CW + 8;
+  static constexpr int LV = DV + (F32 ? 4 : 8);
+  // NA slots of (a Q chunk, then a K chunk), then one of a V slice
+  static constexpr int SMEM =
+      (int)sizeof(T) * (NA * (BQ + BK) * LC + BK * LV);
+};
+
+// the output slices of head width d: ns slices of sw columns (a multiple of
+// 8, at most DV), the last one narrower; balanced, so that no slice
+// recomputes S for a few columns
+__host__ __device__ inline void slices(int d, int& ns, int& sw) {
+  const int n0 = (d + DV - 1) / DV;
+  sw = ((d + n0 - 1) / n0 + 7) / 8 * 8;
+  ns = (d + sw - 1) / sw;
+}
+
+// Rows [r0, r0 + ROWS) and columns [c0, c0 + COLS) of a (len, d) matrix into
+// s[ROWS][LD], zero at rows past len and columns past cend: 16-byte
+// cp.async where the bases are 16-byte aligned and d is a multiple of 16
+// bytes (c0 and cend then are too), else 4-byte cp.async for float32 and
+// 2-byte loads and stores through the registers for a 16-bit type (whose
+// base may lie at any even byte)
+template <typename T, int ROWS, int COLS, int LD>
+__device__ __forceinline__ void stage(T* s, const T* g, int r0, int len,
+                                      int c0, int cend, int d, bool vec) {
+  const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(s));
+  if (vec) {
+    constexpr int E = 16 / (int)sizeof(T), CH = COLS / E;
+    for (int idx = threadIdx.x; idx < ROWS * CH; idx += 32 * NW) {
+      const int r = idx / CH, c = (idx % CH) * E;
+      const bool ok = r0 + r < len && c0 + c < cend;
+      f32::cp_async16(sa + (int)sizeof(T) * (r * LD + c),
+                      ok ? g + (long long)(r0 + r) * d + c0 + c : g, ok);
+    }
+  } else if constexpr (sizeof(T) == 4) {
+    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += 32 * NW) {
+      const int r = idx / COLS, c = idx % COLS;
+      const bool ok = r0 + r < len && c0 + c < cend;
+      f32::cp_async4(sa + 4 * (r * LD + c),
+                     ok ? g + (long long)(r0 + r) * d + c0 + c : g, ok);
+    }
+  } else {
+    const uint16_t* gs = reinterpret_cast<const uint16_t*>(g);
+    uint16_t* ss = reinterpret_cast<uint16_t*>(s);
+    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += 32 * NW) {
+      const int r = idx / COLS, c = idx % COLS;
+      const bool ok = r0 + r < len && c0 + c < cend;
+      ss[r * LD + c] = ok ? gs[(long long)(r0 + r) * d + c0 + c] : 0;
+    }
+  }
+}
+
+// c += a b, m16n8k16 with 16-bit operands and float32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (kF16<T>)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 16-bit matrices from shared memory: lanes 8i .. 8i + 7 give
+// the rows of matrix i, and r[i] is this lane's pair of it (row lane / 4,
+// columns 2 (lane % 4) and + 1; transposed, column lane / 4 and rows
+// 2 (lane % 4) and + 1)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// S += Q_c K_c^T over one chunk: Qw the warp's 16 rows, Kc the tile's BK
+// rows, cols the chunk's columns below d (Q's and K's columns past d are
+// zero, so a partial slice adds nothing)
+template <typename T>
+__device__ __forceinline__ void chunk_scores(
+    float (&sc)[Cfg<T>::BK / 8][4], const T* Qw, const T* Kc, int cols,
+    int g, int t, int lane) {
+  constexpr int BK = Cfg<T>::BK, LC = Cfg<T>::LC;
+  if constexpr (Cfg<T>::F32) {
+    // 3xTF32 on m16n8k8; within a slice of 8 columns the fragments' k
+    // index t is column 2t and t + 4 is 2t + 1 (the same in A and B).
+    // Each slice's three products go into fresh accumulators, added to S
+    // in float32 rounded to nearest: summed on the tensor cores over the
+    // hundreds of products of a wide row (d = 2048: 768), S was off by
+    // enough to move outputs by 5e-5, past float32's 2e-5 (measured on an
+    // H100; the tensor cores' float32 sums do not round to nearest)
+#pragma unroll
+    for (int kk = 0; kk < CW / 8; ++kk) {
+      if (8 * kk < cols) {
+        const float2 q0v =
+            *reinterpret_cast<const float2*>(Qw + g * LC + 8 * kk + 2 * t);
+        const float2 q1v = *reinterpret_cast<const float2*>(
+            Qw + (g + 8) * LC + 8 * kk + 2 * t);
+        uint32_t ah[4], al[4];
+        f32::split(q0v.x, ah[0], al[0]);
+        f32::split(q1v.x, ah[1], al[1]);
+        f32::split(q0v.y, ah[2], al[2]);
+        f32::split(q1v.y, ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              Kc + (8 * j + g) * LC + 8 * kk + 2 * t);
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          f32::mma3(part, ah, al, kv.x, kv.y);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += part[e];
+        }
+      }
+    }
+  } else {
+    // m16n8k16 with fragments by ldmatrix: A (Q) the 4 matrices rows
+    // 0-7 / 8-15 x columns 0-7 / 8-15 of the warp's 16 x 16 slice (lanes
+    // 0-7, 8-15, 16-23, 24-31); B (K^T) of key tiles j and j + 1 the
+    // matrices keys 8j .. 8j + 7 x columns 0-7, 8-15, then the same of
+    // tile j + 1
+    const uint32_t qs = static_cast<uint32_t>(__cvta_generic_to_shared(Qw)) +
+                        2 * ((lane % 8 + 8 * ((lane / 8) % 2)) * LC +
+                             8 * (lane / 16));
+    const uint32_t ks = static_cast<uint32_t>(__cvta_generic_to_shared(Kc)) +
+                        2 * ((lane % 8 + 8 * (lane / 16)) * LC +
+                             8 * ((lane / 8) % 2));
+#pragma unroll
+    for (int kk = 0; kk < CW / 16; ++kk) {
+      if (16 * kk < cols) {
+        uint32_t a[4];
+        ldsm_x4(a, qs + 2 * 16 * kk);
+#pragma unroll
+        for (int j = 0; j < BK / 8; j += 2) {
+          uint32_t b[4];
+          ldsm_x4(b, ks + 2 * (8 * j * LC + 16 * kk));
+          mma16<T>(sc[j], a, b[0], b[1]);
+          mma16<T>(sc[j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// O += P V_slice: sc holds the tile's p, Vt the tile's V slice (BK x LV),
+// nd the 8-column tiles of the slice that hold real columns
+template <typename T>
+__device__ __forceinline__ void values(float (&acc)[DV / 8][4],
+                                       const float (&sc)[Cfg<T>::BK / 8][4],
+                                       const T* Vt, int nd, int g, int t,
+                                       int lane) {
+  constexpr int BK = Cfg<T>::BK, LV = Cfg<T>::LV;
+  if constexpr (Cfg<T>::F32) {
+    // score tile j is P's A fragment of keys 8j .. 8j + 7 with k index t
+    // as key 2t and t + 4 as 2t + 1, so V's B fragment reads rows 2t and
+    // 2t + 1; p is split in registers.  As in chunk_scores, each 8 keys'
+    // three products go into fresh accumulators, added to acc rounded to
+    // nearest (a row's acc takes Skv / 8 of them)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      uint32_t ah[4], al[4];
+      f32::split(sc[j][0], ah[0], al[0]);
+      f32::split(sc[j][2], ah[1], al[1]);
+      f32::split(sc[j][1], ah[2], al[2]);
+      f32::split(sc[j][3], ah[3], al[3]);
+      const float* vp = Vt + (8 * j + 2 * t) * LV + g;
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n) {
+        if (n < nd) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          f32::mma3(part, ah, al, vp[8 * n], vp[LV + 8 * n]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+        }
+      }
+    }
+  } else {
+    // score tiles 2kk and 2kk + 1, rounded to T, are P's A fragment of
+    // keys 16kk .. 16kk + 15 (m16n8's accumulator layout is m16n8k16's A
+    // layout per 8 columns); V's B fragments of two 8-column tiles come
+    // from one transposed ldmatrix: lanes 0-7 keys 0-7, lanes 8-15 keys
+    // 8-15 of the first tile's columns, lanes 16-31 the same of the next
+    const uint32_t vs = static_cast<uint32_t>(__cvta_generic_to_shared(Vt)) +
+                        2 * ((lane % 8 + 8 * ((lane / 8) % 2)) * LV +
+                             8 * (lane / 16));
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {
+          hop::pack_f<T>(sc[2 * kk][0], sc[2 * kk][1]),
+          hop::pack_f<T>(sc[2 * kk][2], sc[2 * kk][3]),
+          hop::pack_f<T>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+          hop::pack_f<T>(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int n2 = 0; n2 < DV / 16; ++n2) {
+        if (2 * n2 < nd) {
+          uint32_t b[4];
+          ldsm_x4_t(b, vs + 2 * (16 * kk * LV + 16 * n2));
+          mma16<T>(acc[2 * n2], a, b[0], b[1]);
+          mma16<T>(acc[2 * n2 + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same<T, float>::value)
+    return x;
+  else if constexpr (kF16<T>)
+    return __float2half_rn(x);
+  else
+    return __float2bfloat16_rn(x);
+}
+
+// One block: query tile qt, head bh, output slice sl.  Steps j = (key
+// tile i, chunk c) in order; step j + 1's copies (with V's slice at a
+// tile's first chunk) are in flight while step j computes.  S is
+// recomputed for every slice: ns times the Q K^T product.
+template <typename T>
+__global__ void __launch_bounds__(32 * NW, 1)
+    flash_wide_kernel(const __grid_constant__ Params p) {
+  constexpr int BK = Cfg<T>::BK, LC = Cfg<T>::LC, LV = Cfg<T>::LV;
+  extern __shared__ __align__(16) unsigned char smem_w[];
+  T* As = reinterpret_cast<T*>(smem_w);  // NA slots of BQ + BK chunk rows
+  T* Vs = As + NA * (BQ + BK) * LC;      // BK slice rows
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  int ns, sw;
+  slices(p.d, ns, sw);
+  // block -> (query tile, bh, slice), heaviest query tiles first, the
+  // slices of one (query tile, bh) side by side
+  const int per = p.BH * ns;
+  const int qt = p.nq - 1 - blockIdx.x / per;
+  const int bh = (blockIdx.x % per) / ns, c0 = (blockIdx.x % ns) * sw;
+  const int cw = min(sw, p.d - c0);
+  const int q0 = qt * BQ, d = p.d;
+  const T* q = static_cast<const T*>(p.q) + (long long)bh * p.Sq * d;
+  const T* k = static_cast<const T*>(p.k) + (long long)bh * p.Skv * d;
+  const T* v = static_cast<const T*>(p.v) + (long long)bh * p.Skv * d;
+  T* o = static_cast<T*>(p.o) + (long long)bh * p.Sq * d;
+  int kb, ke;
+  kv_range(p, q0, BQ, BK, kb, ke);
+  const int nc = (d + CW - 1) / CW;
+  const int n = ke > kb ? (ke - kb) * nc : 0;
+  const bool vec = p.vec != 0;
+
+  // step j's Q and K chunks into slot j % NA; tile i's V slice
+  auto chunks = [&](int j) {
+    const int c = j % nc, k0 = (kb + j / nc) * BK;
+    T* a = As + (j % NA) * (BQ + BK) * LC;
+    stage<T, BQ, CW, LC>(a, q, q0, p.Sq, c * CW, d, d, vec);
+    stage<T, BK, CW, LC>(a + BQ * LC, k, k0, p.Skv, c * CW, d, d, vec);
+  };
+  auto slice = [&](int i) {
+    stage<T, BK, DV, LV>(Vs, v, (kb + i) * BK, p.Skv, c0, c0 + cw, d, vec);
+  };
+
+  const int w0 = q0 + 16 * warp;  // this warp's first query row
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  const int nd = (cw + 7) / 8;  // 8-column tiles that hold real columns
+  float acc[DV / 8][4], sc[BK / 8][4];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < DV / 8; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[x][e] = 0.f;
+
+  // Copy groups: G_s holds step s's chunks (and V's slice of the tile
+  // that starts at step s - NA + 1, once the last P V has read the slot);
+  // G_0 .. G_{NA-2} first, then G_{j + NA - 1} at step j, so step j waits
+  // for G_j with NA - 2 groups still in flight.  A tile's V slice is
+  // needed nc - 1 >= NA - 1 steps after its group is issued.
+  for (int s = 0; s < NA - 1; ++s) {
+    if (s < n) chunks(s);
+    if (s == 0 && n > 0) slice(0);
+    f32::cp_commit();
+  }
+  for (int j = 0; j < n; ++j) {
+    const int i = j / nc, c = j % nc, k0 = (kb + i) * BK;
+    f32::cp_wait<NA - 2>();
+    // step j's chunks (and V's slice) landed for every thread, and every
+    // thread is done with step j - 1, whose slot (and, after a tile's
+    // last step, V's) is refilled now
+    __syncthreads();
+    if (j + NA - 1 < n) chunks(j + NA - 1);
+    if (c == 0 && i > 0) slice(i);
+    f32::cp_commit();
+    // a warp whose 16 rows keep no key of the tile skips it
+    const bool dead = (p.causal && k0 > w0 + 15) ||
+                      (p.window > 0 && w0 - (k0 + BK - 1) >= p.window);
+    if (!dead) {
+      if (c == 0) {
+#pragma unroll
+        for (int x = 0; x < BK / 8; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[x][e] = 0.f;
+      }
+      const T* a = As + (j % NA) * (BQ + BK) * LC;
+      chunk_scores<T>(sc, a + 16 * warp * LC, a + BQ * LC, d - c * CW, g, t,
+                      lane);
+      if (c == nc - 1) {
+        const bool edge = k0 + BK > p.Skv ||
+                          (p.causal && k0 + BK - 1 > w0) ||
+                          (p.window > 0 && w0 + 15 - k0 >= p.window);
+        float corr[2];
+        if (edge)
+          f32::softmax<BK, true>(p, sc, m, l, corr, rows, k0, t);
+        else
+          f32::softmax<BK, false>(p, sc, m, l, corr, rows, k0, t);
+#pragma unroll
+        for (int x = 0; x < DV / 8; ++x) {
+          acc[x][0] *= corr[0];
+          acc[x][1] *= corr[0];
+          acc[x][2] *= corr[1];
+          acc[x][3] *= corr[1];
+        }
+        values<T>(acc, sc, Vs, nd, g, t, lane);
+      }
+    }
+  }
+  f32::cp_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+  }
+#pragma unroll
+  for (int x = 0; x < DV / 8; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, col = 8 * x + 2 * t + (e & 1);
+      if (rows[h] < p.Sq && col < cw)
+        o[(long long)rows[h] * d + c0 + col] = from_f32<T>(acc[x][e] / l[h]);
+    }
+}
+
+template <typename T>
+int launch(const Params& p, cudaStream_t st) {
+  int ns, sw;
+  slices(p.d, ns, sw);
+  return ::launch(flash_wide_kernel<T>, BQ, 32 * NW, Cfg<T>::SMEM, p, st,
+                  ns);
+}
+
+}  // namespace wide
 
 // ---------------------------------------------------------------------------
 // launch
@@ -1538,8 +1975,46 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   return p;
 }
 
+// The 16-bit entry points' choice: the Hopper kernel (returns 0) where TMA
+// can describe the tensors: 16-byte aligned bases, rows of a multiple of
+// 16 bytes (d % 8 == 0) and at least one key row; the general kernel
+// (-1) for the rest up to d = 256; the wide kernel (-2) above.  A choice
+// by shape, not a fallback.
+template <typename T>
+int attn16(const void* q, const void* k, const void* v, void* o, int BH,
+           int Sq, int Skv, int d, int causal, int window, float softcap,
+           float scale, void* stream) {
+  const Params p = make_params(q, k, v, o, BH, Sq, Skv, d, causal, window,
+                               softcap, scale, 2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d < 1) return (int)cudaErrorInvalidValue;
+  if (d > 256) {
+    const int e = wide::launch<T>(p, st);
+    return e != 0 ? e : -2;
+  }
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (d % 8 == 0 && addr % 16 == 0 && Skv > 0) {
+    if (d <= 64) return hop::launch<T, 64>(p, st);
+    if (d <= 128) return hop::launch<T, 128>(p, st);
+    return hop::launch<T, 256>(p, st);
+  }
+  const int e = d <= 64    ? hop::launch_general<T, 64>(p, st)
+                : d <= 128 ? hop::launch_general<T, 128>(p, st)
+                           : hop::launch_general<T, 256>(p, st);
+  return e != 0 ? e : -1;
+}
+
 }  // namespace
 
+// The entry points return a CUDA error code (positive), or minus the
+// index of the kernel they launched (the wrapper counts the launch under
+// that kernel's key):
+//   float32:  0 flash_f32_kernel (d <= 256), -1 flash_wide_kernel;
+//   bfloat16: 0 flash_wgmma_kernel, -1 flash_general_kernel, -2
+//             flash_wide_kernel;
+//   float16:  the same three kernels at float16.
 extern "C" int repro_flash_attn_f32(const void* q, const void* k,
                                     const void* v, void* o, int BH, int Sq,
                                     int Skv, int d, int causal, int window,
@@ -1548,37 +2023,28 @@ extern "C" int repro_flash_attn_f32(const void* q, const void* k,
   const Params p = make_params(q, k, v, o, BH, Sq, Skv, d, causal, window,
                                softcap, scale, 4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
+  if (d < 1) return (int)cudaErrorInvalidValue;
   if (d <= 64) return launch_f32<64>(p, st);
   if (d <= 128) return launch_f32<128>(p, st);
-  return launch_f32<256>(p, st);
+  if (d <= 256) return launch_f32<256>(p, st);
+  const int e = wide::launch<float>(p, st);
+  return e != 0 ? e : -1;
 }
 
-// The bf16 entry point returns 0 after launching the Hopper kernel and
-// -1 after launching the general kernel (the wrapper counts the launch
-// under that kernel's key), or a CUDA error code.  The Hopper
-// kernel takes what TMA can describe: 16-byte aligned bases, rows of a
-// multiple of 16 bytes (d % 8 == 0) and at least one key row; the general
-// kernel takes the rest.  A choice by shape, not a fallback.
 extern "C" int repro_flash_attn_bf16(const void* q, const void* k,
                                      const void* v, void* o, int BH, int Sq,
                                      int Skv, int d, int causal, int window,
                                      float softcap, float scale,
                                      void* stream) {
-  const Params p = make_params(q, k, v, o, BH, Sq, Skv, d, causal, window,
-                               softcap, scale, 2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
-  const uintptr_t addr =
-      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (d % 8 == 0 && addr % 16 == 0 && Skv > 0) {
-    if (d <= 64) return hop::launch<64>(p, st);
-    if (d <= 128) return hop::launch<128>(p, st);
-    return hop::launch<256>(p, st);
-  }
-  const int e = d <= 64    ? hop::launch_general<64>(p, st)
-                : d <= 128 ? hop::launch_general<128>(p, st)
-                           : hop::launch_general<256>(p, st);
-  return e != 0 ? e : -1;
+  return attn16<bf16>(q, k, v, o, BH, Sq, Skv, d, causal, window, softcap,
+                      scale, stream);
+}
+
+extern "C" int repro_flash_attn_f16(const void* q, const void* k,
+                                    const void* v, void* o, int BH, int Sq,
+                                    int Skv, int d, int causal, int window,
+                                    float softcap, float scale,
+                                    void* stream) {
+  return attn16<f16>(q, k, v, o, BH, Sq, Skv, d, causal, window, softcap,
+                     scale, stream);
 }

@@ -34,23 +34,19 @@ power limit come first.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import pathlib
-import re
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, _compare
 
 _HERE = pathlib.Path(__file__).resolve().parent
 OUT_DIR = _build.BUILD_DIR.parent / "probe_compare"
 N_1D, M_1D = 1_048_576, 1024   # the 1D solver's row and parts
 STAGED = (2048, 513, 8, 32)              # S, n + 1, K, cap
-REPS = 20
 _ENTRY = ("repro_probe_counts_i32", "repro_probe_general_i32")
 
 
@@ -112,38 +108,6 @@ def staged_case() -> tuple[torch.Tensor, torch.Tensor]:
             torch.from_numpy(Ls.astype(np.int32)))
 
 
-def build(builds: dict) -> tuple[dict, dict]:
-    """nvcc every source at once; returns the bound libraries and each
-    build's ``-Xptxas -v`` lines."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in builds.items():
-        so = OUT_DIR / f"{name}.so"
-        cmd = [str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc"),
-               "-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-               "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
-               "-Xptxas", "-v", "-o", str(so), str(src)]
-        procs[name] = (so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs, ptxas = {}, {}
-    for name, (so, proc) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out[-4000:]}")
-        ptxas[name] = [ln.split("ptxas info    :")[-1].strip()
-                       for ln in out.splitlines() if "Used" in ln
-                       or "Compiling entry" in ln or "spill" in ln]
-        lib = ctypes.CDLL(str(so))
-        for fn in _ENTRY:
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs, ptxas
-
-
 def call(lib, fn: str, p, Ls, cap: int, out) -> None:
     S, n_plus_1 = p.shape
     err = getattr(lib, fn)(p.data_ptr(), Ls.data_ptr(), out.data_ptr(), S,
@@ -153,47 +117,9 @@ def call(lib, fn: str, p, Ls, cap: int, out) -> None:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
 
 
-def device_ms(fn) -> float:
-    """Device time of one call of ``fn`` (ms), as ``chip_smoke.py`` takes
-    it: ``REPS`` calls queued behind a sleep kernel, timed by events."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        fn()
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e9 * (2 * enqueue_s + 1e-3)))
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
-
-
-def sass(so: pathlib.Path) -> dict:
-    """Each kernel's SASS instructions (addresses and encodings dropped),
-    by demangled name with the template's bool argument dropped."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    text = subprocess.run([str(pathlib.Path(CUDA_HOME) / "bin" / "cuobjdump"),
-                           "-sass", str(so)], capture_output=True, text=True,
-                          check=True).stdout
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = subprocess.run(["c++filt", m.group(1)], capture_output=True,
-                                  text=True).stdout.strip()
-            cur = re.sub(r"\(anonymous namespace\)::", "", name)
-            cur = cur.replace(", true>", ">")
-            funcs[cur] = []
-        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
-            funcs[cur].append(re.sub(r"/\*.*?\*/|;", "", line).strip())
-    return funcs
+def _staged_name(name: str) -> str:
+    """A kernel's name with the template's bool argument dropped."""
+    return name.replace(", true>", ">")
 
 
 def main(argv=None) -> int:
@@ -209,12 +135,10 @@ def main(argv=None) -> int:
     for spec in args.build:
         name, path = spec.split("=", 1)
         builds[name] = pathlib.Path(path)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = _compare.card()
     print(card, flush=True)
     t0 = time.perf_counter()
-    libs, ptxas = build(builds)
+    libs, ptxas = _compare.build(builds, OUT_DIR, _ENTRY)
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, lines in ptxas.items():
@@ -227,7 +151,7 @@ def main(argv=None) -> int:
     steps = walk_steps(p1, cand, M_1D)
     cases = {"general": (_ENTRY[1], p1, cand, M_1D),
              "staged": (_ENTRY[0], *staged_case(), STAGED[3])}
-    record = {"card": card, "reps": REPS,
+    record = {"card": card, "reps": _compare.REPS,
               "longest_walk_steps": int(steps.max()),
               "greedy_steps": int(steps.sum()), "ms": {}, "ptxas": ptxas}
     from . import ops
@@ -246,7 +170,7 @@ def main(argv=None) -> int:
         order = list(libs) + list(libs)[::-1]
         times = {name: [] for name in libs}
         for name in order:
-            times[name].append(device_ms(
+            times[name].append(_compare.device_ms(
                 lambda lib=libs[name]: call(lib, fn, p, Ls, cap, out)))
         record["ms"][case] = times
         for name, ts in times.items():
@@ -257,10 +181,10 @@ def main(argv=None) -> int:
             print(f"{case} {tuple(p.shape)} x {Ls.shape[1]}, cap {cap}: "
                   f"{name} " + ", ".join(f"{t:.4f}" for t in ts)
                   + f" ms (plain version equal){extra}", flush=True)
-    this = sass(OUT_DIR / "this.so")
+    this = _compare.sass(OUT_DIR / "this.so", _staged_name)
     record["staged_sass_equal"] = {}
     for name in [n for n in libs if n != "this"]:
-        other = sass(OUT_DIR / f"{name}.so")
+        other = _compare.sass(OUT_DIR / f"{name}.so", _staged_name)
         for dt in ("int", "float"):
             key = f"probe_kernel<{dt}>"
             a = [v for k, v in this.items() if key in k]

@@ -18,9 +18,11 @@ sharded planner on a mesh that names the card more than once is held to
 the single-device plan bit for bit.  The flash attention
 kernel (K5) sums in tiles with an online softmax, the plain version
 densely: ``tests/test_flash.py``'s tolerances, 2e-5 for float32 and 2e-2
-for bfloat16, compared in float32, with the plain version's float32
-products in full float32 (no TF32); against the model layer's chunked
-attention 3e-5 in float32, that test's own.  The models and a train step
+for bfloat16, and 5e-3 for float16 (about two float16 ulps at the
+outputs' magnitude), compared in float32, beside a relative L2 error of
+1e-5, 1e-2 and 2.5e-3, with the plain version's float32 products in full
+float32 (no TF32); against the model layer's chunked attention 3e-5 in
+float32, that test's own.  The models and a train step
 run no kernel; they are held to the port's CPU path (1e-4 x max, and for
 a train step the limits its test states).  The sharded steps
 (``launch.steps.build_*``) on the card's meshes are held to the unmeshed
@@ -32,7 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (FLASH_CASES, FLASH_TOL, alternating_case,
+from _torch_parity import (FLASH_CASES, FLASH_REL_L2, FLASH_TOL,
+                           alternating_case,
                            big_total_case, int_loads, long_run_case,
                            need_card, plateau_case, probe_case, qkv,
                            rectload_case, solver_case)
@@ -52,7 +55,8 @@ from repro_torch.rebalance import planner, stream
 
 pytestmark = pytest.mark.cuda
 DTYPES = {"int32": torch.int32, "float32": torch.float32}
-FLASH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FLASH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (7, 9), (33, 65), (3, 17, 130),
@@ -528,10 +532,24 @@ def test_nicol_optimal_device_on_card_matches_cpu(dtype, n):
         assert torch.equal(a.cpu(), b)
 
 
-#: launch keys of K5's kernels by dtype (which one takes a bf16 call is
-#: the C entry point's choice)
-FLASH_KEYS = {"float32": ("flash_f32",),
-              "bfloat16": ("flash", "flash_general")}
+#: launch keys of K5's kernels by dtype (which one takes a call is the C
+#: entry point's choice)
+FLASH_KEYS = {"float32": ("flash_f32", "flash_wide"),
+              "bfloat16": ("flash", "flash_general", "flash_wide"),
+              "float16": ("flash_f16", "flash_f16_general", "flash_wide")}
+#: the general kernel's key by 16-bit dtype
+GENERAL = {"bfloat16": "flash_general", "float16": "flash_f16_general"}
+
+
+def _held(got: torch.Tensor, want: torch.Tensor, dtype: str) -> None:
+    """K5's output against the plain version's at ``dtype``'s limits:
+    elementwise (rtol = atol) and relative L2, compared in float32."""
+    got, want = got.float(), want.float()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    norm = float(want.norm())
+    if norm > 0:
+        assert float((got - want).norm()) / norm <= FLASH_REL_L2[dtype]
 
 
 def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0,
@@ -561,8 +579,7 @@ def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0,
                                    window=window, softcap=softcap)
     want = want.reshape(B, H, Sq, d).transpose(1, 2)
     assert got.dtype == q.dtype and got.shape == (B, Sq, H, d)
-    tol = FLASH_TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _held(got, want, dtype)
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", FLASH_CASES)
@@ -635,10 +652,11 @@ def _at_offset(x: np.ndarray, dev, dtype, elems: int) -> torch.Tensor:
 
 
 def _flash_folded(BH, Sq, Skv, d, dtype, key, *, offset=1, causal=True,
-                  window=0, softcap=0.0, seed=0, q_scale=1.0):
+                  window=0, softcap=0.0, seed=0, q_scale=1.0, f64=False):
     """K5 through ``flash_attention`` on (BH, S, d) inputs whose bases lie
-    ``offset`` elements past a 16-byte boundary, against the plain version;
-    one launch, counted under ``key``."""
+    ``offset`` elements past a 16-byte boundary, against the plain version
+    (with ``f64``, its function computed in float64); one launch, counted
+    under ``key``."""
     dev = need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     tdt = FLASH_DTYPES[dtype]
@@ -652,11 +670,10 @@ def _flash_folded(BH, Sq, Skv, d, dtype, key, *, offset=1, causal=True,
                                     softcap=softcap)
     assert _build.launches[key] == n + 1
     torch.cuda.synchronize()
-    want = flash_ref.attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+    ref = flash_ref.attention_f64 if f64 else flash_ref.attention_ref
+    want = ref(q, k, v, causal=causal, window=window, softcap=softcap)
     assert got.dtype == tdt and got.shape == (BH, Sq, d)
-    tol = FLASH_TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    _held(got, want, dtype)
 
 
 def test_flash_unaligned_base_takes_the_general_kernel():
@@ -743,6 +760,179 @@ def test_flash_f32_tile_edges(Sq, Skv, causal, d):
                   causal=causal, seed=Sq + Skv)
 
 
+@pytest.mark.parametrize("window", [0, 256])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_f32_softcap_large_logits(d, window):
+    """Gemma-2's softcap with q 8x larger (logits up to about 40) over
+    1,024 keys, held to the function in float64 (as the wide route's
+    softcap test is): with a row's S and P V summed in one tensor-core
+    accumulator (whose float32 sums do not round to nearest) the kernel
+    was 5.2e-5 off float64 at d = 256 on an H100, past float32's 2e-5."""
+    _flash_folded(2, 1024, 1024, d, "float32", "flash_f32", offset=0,
+                  window=window, softcap=50.0, q_scale=8.0, seed=d, f64=True)
+
+
+# float16: the Hopper and the general kernel at float16 (launch keys
+# flash_f16 and flash_f16_general) over the shapes bf16 covers above
+@pytest.mark.parametrize("Sq,Skv,causal", EDGE_LENGTHS)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_f16_hopper_tile_edges(Sq, Skv, causal, d):
+    _flash_case(1, Sq, Skv, 2, d, causal, 0, 0.0, "float16", seed=Sq + Skv,
+                key="flash_f16")
+
+
+@pytest.mark.parametrize("window", [64, 100, 128])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_f16_hopper_window_edges(window, d):
+    _flash_case(1, 512, 512, 2, d, True, window, 0.0, "float16", seed=window,
+                key="flash_f16")
+
+
+@pytest.mark.parametrize("window", [0, 256])
+def test_flash_f16_gemma2_softcap(window):
+    """Gemma-2's widths and softcap at float16, q 8x larger so the softcap
+    changes the logits: on the Hopper kernel and on the general one."""
+    _flash_case(1, 1024, 1024, 2, 256, True, window, 50.0, "float16",
+                q_scale=8.0, key="flash_f16")
+    _flash_folded(2, 1024, 1024, 256, "float16", "flash_f16_general",
+                  window=window, softcap=50.0, q_scale=8.0)
+
+
+@pytest.mark.parametrize("d,key", [(72, "flash_f16"),
+                                   (70, "flash_f16_general")])
+def test_flash_f16_widths_route_by_shape(d, key):
+    _flash_case(1, 200, 300, 2, d, True, 48, 50.0, "float16", seed=d,
+                key=key)
+    _flash_case(1, 70, 197, 2, d, False, 0, 0.0, "float16", seed=d, key=key)
+
+
+@pytest.mark.parametrize("d", [1, 7, 64, 70, 128, 250, 256])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_flash_f16_general_head_dims(d, offset):
+    """The general kernel at float16 on bases an odd number of elements
+    past a 16-byte boundary, d % 8 != 0 included."""
+    _flash_folded(2, 130, 197, d, "float16", "flash_f16_general",
+                  offset=offset, window=48, softcap=50.0, seed=d)
+    _flash_folded(2, 70, 197, d, "float16", "flash_f16_general",
+                  offset=offset, causal=False, seed=d + 1)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", EDGE_LENGTHS)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_f16_general_tile_edges(Sq, Skv, causal, d):
+    _flash_folded(2, Sq, Skv, d, "float16", "flash_f16_general",
+                  causal=causal, seed=Sq + Skv)
+
+
+@pytest.mark.parametrize("window", [64, 100, 128])
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_f16_general_window_edges(window, d):
+    _flash_folded(2, 512, 512, d, "float16", "flash_f16_general",
+                  window=window, seed=window)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_16_bit_no_keys_on_the_general_kernel(dtype):
+    """Skv = 0 at d <= 256: TMA cannot describe it, the general kernel
+    writes zeros at each 16-bit dtype, as the plain version does."""
+    dev = need_card()
+    tdt = FLASH_DTYPES[dtype]
+    q = torch.randn(3, 70, 64, device=dev).to(tdt)
+    k = torch.zeros(3, 0, 64, device=dev, dtype=tdt)
+    n = _build.launches[GENERAL[dtype]]
+    got = flash_ops.flash_attention(q, k, k, causal=False)
+    assert _build.launches[GENERAL[dtype]] == n + 1
+    want = flash_ref.attention_ref(q, k, k, causal=False)
+    assert torch.equal(got, torch.zeros_like(q)) and torch.equal(got, want)
+
+
+def test_flash_f16_general_many_heads():
+    """B * H = 66,000 > 65,535 on the float16 general route."""
+    _flash_folded(66000, 16, 16, 32, "float16", "flash_f16_general")
+
+
+# d > 256: the wide kernel (launch key flash_wide) at every dtype
+WIDE_D = [257, 300, 512, 576, 1000, 2048]
+
+
+@pytest.mark.parametrize("d", WIDE_D)
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+@pytest.mark.parametrize("mode", ["causal-window-softcap", "cross"])
+def test_flash_wide_head_dims(d, dtype, mode):
+    """Widths past 256 (odd, d % 8 != 0, several output slices, 2048),
+    the causal mask with a window and Gemma-2's softcap, and a ragged
+    cross-attention shape."""
+    if mode == "cross":
+        _flash_case(1, 70, 197, 2, d, False, 0, 0.0, dtype, seed=d,
+                    key="flash_wide")
+    else:
+        _flash_case(1, 130, 130, 2, d, True, 48, 50.0, dtype, seed=d,
+                    key="flash_wide")
+
+
+@pytest.mark.parametrize("d", [257, 576])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_flash_wide_unaligned_bases(d, dtype, offset):
+    """Bases 0, 1 and 3 elements past a 16-byte boundary: 16-byte copies
+    where they are aligned and d allows, narrower ones elsewhere."""
+    _flash_folded(2, 130, 197, d, dtype, "flash_wide", offset=offset,
+                  window=48, softcap=50.0, seed=d + offset)
+    _flash_folded(2, 70, 197, d, dtype, "flash_wide", offset=offset,
+                  causal=False, seed=d + offset + 1)
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_no_keys(dtype):
+    """Skv = 0 above 256: the wide kernel writes zeros, as the plain
+    version does (acc / max(l, 1e-30))."""
+    dev = need_card()
+    tdt = FLASH_DTYPES[dtype]
+    q = torch.randn(3, 70, 300, device=dev).to(tdt)
+    k = torch.zeros(3, 0, 300, device=dev, dtype=tdt)
+    n = _build.launches["flash_wide"]
+    got = flash_ops.flash_attention(q, k, k, causal=False)
+    assert _build.launches["flash_wide"] == n + 1
+    want = flash_ref.attention_ref(q, k, k, causal=False)
+    assert torch.equal(got, torch.zeros_like(q)) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", EDGE_LENGTHS)
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_tile_edges(Sq, Skv, causal, dtype):
+    """Ragged lengths on both sides of the wide kernel's tiles (128 query
+    rows; 64 keys, 32 at float32) at DeepSeek-V2's absorbed width 576."""
+    _flash_folded(2, Sq, Skv, 576, dtype, "flash_wide", offset=0,
+                  causal=causal, seed=Sq + Skv)
+
+
+@pytest.mark.parametrize("window", [32, 64, 100])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_window_edges(window, dtype):
+    _flash_folded(2, 512, 512, 384, dtype, "flash_wide", offset=0,
+                  window=window, seed=window)
+
+
+@pytest.mark.parametrize("window", [0, 256])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_softcap(window, dtype):
+    """The softcap at d = 576 with q 8x larger, so it changes the logits.
+    At float32 the logits reach about 40, where float32's own rounding of
+    them (and of tanh) moves the plain version, which computes in
+    float32, by up to 2.3e-5 against float64 (``kernels/flash/compare.py``),
+    so kernel and plain version can differ by more than the 2e-5 contract:
+    the kernel is held to the function computed in float64 there."""
+    _flash_folded(2, 1024, 1024, 576, dtype, "flash_wide", offset=0,
+                  window=window, softcap=50.0, q_scale=8.0,
+                  f64=dtype == "float32")
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_many_heads(dtype):
+    """B * H = 66,000 x 2 output slices: the flattened grid takes it."""
+    _flash_folded(66000, 16, 16, 264, dtype, "flash_wide", offset=0)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_hopper_negative_scale(causal):
     """An explicit negative scale, with logits spread over hundreds (q
@@ -764,7 +954,7 @@ def test_flash_hopper_negative_scale(causal):
 
 
 @pytest.mark.parametrize("window", [0, 8])
-@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_chunked_attention(window, dtype):
     """K5 against the model layer's chunked attention at Gemma-2 smoke
     widths (4 heads, 2 KV heads through ``repeat_kv``, head dim 16, attn

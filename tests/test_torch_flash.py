@@ -10,7 +10,9 @@ kernel against the plain version is in ``test_torch_card.py``).
 Tolerances, all compared in float32:
 - port vs the Pallas kernel: ``tests/test_flash.py``'s own, 2e-5 for
   float32 and 2e-2 for bfloat16 (the kernel sums in tiles with an online
-  softmax, the plain version densely);
+  softmax, the plain version densely), and 5e-3 for float16, about two
+  float16 ulps at the outputs' magnitude (the reference's tests take no
+  float16), at d <= 256 and at the wide route's widths;
 - plain version vs plain version: 1e-6 (the same dense formula; only the
   einsums' summation order differs), at half the default scale, so that
   the explicit argument matters and the logits stay of order 1 (exp
@@ -22,7 +24,11 @@ Tolerances, all compared in float32:
 - the float32 kernel's number design (3xTF32, emulated here) vs the plain
   version: ``tests/test_flash.py``'s 2e-5 and a relative L2 of 1e-5, the
   limits ``chip_smoke.py`` holds the kernel to on the card; one TF32 pass
-  must exceed that relative L2 at d=128 (the negative control).
+  must exceed that relative L2 at d=128 (the negative control);
+- the 16-bit kernels' number design (float32 scores, p rounded to the
+  input's type before P V, emulated here) vs the plain version: 5e-3 and
+  a relative L2 of 2.5e-3 for float16, 2e-2 and 1e-2 for bfloat16, the
+  limits ``chip_smoke.py`` holds the kernels to.
 """
 import ctypes
 
@@ -31,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import FLASH_CASES, FLASH_TOL, qkv
+from _torch_parity import FLASH_CASES, FLASH_REL_L2, FLASH_TOL, WIDE_DIMS, qkv
 from repro.kernels.flash import ops as jax_flash
 from repro.kernels.flash.ref import attention_ref as jax_attention_ref
 from repro.models import layers as jax_layers
@@ -41,7 +47,8 @@ from repro_torch.kernels.flash.ref import attention_ref
 from repro_torch.models import layers
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
 
 
 def _f32(x) -> np.ndarray:
@@ -68,6 +75,26 @@ def test_attention_matches_jax_pallas(B, Sq, Skv, H, d, causal, window,
     assert got.dtype == tdt and got.shape == (B, Sq, H, d)
     tol = FLASH_TOL[dtype]
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+#: the wide route's cases (d > 256): causal, a window, the softcap, and
+#: ragged cross-attention (Sq != Skv, neither a multiple of a tile)
+WIDE_CASES = [(1, 70, 70, 2, d, True, 0, 0.0) for d in WIDE_DIMS] + [
+    (1, 96, 96, 1, 384, True, 24, 0.0),
+    (1, 80, 80, 2, 576, True, 0, 50.0),
+    (1, 37, 53, 2, 257, False, 0, 0.0),
+    (2, 45, 130, 1, 576, False, 0, 30.0),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", WIDE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_wide_attention_matches_jax_pallas(B, Sq, Skv, H, d, causal, window,
+                                           softcap, dtype):
+    """Head dims past 256 (the wide route on the card) against the Pallas
+    kernel in interpret mode, which takes any d."""
+    test_attention_matches_jax_pallas(B, Sq, Skv, H, d, causal, window,
+                                      softcap, dtype)
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", FLASH_CASES)
@@ -189,15 +216,20 @@ def test_launch_passes_floats_as_c_float(monkeypatch):
 @pytest.mark.parametrize("dtype,ret,key", [
     (torch.bfloat16, 0, "flash"), (torch.bfloat16, -1, "flash_general"),
     (torch.float32, 0, "flash_f32"), (torch.bfloat16, 700, None),
-    (torch.bfloat16, -2, None), (torch.float32, -1, None)])
+    (torch.bfloat16, -2, "flash_wide"), (torch.float32, -1, "flash_wide"),
+    (torch.float16, 0, "flash_f16"), (torch.float16, -1, "flash_f16_general"),
+    (torch.float16, -2, "flash_wide"), (torch.float16, 700, None),
+    (torch.bfloat16, -3, None), (torch.float16, -3, None),
+    (torch.float32, -2, None)])
 def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
                                                          ret, key):
     """The wrapper counts a CUDA launch under the key of the kernel the C
-    entry point reports: the bf16 entry point returns 0 after the Hopper
-    kernel and -1 after the general one, float32 has one kernel.  A CUDA
-    error (positive) or a code no kernel has raises and counts nothing.
-    The library here is ctypes callbacks with the real signatures;
-    ``on_cpu`` is told the tensors lie on the card."""
+    entry point reports: the 16-bit entry points return 0 after the Hopper
+    kernel, -1 after the general one and -2 after the wide one, float32's
+    0 after its kernel and -1 after the wide one.  A CUDA error (positive)
+    or a code no kernel has raises and counts nothing.  The library here
+    is ctypes callbacks with the real signatures; ``on_cpu`` is told the
+    tensors lie on the card."""
     calls = {}
 
     def entry(name):
@@ -210,7 +242,8 @@ def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
         pass
 
     lib = Lib()
-    for name in ("repro_flash_attn_bf16", "repro_flash_attn_f32"):
+    for name in ("repro_flash_attn_bf16", "repro_flash_attn_f32",
+                 "repro_flash_attn_f16"):
         setattr(lib, name, entry(name))
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(_build, "on_cpu", lambda name, t: False)
@@ -234,8 +267,9 @@ def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
     changed = {n: c - before.get(n, 0) for n, c in _build.launches.items()
                if c != before.get(n, 0)}
     assert changed == ({} if key is None else {key: 1})
-    fn = "repro_flash_attn_bf16" if dtype == torch.bfloat16 \
-        else "repro_flash_attn_f32"
+    fn = {torch.bfloat16: "repro_flash_attn_bf16",
+          torch.float16: "repro_flash_attn_f16",
+          torch.float32: "repro_flash_attn_f32"}[dtype]
     assert list(calls) == [fn]
     assert calls[fn][0] == q.data_ptr()
     assert calls[fn][4:11] == (3, 5, 7, 24, 0, 4, 30.0)
@@ -324,7 +358,8 @@ def test_tf32_rounds_half_away_from_zero():
     assert float(((_tf32(r) - r).abs() / r.abs()).max()) <= 2.0 ** -11
 
 
-@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", FLASH_CASES)
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap",
+                         FLASH_CASES + WIDE_CASES)
 def test_3xtf32_design_matches_plain(B, Sq, Skv, H, d, causal, window,
                                      softcap):
     """3xTF32 products in the kernel's tiles keep the float32 contract:
@@ -350,3 +385,63 @@ def test_one_tf32_pass_misses_the_float32_contract(d):
     three = _attention_tf32(q, k, v, causal=True, window=0, softcap=0.0)
     assert _rel_l2(one, want) > 1e-5
     assert _rel_l2(three, want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The 16-bit kernels' number design, emulated on the CPU.  flash.cu's
+# Hopper, general and wide kernels take q, k and v in the input's type,
+# compute S = q k^T and the online softmax in float32, round p to the
+# input's type before P V (l sums the float32 p), accumulate P V in
+# float32 and write acc / l in the input's type.  Key tiles of 64; the
+# tiles change only the order of the float32 sums.
+
+
+def _attention_16(q, k, v, *, causal, window, softcap, BK=64):
+    """(BH, S, d) attention of 16-bit q, k, v with the kernels' rounding
+    of p, in float32 otherwise; returns the input's type."""
+    dt = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
+    BH, Sq, d = q.shape
+    Skv = k.shape[1]
+    scale = d ** -0.5
+    m = torch.full((BH, Sq, 1), -1e30)
+    l = torch.zeros((BH, Sq, 1))
+    acc = torch.zeros((BH, Sq, d))
+    i = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, BK):
+        j = torch.arange(k0, min(k0 + BK, Skv))[None, :]
+        s = q @ k[:, k0:k0 + BK].transpose(1, 2) * scale
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
+        ok = torch.ones_like(s[0], dtype=torch.bool)
+        if causal:
+            ok &= j <= i
+        if window > 0:
+            ok &= i - j < window
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(s - m_new), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(dt).float() @ v[:, k0:k0 + BK]
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(dt)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap",
+                         FLASH_CASES + WIDE_CASES)
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_16_bit_design_matches_plain(B, Sq, Skv, H, d, causal, window,
+                                     softcap, dtype):
+    """p rounded to float16 (weights off by at most 2**-11 relative) or
+    bfloat16 (2**-9) before P V keeps each dtype's contract against the
+    plain version on the same 16-bit inputs: float16 within 5e-3 and a
+    relative L2 of 2.5e-3, bfloat16 within 2e-2 and 1e-2."""
+    tdt = DTYPES[dtype][1]
+    q, k, v = (x.to(tdt) for x in _fold_case(B, Sq, Skv, H, d))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _attention_16(q, k, v, **kw).float()
+    want = attention_ref(q, k, v, **kw).float()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert _rel_l2(got, want) <= FLASH_REL_L2[dtype]

@@ -347,18 +347,18 @@ def test_wrappers_take_only_cpu_or_cuda(call):
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 @pytest.mark.parametrize("q,k,v,error,match", [
-    ((4, 8, 257), (4, 8, 257), (4, 8, 257), ValueError, "head dim 257"),
+    ((4, 8, 0), (4, 8, 0), (4, 8, 0), ValueError, "head dim 0"),
     ((4, 8, 16), (4, 8, 16), (4, 8, 16, torch.bfloat16), TypeError,
      "float32 or all bfloat16"),
-    ((4, 8, 16, torch.float16), (4, 8, 16, torch.float16),
-     (4, 8, 16, torch.float16), TypeError, "float32 or all bfloat16"),
+    ((4, 8, 16, torch.float64), (4, 8, 16, torch.float64),
+     (4, 8, 16, torch.float64), TypeError, "float32 or all bfloat16"),
     ((4, 8, 16), (4, 9, 16), (4, 8, 16), ValueError, "their length"),
     ((4, 8, 16), (4, 8, 32), (4, 8, 32), ValueError, "share BH and d"),
 ])
 def test_flash_wrapper_rejects(device, q, k, v, error, match):
     """The flash wrapper refuses what the kernel does not take, on every
-    device: d above 256, mixed dtypes, float16, k and v of other lengths,
-    another head dim."""
+    device: a head dim of 0, mixed dtypes, float64, k and v of other
+    lengths, another head dim."""
     def t(spec):
         dt = spec[3] if len(spec) == 4 else torch.float32
         return torch.zeros(spec[:3], dtype=dt, device=device)
