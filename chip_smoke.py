@@ -76,11 +76,14 @@ timed there as the library yardstick at each dtype, SDPA at Qwen3.  Then
 one float32 check at Qwen3 width and S=2048 (2e-5, relative L2 1e-5)
 with its own launch count (``flash_f32``, the 3xTF32 kernel), SDPA on
 float32 beside it.
-Then the wide route (``flash_wide``, d > 256) at DeepSeek-V2-236B's
-absorbed MLA width, d = 576, causal, Sq = Skv = 4096, 16 of its 128 heads
-(a cut), at float32, bfloat16 and float16, one launch each, each held to
-the plain version at its dtype's limits and timed beside SDPA at that
-dtype (the backend it picks named).  Then the decoder-only model path
+Then the wide routes (d > 256) at DeepSeek-V2-236B's absorbed MLA
+width, d = 576, causal, Sq = Skv = 4096, 16 of its 128 heads (a cut), at
+float32, bfloat16 and float16: one launch each of ``flash_wide`` (S once
+a key tile for every output column), then the same inputs copied one
+element past a 16-byte boundary, one launch each of
+``flash_wide_general``, each held to the plain version at its dtype's
+limits and timed beside SDPA at that dtype (the backend it picks
+named).  Then the decoder-only model path
 (``run_models``)
 with its own launch counts: Qwen3-0.6B at full width in bf16, through
 ``models.api``, serving two groups of ``serve.batcher.plan``'s replicas
@@ -1513,16 +1516,20 @@ def within_limits(name: str, got: torch.Tensor, want: torch.Tensor,
     return e, rel
 
 
-def run_flash_wide(cuda: torch.device, normal) -> dict:
-    """K5's wide route (d > 256) at DeepSeek-V2's absorbed MLA width: q,
+def run_flash_wide(cuda: torch.device, normal) -> list:
+    """K5's wide routes (d > 256) at DeepSeek-V2's absorbed MLA width: q,
     k, v of (16, 4096, 576), causal, at float32, bfloat16 and float16,
     each through ``ops.flash_attention`` with its own launch count (one
-    ``flash_wide`` launch, nothing else), held to the plain version at its
-    dtype's limits and timed beside its bound, the plain version and SDPA
-    at that dtype (the backend it picks named).  Returns the entry
-    ``flash_wide`` of the kernels' record (top-level numbers at bfloat16;
-    every dtype's under ``shapes``)."""
+    ``flash_wide`` launch, nothing else), then the same inputs copied one
+    element past a 16-byte boundary with their own (one
+    ``flash_wide_general`` launch), each output held to the plain version
+    at its dtype's limits and timed beside its bound, the plain version
+    and SDPA at that dtype (the backend it picks named).  Returns the
+    entries ``flash_wide`` and ``flash_wide_general`` of the kernels'
+    record (top-level numbers at bfloat16; every dtype's under
+    ``shapes``)."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels._compare import unaligned
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
 
@@ -1532,7 +1539,7 @@ def run_flash_wide(cuda: torch.device, normal) -> dict:
         f"{WIDE_S}; cut: {WIDE_H} of its {WIDE_H_FULL} heads")
     pairs = causal_pairs(WIDE_S, 0)
     ops = 4 * WIDE_H * WIDE_D * pairs
-    rows, n = [], 0
+    rows, grows, n, gn = [], [], 0, 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v = (normal((WIDE_H, WIDE_S, WIDE_D), torch.float32).to(dtype)
                    for _ in range(3))
@@ -1543,11 +1550,26 @@ def run_flash_wide(cuda: torch.device, normal) -> dict:
         check(launches == {"flash_wide": 1}, f"flash wide {dtype}: "
               f"launches {launches}, not one flash_wide and nothing else")
         n += launches.get("flash_wide", 0)
-        check(out.shape == q.shape and out.dtype == dtype
-              and bool(torch.isfinite(out).all()), f"flash wide {dtype}: "
-              f"output is not finite {dtype} of shape {tuple(q.shape)}")
+        # the general wide kernel: the same inputs at bases TMA cannot
+        # describe
+        general = tuple(unaligned(x) for x in (q, k, v))
+        check(all(x.data_ptr() % 16 != 0 for x in general),
+              "flash wide: the unaligned copies lie on 16-byte boundaries")
+        _build.launches.clear()
+        gout = flash_ops.flash_attention(*general, causal=True)
+        torch.cuda.synchronize()
+        glaunches = dict(_build.launches)
+        check(glaunches == {"flash_wide_general": 1}, f"flash wide {dtype} "
+              f"at unaligned bases: launches {glaunches}, not one "
+              f"flash_wide_general and nothing else")
+        gn += glaunches.get("flash_wide_general", 0)
+        for name, x in (("flash_wide", out), ("flash_wide_general", gout)):
+            check(x.shape == q.shape and x.dtype == dtype
+                  and bool(torch.isfinite(x).all()), f"{name} {dtype}: "
+                  f"output is not finite {dtype} of shape {tuple(q.shape)}")
         want = flash_ref.attention_ref(q, k, v, causal=True).float()
         e, rel = within_limits(f"wide {dtype}", out, want, dtype)
+        ge, grel = within_limits(f"wide general {dtype}", gout, want, dtype)
         nbytes = 4 * q.numel() * q.element_size()
         if dtype == torch.float32:   # 3xTF32: three tensor-core passes
             b_ms, b_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
@@ -1580,12 +1602,22 @@ def run_flash_wide(cuda: torch.device, normal) -> dict:
             f"{lib_rel:.3g} off the plain version"
             + ("" if lib_ok else ": above the limit, so not timed as this "
                "function") + ")")
+        grow = dict(row, max_abs_err=ge, rel_l2_err=grel,
+                    ms=device_ms(lambda: flash_ops.flash_attention(
+                        *general, causal=True)))
+        log("wide", f"{row['shape']} general route (flash_wide_general, "
+            f"unaligned copies): max |kernel - plain| {ge:.3g}, relative L2 "
+            f"{grel:.3g}; ms {grow['ms']:.4f}")
         rows.append(row)
-        del q, k, v, out, want
+        grows.append(grow)
+        del q, k, v, out, gout, general, want
     torch.cuda.empty_cache()
     log("wide", f"the wide phase took {time.perf_counter() - t_phase:.1f} s")
-    return flash_entry("flash_wide", n, max(r["max_abs_err"] for r in rows),
-                       rows, "deepseek-v2 absorbed bfloat16")
+    top = "deepseek-v2 absorbed bfloat16"
+    return [flash_entry("flash_wide", n, max(r["max_abs_err"] for r in rows),
+                        rows, top),
+            flash_entry("flash_wide_general", gn,
+                        max(r["max_abs_err"] for r in grows), grows, top)]
 
 
 def flash_entry(name: str, n: int, e: float, shape_rows: list,
@@ -1779,10 +1811,10 @@ def run_flash(cuda: torch.device) -> list:
     """K5 at full model width: bf16, then float16, on the three shapes
     (``run_flash_16``: the Hopper kernel and the general one, each with
     its own launch counts), one float32 check with its own launch count,
-    and the wide route at d = 576 (``run_flash_wide``).  Returns K5's
+    and the wide routes at d = 576 (``run_flash_wide``).  Returns K5's
     entries of the kernels' record: ``flash``, ``flash_general``,
-    ``flash_f16``, ``flash_f16_general``, ``flash_f32`` and
-    ``flash_wide``."""
+    ``flash_f16``, ``flash_f16_general``, ``flash_f32``, ``flash_wide``
+    and ``flash_wide_general``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
@@ -1853,7 +1885,7 @@ def run_flash(cuda: torch.device) -> list:
     return [*entries,
             flash_entry("flash_f32", launches32.get("flash_f32", 0), e32,
                         [row32], "qwen3-0.6b float32"),
-            run_flash_wide(cuda, normal)]
+            *run_flash_wide(cuda, normal)]
 
 
 # The model phase (``run_models``): serving as ``examples/serve_balanced.py``

@@ -39,7 +39,9 @@ BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 #: for the rest; K5 by route: ``flash`` and ``flash_f16`` for the Hopper
 #: kernel at bf16 and float16, ``flash_general`` and ``flash_f16_general``
 #: for the general kernel at bf16 and float16, ``flash_f32`` for float32,
-#: each at d <= 256, and ``flash_wide`` for d > 256 at every dtype).
+#: each at d <= 256; above, at every dtype, ``flash_wide`` for the kernels
+#: that compute S once a key tile (what TMA could describe, d <= 576) and
+#: ``flash_wide_general`` for the rest).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p

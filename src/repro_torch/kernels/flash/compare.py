@@ -7,15 +7,23 @@ Run from the root of a checkout on a machine with an NVIDIA H100::
 
 This checkout's ``flash.cu`` is always built, as ``this``, and each
 ``--build NAME=PATH`` adds another source (an older commit's, or an
-edited copy).  ``nvcc`` builds every source at once, each into a shared
-library of its own under ``build/flash_compare/`` (its C entry points as
+edited copy).  ``--breakdown`` adds ``BREAKDOWN``'s copies of this
+checkout's ``flash.cu``, timed but not held to ``this``'s output: the
+wide Hopper kernel without its S products, without its P V products,
+without either, and without its K and V loads (its producer arrives on
+the full barriers at once), which PERF.md's breakdown of ``flash_wide``
+reads.  ``nvcc``
+builds every source at once, each into a shared library of its own
+under ``build/flash_compare/`` (its C entry points as
 ``kernels/_build.py`` declares them), with ``-Xptxas -v``.  Then, on one
 card:
 
-- each build's bfloat16 kernels' SASS (``cuobjdump -sass``: the Hopper
+- each build's SASS (``cuobjdump -sass``) against ``this``'s for the
+  kernels a change of the wide route must leave as they are: the Hopper
   kernel ``flash_wgmma_kernel`` and the general kernel
-  ``flash_general_kernel`` at each compiled width, the element type
-  dropped from the name) against ``this``'s;
+  ``flash_general_kernel`` at each compiled width at bfloat16 and
+  float16, ``flash_f32_kernel`` at each width, and the general wide
+  kernel ``flash_wide_kernel`` at each dtype;
 - ``repro_flash_attn_bf16`` at ``chip_smoke.py``'s three K5 shapes
   (Gemma-2-9B local and global, Qwen3-0.6B; B=1, S=8192, 16 heads,
   causal), on aligned inputs (the Hopper kernel, return code 0) and on
@@ -23,10 +31,13 @@ card:
   each build's output finite and held to ``this``'s (rtol = atol = 2e-2,
   the bf16 contract; ``chip_smoke.py`` holds ``this`` to the plain
   version), with the largest difference printed, and timed;
-- the wide route (return code -2 at bf16, -1 at float32) at
-  ``chip_smoke.py``'s d = 576 shape, (16, 4096, 576) causal, at bfloat16
-  and float32, held to ``this``'s output at each dtype's limit (2e-2,
-  2e-5) and timed the same way;
+- the wide route at ``chip_smoke.py``'s d = 576 shape, (16, 4096, 576)
+  causal, at bfloat16, float16 and float32: on aligned inputs
+  (``flash_wide``, return code -2 at 16 bits, -1 at float32) and on
+  copies one element past a 16-byte boundary (``flash_wide_general``,
+  -3 and -2; an older build returns the code of whichever kernel it
+  takes there, printed), held to ``this``'s output at each dtype's limit
+  (2e-2, 5e-3, 2e-5) and timed the same way;
 - ``flash_f32`` (return code 0 at float32) at (16, 2048, d) causal: d =
   128 (``chip_smoke.py``'s float32 check), and d = 256 with softcap 50
   and q 8x larger (held at 1e-4: a build that sums a row on the tensor
@@ -60,6 +71,8 @@ _HERE = pathlib.Path(__file__).resolve().parent
 OUT_DIR = _build.BUILD_DIR.parent / "flash_compare"
 FN = "repro_flash_attn_bf16"
 FN32 = "repro_flash_attn_f32"
+FN16 = "repro_flash_attn_f16"
+ENTRY = {torch.bfloat16: FN, torch.float32: FN32, torch.float16: FN16}
 S = 8192
 #: (name, heads, KV heads, head dim, window, softcap), as chip_smoke.py's
 SHAPES = [("gemma2-9b local", 16, 8, 256, 4096, 50.0),
@@ -88,12 +101,10 @@ def inputs(cuda: torch.device) -> dict:
 
 def call(lib, q, k, v, o, window: int, softcap: float) -> int:
     BH, Sq, d = q.shape
-    fn = FN32 if q.dtype == torch.float32 else FN
-    return getattr(lib, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), BH, Sq, k.shape[1], d, 1, window,
-                            ctypes.c_float(softcap),
-                            ctypes.c_float(d ** -0.5),
-                            torch.cuda.current_stream().cuda_stream)
+    return getattr(lib, ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, Sq,
+        k.shape[1], d, 1, window, ctypes.c_float(softcap),
+        ctypes.c_float(d ** -0.5), torch.cuda.current_stream().cuda_stream)
 
 
 def accuracy(cuda: torch.device) -> dict:
@@ -126,17 +137,62 @@ def accuracy(cuda: torch.device) -> dict:
     return out
 
 
-def _bf16_name(name: str) -> str:
-    """A kernel's name without ``hop::``, its bf16 element type and its
-    signature."""
-    name = re.sub(r"hop::", "", name).replace("__nv_bfloat16, ", "")
+_S = "          hop::wgmma_ss<T>(sc, hop::desc(qs + (s0 + j) * BOX"
+_PV = "      switch (nch) {"
+_LOAD = """      hop::mbar_expect_tx(full0 + 8 * at.s, BOX);
+      hop::tma_load(ring + at.s * BOX, map, 64 * c, (kb + i) * BK, bh,
+                    full0 + 8 * at.s);"""
+#: diagnostic copies of flash.cu (timed only): name -> (text, replacement)
+#: pairs; ``p.BH < 0`` never holds, so the guarded work is left out
+BREAKDOWN = {
+    "no_s": [(_S, _S.replace("hop::", "if (p.BH < 0) hop::", 1))],
+    "no_pv": [(_PV, "      if (p.BH < 0) switch (nch) {")],
+    "no_math": [(_S, _S.replace("hop::", "if (p.BH < 0) hop::", 1)),
+                (_PV, "      if (p.BH < 0) switch (nch) {")],
+    "no_load": [(_LOAD, "      hop::mbar_arrive(full0 + 8 * at.s);")],
+}
+
+
+def breakdown(out_dir: pathlib.Path) -> dict:
+    """Write ``BREAKDOWN``'s copies of this checkout's flash.cu under
+    ``out_dir``; returns name -> path."""
+    src = (_HERE / "flash.cu").read_text()
+    paths = {}
+    for name, edits in BREAKDOWN.items():
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"breakdown {name}: flash.cu no longer "
+                                   f"holds {old.strip()[:40]!r} once")
+            text = text.replace(old, new)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        paths[name] = out_dir / f"{name}.cu"
+        paths[name].write_text(text)
+    return paths
+
+
+def _kernel_name(name: str) -> str:
+    """A kernel's name without its namespace and signature, its 16-bit
+    element type as ``bf16`` or ``f16``."""
+    name = re.sub(r"\b(hop|f32|wide|hw|fw)::", "", name)
+    name = name.replace("__nv_bfloat16", "bf16").replace("__half", "f16")
     return name.split("(")[0].removeprefix("void ")
+
+
+#: the kernels whose SASS every build is held to: what a change of the
+#: wide route leaves as it is
+SAME_SASS = [f"{k}<{t}, {D}>" for k in ("flash_wgmma_kernel",
+                                         "flash_general_kernel")
+             for t in ("bf16", "f16") for D in (64, 128, 256)] + \
+    [f"flash_f32_kernel<{D}>" for D in (64, 128, 256)] + \
+    [f"flash_wide_kernel<{t}>" for t in ("float", "bf16", "f16")]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--build", action="append", default=[],
                     metavar="NAME=PATH")
+    ap.add_argument("--breakdown", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("compare: CUDA is not available; this script runs on the "
@@ -147,28 +203,28 @@ def main(argv=None) -> int:
     for spec in args.build:
         name, path = spec.split("=", 1)
         builds[name] = pathlib.Path(path)
+    if args.breakdown:
+        builds.update(breakdown(OUT_DIR / "src"))
     card = _compare.card()
     print(card, flush=True)
     t0 = time.perf_counter()
-    libs, ptxas = _compare.build(builds, OUT_DIR, (FN, FN32))
+    libs, ptxas = _compare.build(builds, OUT_DIR, (FN, FN32, FN16))
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, lines in ptxas.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     record = {"card": card, "reps": _compare.REPS, "ptxas": ptxas,
-              "sass_equal": {}, "ms": {}, "max_abs_err": {}}
+              "sass_equal": {}, "ms": {}, "max_abs_err": {}, "ret": {}}
 
-    this = _compare.sass(OUT_DIR / "this.so", _bf16_name)
+    this = _compare.sass(OUT_DIR / "this.so", _kernel_name)
     for name in [n for n in libs if n != "this"]:
-        other = _compare.sass(OUT_DIR / f"{name}.so", _bf16_name)
-        for kern in ("flash_wgmma_kernel", "flash_general_kernel"):
-            for D in (64, 128, 256):
-                key = f"{kern}<{D}>"
-                same = key in this and this.get(key) == other.get(key)
-                record["sass_equal"][f"{name} {key}"] = same
-                print(f"{key} SASS: {name} {'=' if same else '!='} this "
-                      f"({len(other.get(key, []))} and "
-                      f"{len(this.get(key, []))} instructions)", flush=True)
+        other = _compare.sass(OUT_DIR / f"{name}.so", _kernel_name)
+        for key in SAME_SASS:
+            same = key in this and this.get(key) == other.get(key)
+            record["sass_equal"][f"{name} {key}"] = same
+            print(f"{key} SASS: {name} {'=' if same else '!='} this "
+                  f"({len(other.get(key, []))} and "
+                  f"{len(this.get(key, []))} instructions)", flush=True)
 
     cuda = torch.device("cuda")
     data = inputs(cuda)
@@ -182,11 +238,14 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=cuda)
     gen.manual_seed(1)
     for dt, code, tol in ((torch.bfloat16, -2, TOL),
+                          (torch.float16, -2, 5e-3),
                           (torch.float32, -1, 2e-5)):
         xs = tuple(torch.randn((16, 4096, 576), generator=gen,
                                device=cuda).to(dt) for _ in range(3))
-        cases.append((f"deepseek-v2 absorbed {str(dt)[6:]}", "flash_wide",
-                      code, xs, 0, 0.0, tol))
+        name = f"deepseek-v2 absorbed {str(dt)[6:]}"
+        cases += [(name, "flash_wide", code, xs, 0, 0.0, tol),
+                  (name, "flash_wide_general", code - 1,
+                   tuple(_compare.unaligned(x) for x in xs), 0, 0.0, tol)]
     # float32 up to d = 256: chip_smoke.py's check, and Gemma-2's width
     # and softcap with q 8x larger, where a build that sums each row on
     # the tensor cores is about 5e-5 off float64 (so 1e-4 between builds)
@@ -203,9 +262,15 @@ def main(argv=None) -> int:
             o.zero_()
             ret = call(lib, *xs, o, window, softcap)
             torch.cuda.synchronize()
-            if ret != code:
+            # this build takes the case's route; an older one may choose
+            # among other kernels, but must launch one
+            if ret != code if name == "this" else ret > 0:
                 raise RuntimeError(f"{name} {shape} {route}: returned "
                                    f"{ret}, not {code}")
+            record["ret"][f"{name} {shape} {route}"] = ret
+            if name in BREAKDOWN:
+                record["max_abs_err"][f"{name} {shape} {route}"] = None
+                continue
             if not bool(torch.isfinite(o).all()):
                 raise RuntimeError(f"{name} {shape} {route}: output "
                                    f"not finite")
@@ -223,12 +288,13 @@ def main(argv=None) -> int:
                                             softcap)))
         record["ms"][f"{shape} {route}"] = times
         for name, ts in times.items():
+            err = record["max_abs_err"][f"{name} {shape} {route}"]
             print(f"{shape} {route} {tuple(xs[0].shape)} "
-                  f"{str(xs[0].dtype)[6:]}: {name} "
-                  + ", ".join(f"{t:.4f}" for t in ts) + " ms, max "
-                  f"|{name} - this| "
-                  f"{record['max_abs_err'][f'{name} {shape} {route}']:.3g}",
-                  flush=True)
+                  f"{str(xs[0].dtype)[6:]}: {name} (returned "
+                  f"{record['ret'][f'{name} {shape} {route}']}) "
+                  + ", ".join(f"{t:.4f}" for t in ts) + " ms, "
+                  + ("timed only" if err is None
+                     else f"max |{name} - this| {err:.3g}"), flush=True)
     record["accuracy"] = accuracy(cuda)
     print(json.dumps(record))
     return 0

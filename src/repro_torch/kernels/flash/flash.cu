@@ -18,8 +18,8 @@
 // write of out in bf16 that is S / 4 operations per byte under a causal
 // mask, 2,048 at S = 8192, far above the H100's bf16 ridge of about 295.
 //
-// Every kernel owns one (query tile, bh) (the wide kernel one output
-// slice of it) and loops over the key tiles itself, with m, l and the
+// Every kernel owns one (query tile, bh) (the general wide kernel one
+// output slice of it) and loops over the key tiles itself, with m, l and the
 // output accumulator in registers; the TPU's sequential kv grid axis
 // becomes that loop.  The grid is (query tiles x BH) flattened into one
 // dimension (BH reaches 16 x batch; a y dimension would stop at 65,535),
@@ -29,7 +29,7 @@
 // No padded copies: rows past Sq and Skv arrive as zeros, and only Sq rows
 // are written.
 //
-// Four kernels, chosen by dtype and shape in the C entry points:
+// Six kernels, chosen by dtype and shape in the C entry points:
 //
 // * bfloat16 and float16 on Hopper (flash_wgmma_kernel<T, D>; launch keys
 //   "flash" and "flash_f16"), for d <= 256, d % 8 == 0 and 16-byte aligned
@@ -151,8 +151,64 @@
 //   Tiles are classified per warp as in the Hopper kernel; a warp skips a
 //   tile its rows keep no key of.  expf and tanhf (no approximations, no
 //   --use_fast_math).
-// * d > 256, every dtype (flash_wide_kernel<T>; launch key "flash_wide"):
-//   what no register tile of the others holds (an output row of d float32
+// * d > 256 at 16 bits where TMA can describe the tensors (d % 8 == 0,
+//   16-byte aligned bases, Skv > 0) and d <= 576
+//   (flash_wide_wgmma_kernel<T>; launch key "flash_wide"): one block a
+//   64-row query tile of one bh with every output column, so that
+//   S = Q K^T is computed once a key tile for all of them: the bound's
+//   4 d operations a pair.  384 threads: a producer warpgroup (24
+//   registers; one thread loads Q once and then streams K, another
+//   streams V, by TMA in boxes of 64 rows x 64 columns, 128-byte
+//   swizzle) and two consumer warpgroups (240 registers), which share
+//   the tile's work by d, not by keys: warpgroup 0 computes S over
+//   chunks [0, ceil(CH / 2)) of the CH 64-column chunks, warpgroup 1
+//   over the rest, each for all 64 keys (wgmma m64n64k16 with Q,
+//   resident in shared memory, and K's boxes both read by the tensor
+//   cores); each writes its float32 partial S to shared memory (32
+//   floats a thread), the two meet on a named barrier and each adds the
+//   other's, so both hold the same S (the sum commutes) and run the same
+//   online softmax (the Hopper kernel's, tiles of 64 keys), with no
+//   exchange of maxima, l or P.  P stays in registers as the A operand
+//   of O += P V (wgmma with V's boxes MN-major), each warpgroup on its
+//   own output chunks: warpgroup 0 chunks [0, floor(CH / 2)), warpgroup 1
+//   the rest, so each does CH chunks' products a tile (d = 576: S over 5
+//   and 4 chunks, O on 4 and 5; 160 accumulators at most).  Q takes 72
+//   KB at d = 576; K streams through a ring of 6 boxes, each freed as
+//   soon as its product is done (one chunk's product in flight while the
+//   next issues); V through a ring of a whole tile's 9 boxes (a
+//   warpgroup's P V waits for all its boxes at once, and a smaller ring
+//   would wait on the other warpgroup's release behind the exchange's
+//   barrier); the partial sums 32 KB; a named barrier pair tells a
+//   warpgroup that the other has read its last partial.  Each step
+//   issues S of tile i, then P V of tile i - 1, and runs tile i's
+//   exchange and softmax while P V runs.  Sharing the tile's keys instead
+//   (each warpgroup S of 32 keys over the whole d, m64n32; the row
+//   maxima, P and l exchanged) ran 4-7% slower on an H100: Q's reads by
+//   the tensor cores fall from 216 to 144 KB a tile with the split by d
+//   (PERF.md).  The tile range skips the key tiles the mask empties; no
+//   tile inside it is empty for the whole block.  The epilogue writes
+//   acc / l as T from the registers, a column pair a 4-byte store.
+// * d > 256 at float32 where the same shapes hold and d <= 576
+//   (flash_wide_f32_kernel; launch key "flash_wide"): one block a 64-row
+//   query tile with every output column, 12 warps: warp w owns rows
+//   16 (w % 4) .. + 15 and output slice w / 4 (three slices, 192 columns
+//   and 96 accumulators a thread at d = 576).  A key tile has 96 keys,
+//   and each warp computes S for its rows and 32 of them, so the three
+//   warps of a row group share the tile's keys and S is computed once;
+//   3xTF32 on mma.sync m16n8k8 as flash_f32_kernel, each 8-wide slice's
+//   three products in fresh accumulators added to S or O rounded to
+//   nearest (P22).  The row group's maxima and P (float32) meet in
+//   shared memory behind a named barrier of its 3 warps; each warp adds
+//   P V on its slice, the splits of Q and K paid twice a pair, not four
+//   times.  Q and K stream in chunks of 64 columns and V in 32 rows of
+//   every column a step, by 16-byte cp.async through 2 slots of 74 KB,
+//   one __syncthreads a step (a resident Q would take 147 KB).  A warp
+//   skips its S of a tile where its rows keep none of its keys, its P V
+//   where they keep none of the tile's.
+// * d > 256, every dtype, every shape the two above do not take: bases
+//   not 16-byte aligned, d % 8 != 0, Skv = 0, d > 576
+//   (flash_wide_kernel<T>; launch key "flash_wide_general"): what no
+//   register tile of the others holds (an output row of d float32
 //   accumulators).  8 warps, each owning 16 of the block's 128 query
 //   rows (4 warps a block, 2 blocks an SM, ran 4% slower on an H100);
 //   a block computes one output slice of at most 256 columns (the slices
@@ -186,8 +242,9 @@
 //
 // Widths: compiled D = 64, 128, 256; a smaller d takes the next width
 // with the columns past d zero in shared memory and never written, so
-// every 1 <= d <= 256 works; above 256 the wide kernel takes any d (its
-// columns past d zero, its last slice narrower).  Above 48 KB
+// every 1 <= d <= 256 works; above 256 the wide kernels take any d up to
+// 576 in 64-column chunks (columns past d zero), the general wide kernel
+// any d (its columns past d zero, its last slice narrower).  Above 48 KB
 // of shared memory every launch first raises the kernel's dynamic limit
 // (cudaFuncSetAttribute; at most 227 KB).  A refused launch or tensor map
 // returns a CUDA error code and the wrapper raises; it never returns
@@ -207,8 +264,15 @@
 //     bytes (bf16: the parent's SASS);
 //   flash_f32_kernel<256>, <128>, <64>: 233, 162 and 128 registers, no
 //     spills; 201,728, 103,424 and 90,112 bytes;
+//   flash_wide_wgmma_kernel<T>, T bf16 and float16: 168 registers a
+//     thread at launch (setmaxnreg then gives the producer 24 and the
+//     consumers 240), 4 bytes of spill stores and 16 of spill loads a
+//     thread; 230,648 bytes;
+//   flash_wide_f32_kernel: 168 registers (one block of 384 threads), 44
+//     bytes of spill stores and 52 of spill loads a thread; 175,872
+//     bytes;
 //   flash_wide_kernel<float>, <bf16>, <float16>: 255 registers, no
-//     spills; 125,440, 89,088 and 89,088 bytes.
+//     spills; 125,440, 89,088 and 89,088 bytes (the parent's SASS).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -1943,6 +2007,680 @@ int launch(const Params& p, cudaStream_t st) {
 }  // namespace wide
 
 // ---------------------------------------------------------------------------
+// d > 256 at 16 bits on Hopper: one block a 64-row query tile with every
+// output column; S = Q K^T once a key tile, its columns of d split
+// between the two consumer warpgroups and the partial sums exchanged
+// through shared memory
+
+namespace hw {
+
+constexpr int NC = 2;                // consumer warpgroups
+constexpr int NTH = 128 * (NC + 1);  // and one producer warpgroup
+constexpr int BQ = 64;               // query rows a block: one m64 tile
+constexpr int BK = 64;               // keys a tile
+constexpr int MAXD = 576;            // widest head a block's registers hold
+constexpr int MAXCH = MAXD / 64;     // 64-column chunks of Q, K, V
+constexpr int MAXC = (MAXCH + 1) / 2;  // chunks of O a warpgroup, at most
+constexpr int RK = 6;                // K boxes in flight
+constexpr int RV = MAXCH;            // V boxes in flight: a whole tile's
+constexpr int BOX = 64 * 128;        // (64 rows x 64 columns) of 16 bits
+// shared memory, from a 1024-byte aligned base: Q (MAXCH boxes), the K
+// ring, the V ring, the warpgroups' partial S (32 floats a thread each),
+// the barriers (Q full; K full and empty; V full and empty)
+constexpr int SK = MAXCH * BOX, SV = SK + RK * BOX, SX = SV + RV * BOX;
+constexpr int SB = SX + NC * BQ * BK * 4;
+constexpr int SMEM = SB + 8 * (1 + 2 * RK + 2 * RV) + 1024;
+static_assert(SMEM <= 232448, "shared memory");
+// registers after setmaxnreg: 128 x 24 + 256 x 240 = 168 x 384
+constexpr int PREG = 24, CREG = 240;
+
+struct Bars {
+  uint32_t bar;  // Q full; K full, K empty (RK each); V full, V empty
+  __device__ uint32_t q() const { return bar; }
+  __device__ uint32_t kfull(int s) const { return bar + 8 * (1 + s); }
+  __device__ uint32_t kempty(int s) const { return bar + 8 * (1 + RK + s); }
+  __device__ uint32_t vfull(int s) const {
+    return bar + 8 * (1 + 2 * RK + s);
+  }
+  __device__ uint32_t vempty(int s) const {
+    return bar + 8 * (1 + 2 * RK + RV + s);
+  }
+};
+
+// The chunks of a head of CH chunks: warpgroup 0 computes S over chunks
+// [0, sa) and O on [0, ob), warpgroup 1 S over [sa, CH) and O on
+// [ob, CH); each does CH chunks' products a tile
+struct Split {
+  int sa, ob;
+  __device__ explicit Split(int CH) : sa((CH + 1) / 2), ob(CH / 2) {}
+};
+
+// The K boxes stream in the order both warpgroups consume them: for each
+// tile, warpgroup 0's j-th S chunk, then warpgroup 1's, j = 0, 1, ...;
+// the position of warpgroup wg's j-th chunk within its tile
+__device__ __forceinline__ int kpos(int wg, int j) { return 2 * j + wg; }
+
+// a ring position: box b of a ring of R slots lives in slot b % R, its
+// use's parity (b / R) & 1
+template <int R>
+struct Pos {
+  int s = 0;
+  uint32_t ph = 0;
+  __device__ void next() {
+    if (++s == R) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// One producer thread streams a ring's boxes: chunk c of key tile kb + i
+// for each (i, c) that ``chunk`` lists in order (c < 0: none)
+template <int R, typename F>
+__device__ __forceinline__ void produce(const CUtensorMap* map,
+                                        uint32_t ring, uint32_t full0,
+                                        uint32_t empty0, int kb, int n,
+                                        int per, F chunk, int bh) {
+  Pos<R> at;
+  for (int i = 0; i < n; ++i)
+    for (int x = 0; x < per; ++x) {
+      const int c = chunk(x);
+      if (c < 0) continue;
+      hop::mbar_wait(empty0 + 8 * at.s, at.ph ^ 1);
+      hop::mbar_expect_tx(full0 + 8 * at.s, BOX);
+      hop::tma_load(ring + at.s * BOX, map, 64 * c, (kb + i) * BK, bh,
+                    full0 + 8 * at.s);
+      at.next();
+    }
+}
+
+// O += P V over a warpgroup's NCH chunks: P's A fragments from
+// registers, each chunk's V box MN-major in shared memory
+template <typename T, int NCH>
+__device__ __forceinline__ void values(float (&o)[MAXC][32],
+                                       const uint32_t (&pa)[BK / 16][4],
+                                       const uint32_t (&vs)[MAXC]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < NCH; ++j)
+      hop::wgmma_rs<T>(o[j], pa[kk],
+                       hop::desc(vs[j] + kk * 16 * 128, BOX, 1024));
+}
+
+// A consumer warpgroup.  Each tile: S over its chunks of d (a partial
+// sum of the 64 x 64 scores), written to shared memory and added to the
+// other warpgroup's, so that both hold the tile's S; the online softmax
+// (the same in both); O += P V on its own chunks of the output.  Each
+// step issues S of tile i, then P V of tile i - 1, and runs tile i's
+// exchange and softmax while P V runs.
+template <typename T>
+__device__ __forceinline__ void consume(const Params& p, int q0, int bh,
+                                        int kb, int n, int CH, uint32_t base,
+                                        unsigned char* gbase) {
+  const Bars bars{base + SB};
+  const uint32_t sQ = base, sK = base + SK, sV = base + SV;
+  float* xs = reinterpret_cast<float*>(gbase + SX);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int row = q0 + 16 * warp + lane / 4;
+  const int rows[2] = {row, row + 8};
+  const Split sp(CH);
+  const int s0 = wg == 0 ? 0 : sp.sa, sn = wg == 0 ? sp.sa : CH - sp.sa;
+  const int cb = wg == 0 ? 0 : sp.ob, nch = wg == 0 ? sp.ob : CH - sp.ob;
+  // this thread's partial S in shared memory and the other warpgroup's:
+  // element r of a thread at [r][thread], so both warpgroups' threads of
+  // one index hold the same scores
+  float* mine = xs + wg * BQ * BK + tid;
+  const float* other = xs + (1 - wg) * BQ * BK + tid;
+  const bool cap = p.softcap > 0.f;
+  const float sl = p.scale * hop::LOG2E;
+  const float cs = p.scale / p.softcap, cl = p.softcap * hop::LOG2E;
+  float o[MAXC][32], sc[BK / 2], m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) o[j][x] = 0.f;
+
+  hop::mbar_wait(bars.q(), 0);
+  for (int i = 0; i <= n; ++i) {
+    if (i < n) {
+      // S over this warpgroup's chunks, each K box freed once its product
+      // is done (one chunk's product stays in flight while the next
+      // issues)
+      const uint32_t qs = hop::opaque(sQ);
+      for (int j = 0; j < sn; ++j) {
+        const int b = i * CH + kpos(wg, j), s = b % RK;
+        hop::mbar_wait(bars.kfull(s), (b / RK) & 1);
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss<T>(sc, hop::desc(qs + (s0 + j) * BOX + kk * 32, 16,
+                                         1024),
+                           hop::desc(sK + s * BOX + kk * 32, 16, 1024),
+                           (j | kk) != 0);
+        hop::wg_commit();
+        if (j > 0) {
+          hop::wg_wait<1>();
+          if (lane == 0)
+            hop::mbar_arrive(bars.kempty((i * CH + kpos(wg, j - 1)) % RK));
+        }
+      }
+    }
+    if (i > 0) {  // O += P_{i-1} V_{i-1} on this warpgroup's chunks
+      uint32_t vs[MAXC];
+      const int b0 = (i - 1) * CH + cb;  // its first V box
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        const int s = (b0 + j) % RV;
+        vs[j] = sV + s * BOX;
+        if (j < nch) hop::mbar_wait(bars.vfull(s), ((b0 + j) / RV) & 1);
+      }
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) hop::fence_regs(o[j]);
+      hop::wg_fence();
+      switch (nch) {
+        case 2:
+          values<T, 2>(o, pa, vs);
+          break;
+        case 3:
+          values<T, 3>(o, pa, vs);
+          break;
+        case 4:
+          values<T, 4>(o, pa, vs);
+          break;
+        default:
+          values<T, 5>(o, pa, vs);
+      }
+      hop::wg_commit();
+    }
+    if (i < n) {
+      if (i > 0)
+        hop::wg_wait<1>();  // S done, P V may still run
+      else
+        hop::wg_wait<0>();
+      hop::fence_regs(sc);
+      if (lane == 0)
+        hop::mbar_arrive(bars.kempty((i * CH + kpos(wg, sn - 1)) % RK));
+      // the tile's S: this warpgroup's partial sum and the other's (the
+      // other has read this one's last partial: bar 2 + wg)
+      if (i > 0)
+        asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(128 * NC)
+                     : "memory");
+#pragma unroll
+      for (int r = 0; r < BK / 2; ++r) mine[r * 128] = sc[r];
+      asm volatile("bar.sync 1, %0;\n" ::"n"(128 * NC) : "memory");
+#pragma unroll
+      for (int r = 0; r < BK / 2; ++r) sc[r] += other[r * 128];
+      if (i + 1 < n)  // this warpgroup has read the other's partial
+        asm volatile("bar.arrive %0, %1;\n" ::"r"(3 - wg), "n"(128 * NC)
+                     : "memory");
+      const int k0 = (kb + i) * BK;
+      const bool edge = k0 + BK > p.Skv || (p.causal && k0 + BK - 1 > q0) ||
+                        (p.window > 0 && q0 + BQ - 1 - k0 >= p.window);
+      // the max of the raw dots is the max of the logits only for a
+      // positive scale: any other scale takes the path that scales first
+      if (cap) {
+        if (edge)
+          hop::softmax<T, BK, true, true>(p, sc, m, l, corr, rows, k0, t, sl,
+                                          cs, cl);
+        else
+          hop::softmax<T, BK, false, true>(p, sc, m, l, corr, rows, k0, t,
+                                           sl, cs, cl);
+      } else if (edge || !(sl > 0.f)) {
+        hop::softmax<T, BK, true, false>(p, sc, m, l, corr, rows, k0, t, sl,
+                                         cs, cl);
+      } else {
+        hop::softmax<T, BK, false, false>(p, sc, m, l, corr, rows, k0, t, sl,
+                                          cs, cl);
+      }
+    }
+    if (i > 0) {
+      hop::wg_wait<0>();
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) hop::fence_regs(o[j]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          asm volatile("" : "+r"(pa[kk][x])::"memory");
+      const int b0 = (i - 1) * CH + cb;
+      if (lane == 0)
+        for (int j = 0; j < nch; ++j)
+          hop::mbar_arrive(bars.vempty((b0 + j) % RV));
+    }
+    if (i < n) {
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j)
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          o[j][4 * x] *= corr[0];
+          o[j][4 * x + 1] *= corr[0];
+          o[j][4 * x + 2] *= corr[1];
+          o[j][4 * x + 3] *= corr[1];
+        }
+      // P's A fragments, p rounded to T: score tiles 2kk and 2kk + 1 are
+      // the fragment of keys 16kk .. 16kk + 15
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        pa[j / 2][2 * (j % 2)] = hop::pack_f<T>(sc[4 * j], sc[4 * j + 1]);
+        pa[j / 2][2 * (j % 2) + 1] =
+            hop::pack_f<T>(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+  }
+  // acc / l as T from the registers, a column pair a 4-byte store (d % 8
+  // == 0 and a 16-byte aligned o): no row past Sq, no column past d
+  T* og = static_cast<T*>(p.o) + (long long)bh * p.Sq * p.d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= p.Sq) continue;
+    T* orow = og + (long long)rows[h] * p.d;
+#pragma unroll
+    for (int j = 0; j < MAXC; ++j) {
+      if (j >= nch) continue;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const int col = (cb + j) * 64 + 8 * x + 2 * t;
+        if (col < p.d)
+          *reinterpret_cast<typename Vec2<T>::type*>(orow + col) =
+              to2<T>(o[j][4 * x + 2 * h] / l[h],
+                     o[j][4 * x + 2 * h + 1] / l[h]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTH, 1)
+    flash_wide_wgmma_kernel(const __grid_constant__ Params p,
+                            const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv) {
+  extern __shared__ unsigned char smem_hw[];
+  const uint32_t raw = hop::smem_u32(smem_hw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const Bars bars{base + SB};
+  int qt, bh;
+  tile_of(p, qt, bh);
+  const int q0 = qt * BQ;
+  int kb, ke;
+  kv_range(p, q0, BQ, BK, kb, ke);
+  const int n = max(ke - kb, 0), CH = (p.d + 63) / 64;
+  if (threadIdx.x == 0) {
+    hop::mbar_init(bars.q(), 1);
+    for (int s = 0; s < RK; ++s) {
+      hop::mbar_init(bars.kfull(s), 1);
+      hop::mbar_init(bars.kempty(s), 4);  // the reading warpgroup's warps
+    }
+    for (int s = 0; s < RV; ++s) {
+      hop::mbar_init(bars.vfull(s), 1);
+      hop::mbar_init(bars.vempty(s), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NC) {  // producer warpgroup: two threads load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PREG));
+    const int pt = threadIdx.x - 128 * NC;
+    if (pt == 0) {  // Q once, then the K boxes
+      hop::mbar_expect_tx(bars.q(), CH * BOX);
+      for (int c = 0; c < CH; ++c)
+        hop::tma_load(base + c * BOX, &tq, 64 * c, q0, bh, bars.q());
+      const Split sp(CH);
+      produce<RK>(&tk, base + SK, bars.kfull(0), bars.kempty(0), kb, n,
+                  2 * sp.sa, [&](int x) {  // position x: kpos(x % 2, x / 2)
+                    const int c = x % 2 == 0 ? x / 2 : sp.sa + x / 2;
+                    return c < CH ? c : -1;
+                  }, bh);
+    } else if (pt == 32) {  // the V boxes, in order
+      produce<RV>(&tv, base + SV, bars.vfull(0), bars.vempty(0), kb, n, CH,
+                  [](int x) { return x; }, bh);
+    }
+  } else {  // consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CREG));
+    consume<T>(p, q0, bh, kb, n, CH, base, smem_hw + (base - raw));
+  }
+}
+
+template <typename T>
+int launch(Params p, cudaStream_t st) {
+  p.nq = (p.Sq + BQ - 1) / BQ;
+  const long long blocks = (long long)p.nq * p.BH;
+  if (blocks == 0) return 0;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  constexpr CUtensorMapDataType ty = kF16<T>
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tq, tk, tv;
+  if (!hop::encode(&tq, ty, p.q, p.d, p.Sq, p.BH, BQ) ||
+      !hop::encode(&tk, ty, p.k, p.d, p.Skv, p.BH, BK) ||
+      !hop::encode(&tv, ty, p.v, p.d, p.Skv, p.BH, BK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wide_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_wide_wgmma_kernel<T><<<(unsigned)blocks, NTH, SMEM, st>>>(p, tq, tk,
+                                                                   tv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hw
+
+// ---------------------------------------------------------------------------
+// d > 256 at float32: one block a 64-row query tile with every output
+// column, S = Q K^T once a key tile, split by keys across the warps that
+// own the same rows' output slices; 3xTF32 on mma.sync m16n8k8
+
+namespace fw {
+
+constexpr int RG = 4;            // row groups of 16 query rows
+constexpr int CG = 3;            // column groups: a warp's output slice
+constexpr int NW = RG * CG;      // warps; warp w: rows w % RG, slice w / RG
+constexpr int NT = 32 * NW;
+constexpr int BQ = 16 * RG;      // query rows a block
+constexpr int KW = 32;           // keys of a tile a warp's S covers
+constexpr int BK = KW * CG;      // keys a tile
+constexpr int VK = 32;           // keys of V a step
+constexpr int CW = 64;           // columns of Q and K a step
+constexpr int MAXD = 576;        // widest head: a slice's accumulators
+constexpr int NV = MAXD / CG / 8;  // 8-column tiles of a slice, at most
+constexpr int LC = CW + 8;       // chunk rows in floats: the fragment
+constexpr int LV = MAXD + 4;     // loads of a warp hit 32 distinct banks
+constexpr int LP = BK + 8;
+// a step's slot: a Q chunk and a K chunk, or VK rows of V
+constexpr int SLOT = (BQ + BK) * LC > VK * LV ? (BQ + BK) * LC : VK * LV;
+// 2 slots, then P (BQ x BK), then the column groups' row maxima (and at
+// the end their l)
+constexpr int SMEM = 4 * (2 * SLOT + BQ * LP + CG * BQ);
+
+// Rows [r0, r0 + ROWS) and columns [c0, c0 + COLS) of a (len, d) float32
+// matrix into s[ROWS][LD] by 16-byte cp.async (the bases are 16-byte
+// aligned and d % 8 == 0), zero at rows past len and columns past d
+template <int ROWS, int COLS, int LD>
+__device__ __forceinline__ void stage(uint32_t s, const float* g, int r0,
+                                      int len, int c0, int d) {
+  constexpr int CH = COLS / 4;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
+    const int r = idx / CH, c = (idx % CH) * 4;
+    const bool ok = r0 + r < len && c0 + c < d;
+    f32::cp_async16(s + 4 * (r * LD + c),
+                    ok ? g + (long long)(r0 + r) * d + c0 + c : g, ok);
+  }
+}
+
+// the logits of a warp's 16 x 32 scores in place, with expf's and tanhf's
+// softcap, and their row maxima over the 4 lanes of a row; EDGE: keep()
+// runs
+template <bool EDGE>
+__device__ __forceinline__ void logits(const Params& p, float (&sc)[KW / 8][4],
+                                       float (&mx)[2], const int (&rows)[2],
+                                       int k0, int t) {
+  mx[0] = mx[1] = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float x = logit(p, sc[j][e]);
+      if (EDGE && !keep(p, rows[h], k0 + 8 * j + 2 * t + (e & 1)))
+        x = NEG_INF;
+      sc[j][e] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+}
+
+// One block: query tile qt of head bh, every column.  Steps in order: for
+// each key tile, CH steps of (Q chunk, K chunk), each warp adding its 32
+// keys' share of S, then BK / VK steps of VK rows of V, each warp adding
+// P V on its slice; step s + 1's copies are in flight while step s
+// computes, one barrier a step.  After a tile's last S step each warp
+// writes its rows' maxima; the row group's three warps take the tile's
+// from them, write their p into P and meet on a named barrier.
+__global__ void __launch_bounds__(NT, 1)
+    flash_wide_f32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) float smem_fw[];
+  float* Ps = smem_fw + 2 * SLOT;
+  float* red = Ps + BQ * LP;
+  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_fw));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp % RG, cg = warp / RG;
+  int qt, bh;
+  tile_of(p, qt, bh);
+  const int q0 = qt * BQ, d = p.d;
+  const float* q = static_cast<const float*>(p.q) + (long long)bh * p.Sq * d;
+  const float* k = static_cast<const float*>(p.k) + (long long)bh * p.Skv * d;
+  const float* v = static_cast<const float*>(p.v) + (long long)bh * p.Skv * d;
+  float* o = static_cast<float*>(p.o) + (long long)bh * p.Sq * d;
+  int kb, ke;
+  kv_range(p, q0, BQ, BK, kb, ke);
+  const int CH = (d + CW - 1) / CW, SPT = CH + BK / VK;  // steps a tile
+  const int n = ke > kb ? (ke - kb) * SPT : 0;
+  // this warp's output slice: columns [c0, c0 + cw), nd 8-column tiles
+  const int sw = (d + 8 * CG - 1) / (8 * CG) * 8;
+  const int c0 = cg * sw, cw = min(sw, d - c0), nd = (cw + 7) / 8;
+  const int w0 = q0 + 16 * rg;  // this warp's first query row
+  const int rows[2] = {w0 + g, w0 + g + 8};
+
+  auto issue = [&](int s) {  // step s's copies into slot s % 2
+    const int i = s / SPT, r = s % SPT, k0 = (kb + i) * BK;
+    const uint32_t a = s0 + 4 * (s % 2) * SLOT;
+    if (r < CH) {
+      stage<BQ, CW, LC>(a, q, q0, p.Sq, r * CW, d);
+      stage<BK, CW, LC>(a + 4 * BQ * LC, k, k0, p.Skv, r * CW, d);
+    } else {
+      stage<VK, MAXD, LV>(a, v, k0 + (r - CH) * VK, p.Skv, 0, d);
+    }
+  };
+
+  float acc[NV][4], sc[KW / 8][4], m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[x][e] = 0.f;
+  bool edge = false;
+
+  if (n > 0) issue(0);
+  f32::cp_commit();
+  for (int s = 0; s < n; ++s) {
+    const int i = s / SPT, r = s % SPT, k0 = (kb + i) * BK;
+    f32::cp_wait<0>();
+    // step s's copies landed for every thread, and every thread is done
+    // with step s - 1, whose slot is refilled now
+    __syncthreads();
+    if (s + 1 < n) issue(s + 1);
+    f32::cp_commit();
+    const float* a = smem_fw + (s % 2) * SLOT;
+    const int kw0 = k0 + KW * cg;  // this warp's first key of S
+    if (r < CH) {
+      // S += Q_c K_c^T on this warp's 16 rows and 32 keys, 3xTF32 as
+      // flash_f32_kernel: within a slice of 8 columns the fragments' k
+      // index t is column 2t and t + 4 is 2t + 1; each slice's three
+      // products go into fresh accumulators, added to S rounded to
+      // nearest
+      if (r == 0) {
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      }
+      const bool dead = kw0 >= p.Skv || (p.causal && kw0 > w0 + 15) ||
+                        (p.window > 0 && w0 - (kw0 + KW - 1) >= p.window);
+      if (!dead) {
+        const float* Qw = a + 16 * rg * LC;
+        const float* Kc = a + BQ * LC + KW * cg * LC;
+        const int cols = d - r * CW;
+#pragma unroll
+        for (int kk = 0; kk < CW / 8; ++kk) {
+          if (8 * kk < cols) {
+            const float2 q0v = *reinterpret_cast<const float2*>(
+                Qw + g * LC + 8 * kk + 2 * t);
+            const float2 q1v = *reinterpret_cast<const float2*>(
+                Qw + (g + 8) * LC + 8 * kk + 2 * t);
+            uint32_t ah[4], al[4];
+            f32::split(q0v.x, ah[0], al[0]);
+            f32::split(q1v.x, ah[1], al[1]);
+            f32::split(q0v.y, ah[2], al[2]);
+            f32::split(q1v.y, ah[3], al[3]);
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j) {
+              const float2 kv = *reinterpret_cast<const float2*>(
+                  Kc + (8 * j + g) * LC + 8 * kk + 2 * t);
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              f32::mma3(part, ah, al, kv.x, kv.y);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sc[j][e] += part[e];
+            }
+          }
+        }
+      }
+      if (r == CH - 1) {  // this warp's row maxima over its keys
+        edge = dead || kw0 + KW > p.Skv || (p.causal && kw0 + KW - 1 > w0) ||
+               (p.window > 0 && w0 + 15 - kw0 >= p.window);
+        float mx[2];
+        if (edge)
+          logits<true>(p, sc, mx, rows, kw0, t);
+        else
+          logits<false>(p, sc, mx, rows, kw0, t);
+        if (t == 0) {
+          red[cg * BQ + 16 * rg + g] = mx[0];
+          red[cg * BQ + 16 * rg + g + 8] = mx[1];
+        }
+      }
+    } else {
+      const int vs = r - CH;
+      // the row group's rows keep no key of the tile
+      const bool dead = (p.causal && k0 > w0 + 15) ||
+                        (p.window > 0 && w0 - (k0 + BK - 1) >= p.window);
+      if (vs == 0) {
+        // the tile's row maxima (written before this step's barrier),
+        // then p, its l and P; the slice rescaled
+        float corr[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mn = m[h];
+#pragma unroll
+          for (int c = 0; c < CG; ++c)
+            mn = fmaxf(mn, red[c * BQ + 16 * rg + g + 8 * h]);
+          corr[h] = expf(m[h] - mn);
+          m[h] = mn;
+          l[h] *= corr[h];
+        }
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const float x = sc[j][e];
+            float pe = expf(x - m[h]);
+            if (edge && x == NEG_INF) pe = 0.f;
+            sc[j][e] = pe;
+            l[h] += pe;
+          }
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(Ps + (16 * rg + g + 8 * h) * LP +
+                                       KW * cg + 8 * j + 2 * t) =
+                make_float2(sc[j][2 * h], sc[j][2 * h + 1]);
+#pragma unroll
+        for (int x = 0; x < NV; ++x) {
+          acc[x][0] *= corr[0];
+          acc[x][1] *= corr[0];
+          acc[x][2] *= corr[1];
+          acc[x][3] *= corr[1];
+        }
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "n"(32 * CG)
+                     : "memory");
+      }
+      if (!dead) {
+        // O += P[:, VK vs ..] V_step on this warp's slice: P's k index t
+        // is key 2t and t + 4 is 2t + 1 within each 8 keys (as in S), so
+        // V's B fragment reads rows 2t and 2t + 1; each 8 keys' three
+        // products go into fresh accumulators, added rounded to nearest
+        const float* Pw = Ps + 16 * rg * LP + VK * vs;
+#pragma unroll
+        for (int j = 0; j < VK / 8; ++j) {
+          const float2 p0 =
+              *reinterpret_cast<const float2*>(Pw + g * LP + 8 * j + 2 * t);
+          const float2 p1 = *reinterpret_cast<const float2*>(
+              Pw + (g + 8) * LP + 8 * j + 2 * t);
+          uint32_t ah[4], al[4];
+          f32::split(p0.x, ah[0], al[0]);
+          f32::split(p1.x, ah[1], al[1]);
+          f32::split(p0.y, ah[2], al[2]);
+          f32::split(p1.y, ah[3], al[3]);
+          const float* vp = a + (8 * j + 2 * t) * LV + c0 + g;
+#pragma unroll
+          for (int x = 0; x < NV; ++x) {
+            if (x < nd) {
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              f32::mma3(part, ah, al, vp[8 * x], vp[LV + 8 * x]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[x][e] += part[e];
+            }
+          }
+        }
+      }
+    }
+  }
+  f32::cp_wait<0>();
+
+  // l over the tile's keys: the row group's three warps'
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __syncthreads();  // every read of red done
+  if (t == 0) {
+    red[cg * BQ + 16 * rg + g] = l[0];
+    red[cg * BQ + 16 * rg + g + 8] = l[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = 0.f;
+#pragma unroll
+    for (int c = 0; c < CG; ++c) lt += red[c * BQ + 16 * rg + g + 8 * h];
+    l[h] = fmaxf(lt, 1e-30f);
+  }
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, col = 8 * x + 2 * t + (e & 1);
+      if (rows[h] < p.Sq && col < cw)
+        o[(long long)rows[h] * d + c0 + col] = acc[x][e] / l[h];
+    }
+}
+
+int launch(const Params& p, cudaStream_t st) {
+  return ::launch(flash_wide_f32_kernel, BQ, NT, SMEM, p, st);
+}
+
+}  // namespace fw
+
+// ---------------------------------------------------------------------------
 // launch
 
 template <int D>
@@ -1975,11 +2713,22 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   return p;
 }
 
-// The 16-bit entry points' choice: the Hopper kernel (returns 0) where TMA
-// can describe the tensors: 16-byte aligned bases, rows of a multiple of
-// 16 bytes (d % 8 == 0) and at least one key row; the general kernel
-// (-1) for the rest up to d = 256; the wide kernel (-2) above.  A choice
-// by shape, not a fallback.
+// What TMA can describe: 16-byte aligned bases, rows of a multiple of 16
+// bytes at 16 bits (d % 8 == 0; the float32 wide kernel asks the same)
+// and at least one key row.
+bool tma_shape(const void* q, const void* k, const void* v, const void* o,
+               int Skv, int d) {
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  return d % 8 == 0 && addr % 16 == 0 && Skv > 0;
+}
+
+// The 16-bit entry points' choice: up to d = 256 the Hopper kernel
+// (returns 0) where TMA can describe the tensors and the general kernel
+// (-1) for the rest; above, the wide Hopper kernel (-2) where TMA can
+// describe them and d <= 576, the general wide kernel (-3) for the rest.
+// A choice by shape, not a fallback.
 template <typename T>
 int attn16(const void* q, const void* k, const void* v, void* o, int BH,
            int Sq, int Skv, int d, int causal, int window, float softcap,
@@ -1988,14 +2737,13 @@ int attn16(const void* q, const void* k, const void* v, void* o, int BH,
                                softcap, scale, 2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d < 1) return (int)cudaErrorInvalidValue;
+  const bool tma = tma_shape(q, k, v, o, Skv, d);
   if (d > 256) {
-    const int e = wide::launch<T>(p, st);
-    return e != 0 ? e : -2;
+    const bool one_s = tma && d <= hw::MAXD;  // S once a tile
+    const int e = one_s ? hw::launch<T>(p, st) : wide::launch<T>(p, st);
+    return e != 0 ? e : one_s ? -2 : -3;
   }
-  const uintptr_t addr =
-      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (d % 8 == 0 && addr % 16 == 0 && Skv > 0) {
+  if (tma) {
     if (d <= 64) return hop::launch<T, 64>(p, st);
     if (d <= 128) return hop::launch<T, 128>(p, st);
     return hop::launch<T, 256>(p, st);
@@ -2011,10 +2759,12 @@ int attn16(const void* q, const void* k, const void* v, void* o, int BH,
 // The entry points return a CUDA error code (positive), or minus the
 // index of the kernel they launched (the wrapper counts the launch under
 // that kernel's key):
-//   float32:  0 flash_f32_kernel (d <= 256), -1 flash_wide_kernel;
+//   float32:  0 flash_f32_kernel (d <= 256), -1 flash_wide_f32_kernel
+//             (256 < d <= 576, what TMA could describe), -2
+//             flash_wide_kernel (the rest above 256);
 //   bfloat16: 0 flash_wgmma_kernel, -1 flash_general_kernel, -2
-//             flash_wide_kernel;
-//   float16:  the same three kernels at float16.
+//             flash_wide_wgmma_kernel, -3 flash_wide_kernel;
+//   float16:  the same four kernels at float16.
 extern "C" int repro_flash_attn_f32(const void* q, const void* k,
                                     const void* v, void* o, int BH, int Sq,
                                     int Skv, int d, int causal, int window,
@@ -2027,8 +2777,10 @@ extern "C" int repro_flash_attn_f32(const void* q, const void* k,
   if (d <= 64) return launch_f32<64>(p, st);
   if (d <= 128) return launch_f32<128>(p, st);
   if (d <= 256) return launch_f32<256>(p, st);
-  const int e = wide::launch<float>(p, st);
-  return e != 0 ? e : -1;
+  // S once a tile where TMA could describe the tensors
+  const bool one_s = tma_shape(q, k, v, o, Skv, d) && d <= fw::MAXD;
+  const int e = one_s ? fw::launch(p, st) : wide::launch<float>(p, st);
+  return e != 0 ? e : one_s ? -1 : -2;
 }
 
 extern "C" int repro_flash_attn_bf16(const void* q, const void* k,

@@ -9,10 +9,13 @@ describe the tensors (d a multiple of 8, 16-byte aligned bases, at least
 one key) and elsewhere the general kernel (``flash_general``: the same
 ``wgmma`` consumers behind a producer of threads); float16 the same two
 kernels at float16 (``flash_f16``, ``flash_f16_general``).  Above 256,
-every dtype the wide kernel (``flash_wide``: Q and K streamed in chunks
-of 64 columns, the output in slices of at most 256).  Each entry point
-returns which kernel it launched, and the launch is counted under that
-key.  The TPU kernel's tile sizes (``qc``, ``kc``) are not arguments
+at every dtype, ``flash_wide`` where TMA could describe the tensors (as
+above) and d <= 576: one block a 64-row query tile with every output
+column, so S is computed once a key tile (``wgmma`` at 16 bits, 3xTF32
+at float32); ``flash_wide_general`` for the rest (Q and K streamed in
+chunks of 64 columns, the output in slices of at most 256).  Each entry
+point returns which kernel it launched, and the launch is counted under
+that key.  The TPU kernel's tile sizes (``qc``, ``kc``) are not arguments
 here: tiles belong to the kernel, and the result depends on them only
 through the order of float summation.
 """
@@ -27,10 +30,12 @@ _FN = {torch.float32: "repro_flash_attn_f32",
        torch.bfloat16: "repro_flash_attn_bf16",
        torch.float16: "repro_flash_attn_f16"}
 #: launch keys of the kernels each entry point chooses among, in the order
-#: of its return codes (0, -1, -2)
-_KEYS = {torch.float32: ("flash_f32", "flash_wide"),
-         torch.bfloat16: ("flash", "flash_general", "flash_wide"),
-         torch.float16: ("flash_f16", "flash_f16_general", "flash_wide")}
+#: of its return codes (0, -1, -2, -3)
+_KEYS = {torch.float32: ("flash_f32", "flash_wide", "flash_wide_general"),
+         torch.bfloat16: ("flash", "flash_general", "flash_wide",
+                          "flash_wide_general"),
+         torch.float16: ("flash_f16", "flash_f16_general", "flash_wide",
+                         "flash_wide_general")}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -534,9 +534,11 @@ def test_nicol_optimal_device_on_card_matches_cpu(dtype, n):
 
 #: launch keys of K5's kernels by dtype (which one takes a call is the C
 #: entry point's choice)
-FLASH_KEYS = {"float32": ("flash_f32", "flash_wide"),
-              "bfloat16": ("flash", "flash_general", "flash_wide"),
-              "float16": ("flash_f16", "flash_f16_general", "flash_wide")}
+FLASH_KEYS = {"float32": ("flash_f32", "flash_wide", "flash_wide_general"),
+              "bfloat16": ("flash", "flash_general", "flash_wide",
+                           "flash_wide_general"),
+              "float16": ("flash_f16", "flash_f16_general", "flash_wide",
+                          "flash_wide_general")}
 #: the general kernel's key by 16-bit dtype
 GENERAL = {"bfloat16": "flash_general", "float16": "flash_f16_general"}
 
@@ -851,8 +853,19 @@ def test_flash_f16_general_many_heads():
     _flash_folded(66000, 16, 16, 32, "float16", "flash_f16_general")
 
 
-# d > 256: the wide kernel (launch key flash_wide) at every dtype
+# d > 256: two kernels at every dtype, chosen by shape.  flash_wide (S
+# once a key tile for every output column) takes what TMA could describe
+# up to d = 576: 16-byte aligned bases, d % 8 == 0, at least one key;
+# flash_wide_general takes the rest.
 WIDE_D = [257, 300, 512, 576, 1000, 2048]
+WIDE_MAX = 576
+
+
+def _wide_key(d: int, offset: int = 0) -> str:
+    """The wide route the entry point picks for head dim ``d`` at bases
+    ``offset`` elements past a 16-byte boundary (0 for a fresh tensor)."""
+    aligned = offset == 0 and d % 8 == 0
+    return "flash_wide" if aligned and d <= WIDE_MAX else "flash_wide_general"
 
 
 @pytest.mark.parametrize("d", WIDE_D)
@@ -861,47 +874,71 @@ WIDE_D = [257, 300, 512, 576, 1000, 2048]
 def test_flash_wide_head_dims(d, dtype, mode):
     """Widths past 256 (odd, d % 8 != 0, several output slices, 2048),
     the causal mask with a window and Gemma-2's softcap, and a ragged
-    cross-attention shape."""
+    cross-attention shape, each on the route its shape picks."""
     if mode == "cross":
         _flash_case(1, 70, 197, 2, d, False, 0, 0.0, dtype, seed=d,
-                    key="flash_wide")
+                    key=_wide_key(d))
     else:
         _flash_case(1, 130, 130, 2, d, True, 48, 50.0, dtype, seed=d,
-                    key="flash_wide")
+                    key=_wide_key(d))
 
 
 @pytest.mark.parametrize("d", [257, 576])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_flash_wide_unaligned_bases(d, dtype, offset):
-    """Bases 0, 1 and 3 elements past a 16-byte boundary: 16-byte copies
-    where they are aligned and d allows, narrower ones elsewhere."""
-    _flash_folded(2, 130, 197, d, dtype, "flash_wide", offset=offset,
+    """Bases 0, 1 and 3 elements past a 16-byte boundary: TMA describes
+    only aligned ones with d % 8 == 0 (flash_wide), the general wide
+    kernel takes the rest with 16-byte copies where they are aligned and
+    d allows, narrower ones elsewhere."""
+    key = _wide_key(d, offset)
+    _flash_folded(2, 130, 197, d, dtype, key, offset=offset,
                   window=48, softcap=50.0, seed=d + offset)
-    _flash_folded(2, 70, 197, d, dtype, "flash_wide", offset=offset,
+    _flash_folded(2, 70, 197, d, dtype, key, offset=offset,
                   causal=False, seed=d + offset + 1)
+
+
+@pytest.mark.parametrize("d,offset", [(WIDE_MAX, 0), (WIDE_MAX, 1),
+                                      (WIDE_MAX + 8, 0), (WIDE_MAX + 8, 1),
+                                      (264, 0), (512, 0)])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_route_boundary(d, offset, dtype):
+    """The edges of flash_wide's shapes: its widest head and the next
+    multiple of 8 above it (the general wide kernel's), each at an aligned
+    base and one element past it, and two widths inside."""
+    _flash_folded(2, 130, 197, d, dtype, _wide_key(d, offset),
+                  offset=offset, window=48, softcap=50.0, seed=d + offset)
 
 
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_flash_wide_no_keys(dtype):
-    """Skv = 0 above 256: the wide kernel writes zeros, as the plain
-    version does (acc / max(l, 1e-30))."""
+    """Skv = 0 above 256: TMA cannot describe it, the general wide kernel
+    writes zeros, as the plain version does (acc / max(l, 1e-30))."""
     dev = need_card()
     tdt = FLASH_DTYPES[dtype]
     q = torch.randn(3, 70, 300, device=dev).to(tdt)
     k = torch.zeros(3, 0, 300, device=dev, dtype=tdt)
-    n = _build.launches["flash_wide"]
+    n = _build.launches["flash_wide_general"]
     got = flash_ops.flash_attention(q, k, k, causal=False)
-    assert _build.launches["flash_wide"] == n + 1
+    assert _build.launches["flash_wide_general"] == n + 1
     want = flash_ref.attention_ref(q, k, k, causal=False)
     assert torch.equal(got, torch.zeros_like(q)) and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("Sq,Skv,causal", EDGE_LENGTHS)
+#: lengths on both sides of flash_wide's tiles: 64 query rows, 64 keys at
+#: 16 bits and 96 at float32, each tile's keys split in halves (thirds at
+#: float32) between the warps that compute S
+WIDE_EDGE_LENGTHS = [(63, 63, True), (65, 65, True), (95, 97, False),
+                     (97, 95, True), (191, 193, True), (1, 96, False),
+                     (200, 33, False)]
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", EDGE_LENGTHS + WIDE_EDGE_LENGTHS)
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_flash_wide_tile_edges(Sq, Skv, causal, dtype):
-    """Ragged lengths on both sides of the wide kernel's tiles (128 query
-    rows; 64 keys, 32 at float32) at DeepSeek-V2's absorbed width 576."""
+    """Ragged lengths on both sides of the wide kernels' tiles (flash_wide's
+    and, for the first cases, the general wide kernel's 128 query rows and
+    64 or 32 keys) at DeepSeek-V2's absorbed width 576, on flash_wide."""
     _flash_folded(2, Sq, Skv, 576, dtype, "flash_wide", offset=0,
                   causal=causal, seed=Sq + Skv)
 
@@ -916,12 +953,13 @@ def test_flash_wide_window_edges(window, dtype):
 @pytest.mark.parametrize("window", [0, 256])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_flash_wide_softcap(window, dtype):
-    """The softcap at d = 576 with q 8x larger, so it changes the logits.
-    At float32 the logits reach about 40, where float32's own rounding of
-    them (and of tanh) moves the plain version, which computes in
-    float32, by up to 2.3e-5 against float64 (``kernels/flash/compare.py``),
-    so kernel and plain version can differ by more than the 2e-5 contract:
-    the kernel is held to the function computed in float64 there."""
+    """The softcap at d = 576 with q 8x larger, so it changes the logits,
+    on flash_wide.  At float32 the logits reach about 40, where float32's
+    own rounding of them (and of tanh) moves the plain version, which
+    computes in float32, by up to 2.3e-5 against float64
+    (``kernels/flash/compare.py``), so kernel and plain version can differ
+    by more than the 2e-5 contract: the kernel is held to the function
+    computed in float64 there."""
     _flash_folded(2, 1024, 1024, 576, dtype, "flash_wide", offset=0,
                   window=window, softcap=50.0, q_scale=8.0,
                   f64=dtype == "float32")
@@ -929,8 +967,11 @@ def test_flash_wide_softcap(window, dtype):
 
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_flash_wide_many_heads(dtype):
-    """B * H = 66,000 x 2 output slices: the flattened grid takes it."""
+    """B * H = 66,000: the flattened grid takes it on both wide routes
+    (flash_wide's one block a query tile; the general kernel's 2 output
+    slices a tile)."""
     _flash_folded(66000, 16, 16, 264, dtype, "flash_wide", offset=0)
+    _flash_folded(66000, 16, 16, 264, dtype, "flash_wide_general", offset=1)
 
 
 @pytest.mark.parametrize("causal", [False, True])

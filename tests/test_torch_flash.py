@@ -219,17 +219,21 @@ def test_launch_passes_floats_as_c_float(monkeypatch):
     (torch.bfloat16, -2, "flash_wide"), (torch.float32, -1, "flash_wide"),
     (torch.float16, 0, "flash_f16"), (torch.float16, -1, "flash_f16_general"),
     (torch.float16, -2, "flash_wide"), (torch.float16, 700, None),
-    (torch.bfloat16, -3, None), (torch.float16, -3, None),
-    (torch.float32, -2, None)])
+    (torch.bfloat16, -3, "flash_wide_general"),
+    (torch.float16, -3, "flash_wide_general"),
+    (torch.float32, -2, "flash_wide_general"),
+    (torch.bfloat16, -4, None), (torch.float16, -4, None),
+    (torch.float32, -3, None)])
 def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
                                                          ret, key):
     """The wrapper counts a CUDA launch under the key of the kernel the C
     entry point reports: the 16-bit entry points return 0 after the Hopper
-    kernel, -1 after the general one and -2 after the wide one, float32's
-    0 after its kernel and -1 after the wide one.  A CUDA error (positive)
-    or a code no kernel has raises and counts nothing.  The library here
-    is ctypes callbacks with the real signatures; ``on_cpu`` is told the
-    tensors lie on the card."""
+    kernel, -1 after the general one, -2 after the wide Hopper kernel and
+    -3 after the general wide one, float32's 0 after its kernel, -1 after
+    its wide kernel and -2 after the general wide one.  A CUDA error
+    (positive) or a code no kernel has raises and counts nothing.  The
+    library here is ctypes callbacks with the real signatures; ``on_cpu``
+    is told the tensors lie on the card."""
     calls = {}
 
     def entry(name):
@@ -282,8 +286,9 @@ def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
 # each float32 operand x is split into hi = tf32(x) and lo = tf32(x - hi),
 # both rounded by cvt.rna (to nearest, ties away from zero, 10 mantissa
 # bits), and a b is summed as lo(a) hi(b) + hi(a) lo(b), then hi(a) hi(b),
-# in float32.  Key tiles as the kernel's (64 keys at d <= 64, else 32),
-# with its online softmax in float32.
+# in float32.  Key tiles as the kernel's (64 keys at d <= 64, else 32, as
+# on the general wide route; flash_wide_f32_kernel takes 96), with its
+# online softmax in float32.
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -302,12 +307,14 @@ def _mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return (al @ bh + ah @ bl) + ah @ bh
 
 
-def _attention_tf32(q, k, v, *, causal, window, softcap, passes=3):
+def _attention_tf32(q, k, v, *, causal, window, softcap, passes=3,
+                    BK=None):
     """(BH, S, d) float32 attention with the kernel's products and online
-    softmax over its key tiles."""
+    softmax over its key tiles (``BK`` keys, by default flash_f32_kernel's
+    and the general wide kernel's)."""
     BH, Sq, d = q.shape
     Skv = k.shape[1]
-    BK = 64 if d <= 64 else 32
+    BK = BK or (64 if d <= 64 else 32)
     scale = d ** -0.5
     m = torch.full((BH, Sq, 1), -1e30)
     l = torch.zeros((BH, Sq, 1))
@@ -368,6 +375,20 @@ def test_3xtf32_design_matches_plain(B, Sq, Skv, H, d, causal, window,
     q, k, v = _fold_case(B, Sq, Skv, H, d)
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = _attention_tf32(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert _rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", WIDE_CASES)
+def test_3xtf32_design_in_wide_tiles_matches_plain(B, Sq, Skv, H, d, causal,
+                                                   window, softcap):
+    """The wide float32 kernel (flash_wide_f32_kernel) computes S once a
+    tile of 96 keys: the same 3xTF32 products over its tiles keep the
+    float32 contract."""
+    q, k, v = _fold_case(B, Sq, Skv, H, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _attention_tf32(q, k, v, BK=96, **kw)
     want = attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     assert _rel_l2(got, want) <= 1e-5
