@@ -80,10 +80,15 @@ Then the wide routes (d > 256) at DeepSeek-V2-236B's absorbed MLA
 width, d = 576, causal, Sq = Skv = 4096, 16 of its 128 heads (a cut), at
 float32, bfloat16 and float16: one launch each of ``flash_wide`` (S once
 a key tile for every output column), then the same inputs copied one
-element past a 16-byte boundary, one launch each of
-``flash_wide_general``, each held to the plain version at its dtype's
-limits and timed beside SDPA at that dtype (the backend it picks
-named).  Then the decoder-only model path
+element past a 16-byte boundary, which TMA cannot describe: three
+launches each of ``flash_realign`` (the copy of each into padded,
+aligned scratch, timed beside its byte bound) and one of ``flash_wide``;
+the same at d = 569 (d % 8 != 0): four ``flash_realign`` launches, the
+output padded and cut back (the unpad timed beside its byte bound), and
+one ``flash_wide``; then (4, 1024, 640) causal, past ``flash_wide``'s
+widest head, one launch each of ``flash_wide_general``; each held to
+the plain version at its dtype's limits and timed beside SDPA at that
+dtype (the backend it picks named).  Then the decoder-only model path
 (``run_models``)
 with its own launch counts: Qwen3-0.6B at full width in bf16, through
 ``models.api``, serving two groups of ``serve.batcher.plan``'s replicas
@@ -1455,6 +1460,14 @@ FLASH_LIMITS = {torch.float32: (2e-5, 1e-5),
 # its 128 heads (a cut)
 WIDE_SRC = "src/repro/configs/deepseek_v2_236b.py"
 WIDE_D, WIDE_S, WIDE_H, WIDE_H_FULL = 576, 4096, 16, 128
+# the general wide kernel's shapes: a head past flash_wide's widest (576),
+# causal, at a quarter of the heads and of the length above
+WIDE_G_SHAPE, WIDE_G_NAME = (4, 1024, 640), "d 640 (past 576)"
+# a head with d % 8 != 0 on the realigned route, at the shape above: the
+# output is padded and cut back (unpad); rows of 569 elements start at
+# every element offset within a 16-byte segment, and at float32 the last
+# 16 bytes of each padded row lie wholly past d (zeroed)
+WIDE_U_D = 569
 
 
 def flex_yardstick(qf, kf, vf, window: int, softcap: float):
@@ -1516,18 +1529,44 @@ def within_limits(name: str, got: torch.Tensor, want: torch.Tensor,
     return e, rel
 
 
+def wide_sdpa(q, k, v, want) -> tuple:
+    """SDPA (``is_causal``) on folded ``(BH, S, d)`` inputs: its time where
+    its result is within the dtype's relative L2 of the plain version's
+    ``want`` (else None), the backend it picks, and that relative L2."""
+    def sdpa(q4=q[None], k4=k[None], v4=v[None]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)[0]
+    rel = float((sdpa().float() - want).norm() / want.norm())
+    ok = rel <= FLASH_LIMITS[q.dtype][1]
+    return (device_ms(sdpa) if ok else None,
+            sdpa_backend(q[None], k[None], v[None]), rel)
+
+
+def wide_bound(q, ops: float) -> tuple:
+    """K5's bound for ``ops`` operations on q, k, v and out like ``q``:
+    3xTF32 (three tensor-core passes) at float32, the 16-bit tensor-core
+    rate otherwise; with the bytes."""
+    nbytes = 4 * q.numel() * q.element_size()
+    if q.dtype == torch.float32:
+        return (*bound(nbytes, 3 * ops, TF32_OPS_PER_S), nbytes)
+    return (*bound(nbytes, ops, BF16_TC_OPS_PER_S), nbytes)
+
+
 def run_flash_wide(cuda: torch.device, normal) -> list:
     """K5's wide routes (d > 256) at DeepSeek-V2's absorbed MLA width: q,
     k, v of (16, 4096, 576), causal, at float32, bfloat16 and float16,
     each through ``ops.flash_attention`` with its own launch count (one
     ``flash_wide`` launch, nothing else), then the same inputs copied one
-    element past a 16-byte boundary with their own (one
-    ``flash_wide_general`` launch), each output held to the plain version
-    at its dtype's limits and timed beside its bound, the plain version
-    and SDPA at that dtype (the backend it picks named).  Returns the
-    entries ``flash_wide`` and ``flash_wide_general`` of the kernels'
-    record (top-level numbers at bfloat16; every dtype's under
-    ``shapes``)."""
+    element past a 16-byte boundary with their own (three ``flash_realign``
+    launches, one a tensor, and one ``flash_wide``), the copy alone timed
+    beside its byte bound and held bit for bit to its plain version, and
+    at d % 8 != 0 (``run_flash_wide_unpadded``); then (``WIDE_G_SHAPE``) a
+    head past 576, one ``flash_wide_general`` launch a dtype.  Each output
+    held to the plain version at its dtype's limits and timed beside its
+    bound, the plain version and SDPA at that dtype (the backend it picks
+    named).  Returns the entries ``flash_wide``,
+    ``flash_realign`` and ``flash_wide_general`` of the kernels' record
+    (top-level numbers at bfloat16; every dtype's under ``shapes``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels._compare import unaligned
     from repro_torch.kernels.flash import ops as flash_ops
@@ -1537,10 +1576,11 @@ def run_flash_wide(cuda: torch.device, normal) -> list:
     log("wide", f"DeepSeek-V2-236B absorbed attention ({WIDE_SRC}): d "
         f"{WIDE_D} (kv_lora_rank 512 + qk_rope_dim 64), causal, Sq = Skv = "
         f"{WIDE_S}; cut: {WIDE_H} of its {WIDE_H_FULL} heads")
-    pairs = causal_pairs(WIDE_S, 0)
-    ops = 4 * WIDE_H * WIDE_D * pairs
-    rows, grows, n, gn = [], [], 0, 0
+
+    ops = 4 * WIDE_H * WIDE_D * causal_pairs(WIDE_S, 0)
+    rows, urows, crows, n, cn = [], [], [], 0, 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        dname = str(dtype)[6:]
         q, k, v = (normal((WIDE_H, WIDE_S, WIDE_D), torch.float32).to(dtype)
                    for _ in range(3))
         _build.launches.clear()
@@ -1549,85 +1589,255 @@ def run_flash_wide(cuda: torch.device, normal) -> list:
         launches = dict(_build.launches)
         check(launches == {"flash_wide": 1}, f"flash wide {dtype}: "
               f"launches {launches}, not one flash_wide and nothing else")
-        n += launches.get("flash_wide", 0)
-        # the general wide kernel: the same inputs at bases TMA cannot
-        # describe
+        # the same inputs at bases TMA cannot describe: realigned into
+        # padded, aligned scratch, then flash_wide
         general = tuple(unaligned(x) for x in (q, k, v))
         check(all(x.data_ptr() % 16 != 0 for x in general),
               "flash wide: the unaligned copies lie on 16-byte boundaries")
         _build.launches.clear()
-        gout = flash_ops.flash_attention(*general, causal=True)
+        uout = flash_ops.flash_attention(*general, causal=True)
         torch.cuda.synchronize()
-        glaunches = dict(_build.launches)
-        check(glaunches == {"flash_wide_general": 1}, f"flash wide {dtype} "
-              f"at unaligned bases: launches {glaunches}, not one "
-              f"flash_wide_general and nothing else")
-        gn += glaunches.get("flash_wide_general", 0)
-        for name, x in (("flash_wide", out), ("flash_wide_general", gout)):
+        ulaunches = dict(_build.launches)
+        check(ulaunches == {"flash_realign": 3, "flash_wide": 1},
+              f"flash wide {dtype} at unaligned bases: launches "
+              f"{ulaunches}, not three flash_realign and one flash_wide")
+        n += launches["flash_wide"] + ulaunches["flash_wide"]
+        cn += ulaunches["flash_realign"]
+        for name, x in (("flash_wide", out), ("realigned", uout)):
             check(x.shape == q.shape and x.dtype == dtype
                   and bool(torch.isfinite(x).all()), f"{name} {dtype}: "
                   f"output is not finite {dtype} of shape {tuple(q.shape)}")
         want = flash_ref.attention_ref(q, k, v, causal=True).float()
         e, rel = within_limits(f"wide {dtype}", out, want, dtype)
-        ge, grel = within_limits(f"wide general {dtype}", gout, want, dtype)
-        nbytes = 4 * q.numel() * q.element_size()
-        if dtype == torch.float32:   # 3xTF32: three tensor-core passes
-            b_ms, b_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
-        else:
-            b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
-
-        def sdpa(q4=q[None], k4=k[None], v4=v[None]):
-            return torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True)[0]
-        lib_rel = float((sdpa().float() - want).norm() / want.norm())
-        lib_ok = lib_rel <= FLASH_LIMITS[dtype][1]
-        row = {"shape": f"deepseek-v2 absorbed {str(dtype)[6:]}",
-               "source": WIDE_SRC, "dtype": str(dtype)[6:], "BH": WIDE_H,
+        ue, urel = within_limits(f"wide realigned {dtype}", uout, want,
+                                 dtype)
+        b_ms, b_by, nbytes = wide_bound(q, ops)
+        lib_ms, backend, lib_rel = wide_sdpa(q, k, v, want)
+        row = {"shape": f"deepseek-v2 absorbed {dname}",
+               "source": WIDE_SRC, "dtype": dname, "BH": WIDE_H,
                "S": WIDE_S, "d": WIDE_D, "window": 0, "softcap": 0.0,
                "max_abs_err": e, "rel_l2_err": rel,
                "ms": device_ms(lambda: flash_ops.flash_attention(
                    q, k, v, causal=True)),
                "plain_ms": device_ms(lambda: flash_ref.attention_ref(
                    q, k, v, causal=True), reps=3),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": device_ms(sdpa) if lib_ok else None,
-               "library": sdpa_backend(q[None], k[None], v[None])}
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "library": backend}
         log("wide", f"{row['shape']} (BH {WIDE_H}, {WIDE_S}, {WIDE_D}): "
             f"max |kernel - plain| {e:.3g}, relative L2 {rel:.3g} (limits "
             f"{FLASH_LIMITS[dtype]}); ms {row['ms']:.4f}, plain_ms "
             f"{row['plain_ms']:.4f}, bound_ms {b_ms:.4f} ({b_by}; {ops} "
             f"operations{', x3 over TF32' if dtype == torch.float32 else ''}"
-            f", {nbytes} bytes); library_ms {row['library_ms']} (SDPA, "
-            f"is_causal, backend {row['library']}; relative L2 "
-            f"{lib_rel:.3g} off the plain version"
-            + ("" if lib_ok else ": above the limit, so not timed as this "
-               "function") + ")")
-        grow = dict(row, max_abs_err=ge, rel_l2_err=grel,
+            f", {nbytes} bytes); library_ms {lib_ms} (SDPA, is_causal, "
+            f"backend {backend}; relative L2 {lib_rel:.3g} off the plain "
+            f"version" + ("" if lib_ms is not None else ": above the limit, "
+                          "so not timed as this function") + ")")
+        # the copy alone, one tensor: its bytes read once and written once
+        x0 = general[0]
+        got = flash_ops.pad8(x0)
+        check(torch.equal(got.view(torch.uint8),
+                          flash_ref.pad8_ref(x0).view(torch.uint8)),
+              f"flash_realign {dtype}: the copy differs from its plain "
+              f"version")
+        cbytes = x0.numel() * x0.element_size() + got.numel() * \
+            got.element_size()
+        c_ms, c_by = bound(cbytes, 0)
+        crow = {"shape": f"deepseek-v2 absorbed {dname}, one tensor",
+                "dtype": dname, "BH": WIDE_H, "S": WIDE_S, "d": WIDE_D,
+                "offset_bytes": x0.data_ptr() % 16, "max_abs_err": 0.0,
+                "ms": device_ms(lambda: flash_ops.pad8(x0)),
+                "plain_ms": device_ms(lambda: flash_ref.pad8_ref(x0)),
+                "bound_ms": c_ms, "bound_by": c_by,
+                "library_ms": device_ms(
+                    lambda: torch.nn.functional.pad(x0, (0, 0))),
+                "bytes": cbytes}
+        urow = dict(row, shape=f"deepseek-v2 absorbed {dname}, unaligned "
+                    f"bases: flash_realign x3 + flash_wide",
+                    max_abs_err=ue, rel_l2_err=urel,
                     ms=device_ms(lambda: flash_ops.flash_attention(
                         *general, causal=True)))
-        log("wide", f"{row['shape']} general route (flash_wide_general, "
-            f"unaligned copies): max |kernel - plain| {ge:.3g}, relative L2 "
-            f"{grel:.3g}; ms {grow['ms']:.4f}")
+        log("wide", f"{crow['shape']}: flash_realign (bases "
+            f"{crow['offset_bytes']} bytes past 16) {crow['ms']:.4f} ms "
+            f"against its bound {c_ms:.4f} ms ({cbytes} bytes over "
+            f"{HBM_BYTES_PER_S:.3g} B/s: {c_ms / crow['ms']:.1%} of it), "
+            f"bit for bit its plain version (plain_ms {crow['plain_ms']:.4f}"
+            f"; library_ms {crow['library_ms']:.4f}: "
+            f"torch.nn.functional.pad, the plain version's call); three "
+            f"copies a call, bound {3 * c_ms:.4f} ms")
+        log("wide", f"{row['shape']} unaligned route (flash_realign x3 + "
+            f"flash_wide on the scratch): max |kernel - plain| {ue:.3g}, "
+            f"relative L2 {urel:.3g}; ms {urow['ms']:.4f} = flash_wide on "
+            f"aligned inputs {row['ms']:.4f} + {urow['ms'] - row['ms']:.4f}"
+            f" (three copies alone {3 * crow['ms']:.4f})")
         rows.append(row)
-        grows.append(grow)
-        del q, k, v, out, gout, general, want
+        urows.append(urow)
+        crows.append(crow)
+        del q, k, v, out, uout, general, want, got, x0
+        prow, pcrow = run_flash_wide_unpadded(normal, dtype)
+        urows.append(prow)
+        crows.append(pcrow)
+        n += 1
+        cn += 4
     torch.cuda.empty_cache()
+    grows = run_flash_wide_general(normal)
     log("wide", f"the wide phase took {time.perf_counter() - t_phase:.1f} s")
     top = "deepseek-v2 absorbed bfloat16"
-    return [flash_entry("flash_wide", n, max(r["max_abs_err"] for r in rows),
-                        rows, top),
-            flash_entry("flash_wide_general", gn,
-                        max(r["max_abs_err"] for r in grows), grows, top)]
+    return [flash_entry("flash_wide", n, max(r["max_abs_err"]
+                                             for r in rows + urows),
+                        rows + urows, top),
+            flash_entry("flash_realign", cn, 0.0, crows, f"{top}, one tensor",
+                        source="src/repro_torch/kernels/flash/realign.cu"),
+            flash_entry("flash_wide_general", len(grows),
+                        max(r["max_abs_err"] for r in grows), grows,
+                        f"{WIDE_G_NAME} bfloat16")]
 
 
-def flash_entry(name: str, n: int, e: float, shape_rows: list,
-                top: str) -> dict:
+def run_flash_wide_unpadded(normal, dtype: torch.dtype) -> tuple:
+    """The realigned route where d % 8 != 0: (``WIDE_H``, ``WIDE_S``,
+    ``WIDE_U_D``) causal on copies one element past a 16-byte boundary,
+    four ``flash_realign`` launches (q, k and v padded, the output cut
+    back) and one ``flash_wide``, the output held to the plain version at
+    ``dtype``'s limits and timed beside its bound, the plain version and
+    SDPA; then the two copies alone on one tensor, each held bit for bit
+    to its plain version, and the unpad timed beside its byte bound.
+    Returns the route's row and the unpad's row of the kernels' record."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._compare import unaligned
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    d, dname = WIDE_U_D, str(dtype)[6:]
+    q, k, v = (normal((WIDE_H, WIDE_S, d), torch.float32).to(dtype)
+               for _ in range(3))
+    general = tuple(unaligned(x) for x in (q, k, v))
+    check(all(x.data_ptr() % 16 != 0 for x in general),
+          "flash wide: the unaligned copies lie on 16-byte boundaries")
+    _build.launches.clear()
+    out = flash_ops.flash_attention(*general, causal=True)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    check(launches == {"flash_realign": 4, "flash_wide": 1},
+          f"flash wide {dtype} at d {d}, unaligned bases: launches "
+          f"{launches}, not four flash_realign and one flash_wide")
+    check(out.shape == q.shape and out.dtype == dtype
+          and bool(torch.isfinite(out).all()), f"realigned {dtype} d {d}: "
+          f"output is not finite {dtype} of shape {tuple(q.shape)}")
+    want = flash_ref.attention_ref(q, k, v, causal=True).float()
+    e, rel = within_limits(f"wide realigned {dtype} d {d}", out, want, dtype)
+    ops = 4 * WIDE_H * d * causal_pairs(WIDE_S, 0)
+    b_ms, b_by, nbytes = wide_bound(q, ops)
+    lib_ms, backend, lib_rel = wide_sdpa(q, k, v, want)
+    row = {"shape": f"deepseek-v2 absorbed {dname}, d {d}, unaligned "
+           f"bases: flash_realign x4 + flash_wide", "source": WIDE_SRC,
+           "dtype": dname, "BH": WIDE_H, "S": WIDE_S, "d": d, "window": 0,
+           "softcap": 0.0, "max_abs_err": e, "rel_l2_err": rel,
+           "ms": device_ms(lambda: flash_ops.flash_attention(
+               *general, causal=True)),
+           "plain_ms": device_ms(lambda: flash_ref.attention_ref(
+               q, k, v, causal=True), reps=3),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "library": backend}
+    log("wide", f"{row['shape']} (BH {WIDE_H}, {WIDE_S}, {d}): max |kernel "
+        f"- plain| {e:.3g}, relative L2 {rel:.3g}; ms {row['ms']:.4f}, "
+        f"plain_ms {row['plain_ms']:.4f}, bound_ms {b_ms:.4f} ({b_by}; "
+        f"{nbytes} bytes); library_ms {lib_ms} (SDPA, backend {backend}; "
+        f"relative L2 {lib_rel:.3g} off the plain version"
+        + ("" if lib_ms is not None else ": above the limit, so not timed "
+           "as this function") + ")")
+    # the copies alone on one tensor: pad (at float32 with units wholly
+    # past d), then unpad of its result (rows at every element offset)
+    x0 = general[0]
+    p = flash_ops.pad8(x0)
+    check(torch.equal(p.view(torch.uint8),
+                      flash_ref.pad8_ref(x0).view(torch.uint8)),
+          f"flash_realign {dtype} d {d}: the pad differs from its plain "
+          f"version")
+    got = flash_ops.unpad8(p, d)
+    check(torch.equal(got.view(torch.uint8),
+                      flash_ref.unpad8_ref(p, d).view(torch.uint8)),
+          f"flash_realign {dtype} d {d}: the unpad differs from its plain "
+          f"version")
+    cbytes = (p.numel() + got.numel()) * p.element_size()
+    c_ms, c_by = bound(cbytes, 0)
+    crow = {"shape": f"deepseek-v2 absorbed {dname}, d {d}, unpad, one "
+            f"tensor", "dtype": dname, "BH": WIDE_H, "S": WIDE_S, "d": d,
+            "offset_bytes": got.data_ptr() % 16, "max_abs_err": 0.0,
+            "ms": device_ms(lambda: flash_ops.unpad8(p, d)),
+            "plain_ms": device_ms(lambda: flash_ref.unpad8_ref(p, d)),
+            "bound_ms": c_ms, "bound_by": c_by,
+            "library_ms": device_ms(lambda: p[..., :d].contiguous()),
+            "bytes": cbytes}
+    log("wide", f"{crow['shape']}: flash_realign unpad ({tuple(p.shape)} -> "
+        f"{tuple(got.shape)}) {crow['ms']:.4f} ms against its bound "
+        f"{c_ms:.4f} ms ({cbytes} bytes over {HBM_BYTES_PER_S:.3g} B/s: "
+        f"{c_ms / crow['ms']:.1%} of it), bit for bit its plain version, "
+        f"as the pad is (plain_ms {crow['plain_ms']:.4f}; library_ms "
+        f"{crow['library_ms']:.4f}: the slice made contiguous, the plain "
+        f"version's call); the route {row['ms']:.4f} ms")
+    del q, k, v, general, out, want, p, got, x0
+    return row, crow
+
+
+def run_flash_wide_general(normal) -> list:
+    """The general wide kernel where the wrapper sends it: a head past
+    ``flash_wide``'s widest, ``WIDE_G_SHAPE`` causal at float32, bfloat16
+    and float16, one ``flash_wide_general`` launch each and nothing else,
+    held to the plain version and timed beside its bound, the plain
+    version and SDPA.  Returns its rows of the kernels' record."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    BH, S, d = WIDE_G_SHAPE
+    ops = 4 * BH * d * causal_pairs(S, 0)
+    grows = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v = (normal(WIDE_G_SHAPE, torch.float32).to(dtype)
+                   for _ in range(3))
+        _build.launches.clear()
+        out = flash_ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        check(launches == {"flash_wide_general": 1}, f"flash wide general "
+              f"{dtype} at d {d}: launches {launches}, not one "
+              f"flash_wide_general and nothing else")
+        check(out.shape == q.shape and bool(torch.isfinite(out).all()),
+              f"flash_wide_general {dtype}: output not finite")
+        want = flash_ref.attention_ref(q, k, v, causal=True).float()
+        e, rel = within_limits(f"wide general {dtype}", out, want, dtype)
+        b_ms, b_by, _ = wide_bound(q, ops)
+        lib_ms, backend, lib_rel = wide_sdpa(q, k, v, want)
+        grow = {"shape": f"{WIDE_G_NAME} {str(dtype)[6:]}",
+                "dtype": str(dtype)[6:], "BH": BH, "S": S, "d": d,
+                "window": 0, "softcap": 0.0, "max_abs_err": e,
+                "rel_l2_err": rel,
+                "ms": device_ms(lambda: flash_ops.flash_attention(
+                    q, k, v, causal=True)),
+                "plain_ms": device_ms(lambda: flash_ref.attention_ref(
+                    q, k, v, causal=True), reps=5),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "library": backend}
+        log("wide", f"{grow['shape']} {WIDE_G_SHAPE} causal "
+            f"(flash_wide_general): max |kernel - plain| {e:.3g}, relative "
+            f"L2 {rel:.3g}; ms {grow['ms']:.4f}, plain_ms "
+            f"{grow['plain_ms']:.4f}, bound_ms {b_ms:.4f} ({b_by}); "
+            f"library_ms {grow['library_ms']} (SDPA, backend "
+            f"{grow['library']}; relative L2 {lib_rel:.3g} off the plain "
+            f"version" + ("" if lib_ms is not None else ": above the limit, "
+                          "so not timed as this function") + ")")
+        grows.append(grow)
+        del q, k, v, out, want
+    return grows
+
+
+def flash_entry(name: str, n: int, e: float, shape_rows: list, top: str,
+                source: str = "src/repro_torch/kernels/flash/flash.cu"
+                ) -> dict:
     """One K5 route's entry of the kernels' record: the top-level numbers
     from the row of shape ``top``, every row under ``shapes``."""
     top = next(r for r in shape_rows if r["shape"] == top)
     return {
-        "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/flash/flash.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": "src/repro/kernels/flash/flash.py:94",
         "launches": n, "max_abs_err": e,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
@@ -1811,10 +2021,10 @@ def run_flash(cuda: torch.device) -> list:
     """K5 at full model width: bf16, then float16, on the three shapes
     (``run_flash_16``: the Hopper kernel and the general one, each with
     its own launch counts), one float32 check with its own launch count,
-    and the wide routes at d = 576 (``run_flash_wide``).  Returns K5's
-    entries of the kernels' record: ``flash``, ``flash_general``,
-    ``flash_f16``, ``flash_f16_general``, ``flash_f32``, ``flash_wide``
-    and ``flash_wide_general``."""
+    and the wide routes (``run_flash_wide``).  Returns K5's entries of
+    the kernels' record: ``flash``, ``flash_general``, ``flash_f16``,
+    ``flash_f16_general``, ``flash_f32``, ``flash_wide``,
+    ``flash_realign`` and ``flash_wide_general``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref

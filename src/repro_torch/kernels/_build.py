@@ -25,12 +25,13 @@ import pathlib
 import torch
 
 _HERE = pathlib.Path(__file__).resolve().parent
-#: kernel name -> its source (K1-K5)
+#: kernel name -> its source (K1-K5, and K5's realigning copy)
 SOURCES = {"sat": _HERE / "sat" / "sat.cu",
            "probe": _HERE / "probe" / "probe.cu",
            "rectload": _HERE / "rectload" / "rectload.cu",
            "sat3": _HERE / "sat" / "sat3d.cu",
-           "flash": _HERE / "flash" / "flash.cu"}
+           "flash": _HERE / "flash" / "flash.cu",
+           "flash_realign": _HERE / "flash" / "realign.cu"}
 BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 
 #: Kernel launches by kernel name (``sat``, ``rectload``; K2 by route:
@@ -40,8 +41,10 @@ BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 #: kernel at bf16 and float16, ``flash_general`` and ``flash_f16_general``
 #: for the general kernel at bf16 and float16, ``flash_f32`` for float32,
 #: each at d <= 256; above, at every dtype, ``flash_wide`` for the kernels
-#: that compute S once a key tile (what TMA could describe, d <= 576) and
-#: ``flash_wide_general`` for the rest).
+#: that compute S once a key tile (what TMA can describe, d <= 576; other
+#: shapes up to d = 576 after ``flash_realign``, the copy into padded,
+#: aligned scratch, one launch a tensor copied) and ``flash_wide_general``
+#: for the rest: d > 576 and Skv = 0).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -70,6 +73,7 @@ _SIGNATURES = {
                               _P],
     "repro_flash_attn_f16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                              _P],
+    "repro_flash_realign": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

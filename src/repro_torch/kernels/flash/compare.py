@@ -18,12 +18,13 @@ under ``build/flash_compare/`` (its C entry points as
 ``kernels/_build.py`` declares them), with ``-Xptxas -v``.  Then, on one
 card:
 
-- each build's SASS (``cuobjdump -sass``) against ``this``'s for the
-  kernels a change of the wide route must leave as they are: the Hopper
-  kernel ``flash_wgmma_kernel`` and the general kernel
-  ``flash_general_kernel`` at each compiled width at bfloat16 and
-  float16, ``flash_f32_kernel`` at each width, and the general wide
-  kernel ``flash_wide_kernel`` at each dtype;
+- each build's SASS (``cuobjdump -sass``) against ``this``'s for every
+  K5 kernel either build has (21 in this checkout: the Hopper kernel
+  ``flash_wgmma_kernel`` and the general kernel ``flash_general_kernel``
+  at each compiled width at bfloat16 and float16, ``flash_f32_kernel`` at
+  each width, the wide Hopper kernel ``flash_wide_wgmma_kernel`` at
+  bfloat16 and float16, ``flash_wide_f32_kernel``, and the general wide
+  kernel ``flash_wide_kernel`` at each dtype);
 - ``repro_flash_attn_bf16`` at ``chip_smoke.py``'s three K5 shapes
   (Gemma-2-9B local and global, Qwen3-0.6B; B=1, S=8192, 16 heads,
   causal), on aligned inputs (the Hopper kernel, return code 0) and on
@@ -34,10 +35,17 @@ card:
 - the wide route at ``chip_smoke.py``'s d = 576 shape, (16, 4096, 576)
   causal, at bfloat16, float16 and float32: on aligned inputs
   (``flash_wide``, return code -2 at 16 bits, -1 at float32) and on
-  copies one element past a 16-byte boundary (``flash_wide_general``,
-  -3 and -2; an older build returns the code of whichever kernel it
-  takes there, printed), held to ``this``'s output at each dtype's limit
-  (2e-2, 5e-3, 2e-5) and timed the same way;
+  copies one element past a 16-byte boundary, where ``this`` runs the
+  wrapper's route (``ops.flash_attention``: three ``flash_realign``
+  copies into aligned scratch, then ``flash_wide``, counted; built by
+  ``_build`` from this checkout's sources) and every other build its C
+  entry point (the parent's ``flash_wide_general``, -3 and -2; the code
+  printed), held to ``this``'s output at each dtype's limit (2e-2, 5e-3,
+  2e-5) and timed the same way (each side one call: the route's into a
+  fresh output, an entry point's into one output made once; the route's
+  ``flash_wide`` is the same source and flags as ``this.so``'s); beside
+  them the copy alone (``ops.pad8`` on one of those inputs) and its byte
+  bound;
 - ``flash_f32`` (return code 0 at float32) at (16, 2048, d) causal: d =
   128 (``chip_smoke.py``'s float32 check), and d = 256 with softcap 50
   and q 8x larger (held at 1e-4: a build that sums a row on the tensor
@@ -66,6 +74,7 @@ import time
 import torch
 
 from .. import _build, _compare
+from . import ops
 
 _HERE = pathlib.Path(__file__).resolve().parent
 OUT_DIR = _build.BUILD_DIR.parent / "flash_compare"
@@ -79,6 +88,7 @@ SHAPES = [("gemma2-9b local", 16, 8, 256, 4096, 50.0),
           ("gemma2-9b global", 16, 8, 256, 0, 50.0),
           ("qwen3-0.6b", 16, 8, 128, 0, 0.0)]
 TOL = 2e-2
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 
 
 def inputs(cuda: torch.device) -> dict:
@@ -179,13 +189,9 @@ def _kernel_name(name: str) -> str:
     return name.split("(")[0].removeprefix("void ")
 
 
-#: the kernels whose SASS every build is held to: what a change of the
-#: wide route leaves as it is
-SAME_SASS = [f"{k}<{t}, {D}>" for k in ("flash_wgmma_kernel",
-                                         "flash_general_kernel")
-             for t in ("bf16", "f16") for D in (64, 128, 256)] + \
-    [f"flash_f32_kernel<{D}>" for D in (64, 128, 256)] + \
-    [f"flash_wide_kernel<{t}>" for t in ("float", "bf16", "f16")]
+#: the wrapper's route on unaligned wide inputs: ``this`` runs
+#: ``ops.flash_attention``, the other builds their C entry point
+REALIGNED = "realigned"
 
 
 def main(argv=None) -> int:
@@ -219,7 +225,7 @@ def main(argv=None) -> int:
     this = _compare.sass(OUT_DIR / "this.so", _kernel_name)
     for name in [n for n in libs if n != "this"]:
         other = _compare.sass(OUT_DIR / f"{name}.so", _kernel_name)
-        for key in SAME_SASS:
+        for key in sorted(set(this) | set(other)):
             same = key in this and this.get(key) == other.get(key)
             record["sass_equal"][f"{name} {key}"] = same
             print(f"{key} SASS: {name} {'=' if same else '!='} this "
@@ -244,7 +250,7 @@ def main(argv=None) -> int:
                                device=cuda).to(dt) for _ in range(3))
         name = f"deepseek-v2 absorbed {str(dt)[6:]}"
         cases += [(name, "flash_wide", code, xs, 0, 0.0, tol),
-                  (name, "flash_wide_general", code - 1,
+                  (name, REALIGNED, code - 1,
                    tuple(_compare.unaligned(x) for x in xs), 0, 0.0, tol)]
     # float32 up to d = 256: chip_smoke.py's check, and Gemma-2's width
     # and softcap with q 8x larger, where a build that sums each row on
@@ -255,18 +261,38 @@ def main(argv=None) -> int:
                    for _ in range(3))
         cases.append((f"float32 d {d} softcap {softcap:g} q x{scale:g}",
                       "flash_f32", 0, (q * scale, k, v), 0, softcap, tol))
+    record["realign"] = {}
     for shape, route, code, xs, window, softcap, tol in cases:
         o = torch.empty_like(xs[0])
         want = None
+
+        def run(name, lib, o=o, xs=xs, window=window, softcap=softcap,
+                route=route):
+            # the wrapper's route returns a fresh output, timed as it is;
+            # a C entry point writes into o
+            if name == "this" and route == REALIGNED:
+                return ops.flash_attention(*xs, causal=True, window=window,
+                                           softcap=softcap)
+            return call(lib, *xs, o, window, softcap)
+
         for name, lib in libs.items():
             o.zero_()
-            ret = call(lib, *xs, o, window, softcap)
-            torch.cuda.synchronize()
-            # this build takes the case's route; an older one may choose
-            # among other kernels, but must launch one
-            if ret != code if name == "this" else ret > 0:
-                raise RuntimeError(f"{name} {shape} {route}: returned "
-                                   f"{ret}, not {code}")
+            if name == "this" and route == REALIGNED:
+                _build.launches.clear()
+                o.copy_(run(name, lib))   # held once, outside the timing
+                torch.cuda.synchronize()
+                ret = dict(_build.launches)
+                if ret != {"flash_realign": 3, "flash_wide": 1}:
+                    raise RuntimeError(f"this {shape} {route}: launches "
+                                       f"{ret}")
+            else:
+                ret = run(name, lib)
+                torch.cuda.synchronize()
+                # this build takes the case's route; an older one may
+                # choose among other kernels, but must launch one
+                if ret != code if name == "this" else ret > 0:
+                    raise RuntimeError(f"{name} {shape} {route}: returned "
+                                       f"{ret}, not {code}")
             record["ret"][f"{name} {shape} {route}"] = ret
             if name in BREAKDOWN:
                 record["max_abs_err"][f"{name} {shape} {route}"] = None
@@ -284,9 +310,21 @@ def main(argv=None) -> int:
         times = {name: [] for name in libs}
         for name in list(libs) + list(libs)[::-1]:
             times[name].append(_compare.device_ms(
-                lambda lib=libs[name]: call(lib, *xs, o, window,
-                                            softcap)))
+                lambda name=name: run(name, libs[name])))
         record["ms"][f"{shape} {route}"] = times
+        if route == REALIGNED:   # the copy alone: one tensor's bytes
+            x = xs[0]
+            nbytes = x.numel() * x.element_size() + \
+                ops.pad8(x).numel() * x.element_size()
+            ts = [_compare.device_ms(lambda: ops.pad8(x)) for _ in range(2)]
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            record["realign"][shape] = {"ms": ts, "bound_ms": bound,
+                                        "bytes": nbytes}
+            print(f"{shape} flash_realign alone {tuple(x.shape)} (base "
+                  f"{x.data_ptr() % 16} bytes past 16): "
+                  + ", ".join(f"{t:.4f}" for t in ts) + f" ms, bound "
+                  f"{bound:.4f} ms ({nbytes} bytes over 3.35 TB/s; "
+                  f"{bound / min(ts):.1%} of it)", flush=True)
         for name, ts in times.items():
             err = record["max_abs_err"][f"{name} {shape} {route}"]
             print(f"{shape} {route} {tuple(xs[0].shape)} "

@@ -26,10 +26,22 @@
 // heaviest query tiles first so the causal tail does not run alone.  The
 // key-tile loop starts at the first tile the window can reach and stops
 // after the last tile the causal mask allows.
-// No padded copies: rows past Sq and Skv arrive as zeros, and only Sq rows
-// are written.
+// No padded copies here: rows past Sq and Skv arrive as zeros, and only Sq
+// rows are written.  (Above d = 256 the wrapper, ops.flash_attention, may
+// copy a tensor into padded, aligned scratch first: realign.cu.)
 //
-// Six kernels, chosen by dtype and shape in the C entry points:
+// Six kernels, chosen by dtype and shape in the C entry points; above
+// d = 256 three routes, the middle one the wrapper's:
+//   flash_wide  d <= 576, 16-byte aligned bases, d % 8 == 0, Skv > 0
+//               (tma_shape): flash_wide_wgmma_kernel<T> at 16 bits,
+//               flash_wide_f32_kernel at float32;
+//   flash_realign, then flash_wide: the other shapes with Skv > 0 and
+//               d <= 576 after padding d to a multiple of 8: the wrapper
+//               copies each tensor TMA cannot describe into aligned
+//               scratch of that width (realign.cu) and calls this entry
+//               point on it, which takes flash_wide by the rule above;
+//   flash_wide_general  the rest, d > 576 and Skv = 0:
+//               flash_wide_kernel<T> at every dtype.
 //
 // * bfloat16 and float16 on Hopper (flash_wgmma_kernel<T, D>; launch keys
 //   "flash" and "flash_f16"), for d <= 256, d % 8 == 0 and 16-byte aligned
@@ -206,7 +218,9 @@
 //   skips its S of a tile where its rows keep none of its keys, its P V
 //   where they keep none of the tile's.
 // * d > 256, every dtype, every shape the two above do not take: bases
-//   not 16-byte aligned, d % 8 != 0, Skv = 0, d > 576
+//   not 16-byte aligned, d % 8 != 0, Skv = 0, d > 576; through the
+//   wrapper's route only d > 576 after padding and Skv = 0, the rest
+//   reaching flash_wide on realigned scratch
 //   (flash_wide_kernel<T>; launch key "flash_wide_general"): what no
 //   register tile of the others holds (an output row of d float32
 //   accumulators).  8 warps, each owning 16 of the block's 128 query

@@ -1,30 +1,45 @@
-"""Wrappers of the flash attention kernel K5 (``flash.cu``).
+"""Wrappers of the flash attention kernel K5 (``flash.cu``) and of the
+realigning copy in front of its wide route (``realign.cu``).
 
 A CUDA tensor goes through a kernel, a CPU tensor through the plain
-version in ``ref.py``; there is no other route.  Which kernel takes a
-CUDA call is the C entry point's choice, by dtype and shape.  Up to a
-head dim of 256: float32 the 3xTF32 tensor-core kernel (launch key
-``flash_f32``); bfloat16 the Hopper kernel (``flash``) where TMA can
-describe the tensors (d a multiple of 8, 16-byte aligned bases, at least
-one key) and elsewhere the general kernel (``flash_general``: the same
-``wgmma`` consumers behind a producer of threads); float16 the same two
-kernels at float16 (``flash_f16``, ``flash_f16_general``).  Above 256,
-at every dtype, ``flash_wide`` where TMA could describe the tensors (as
-above) and d <= 576: one block a 64-row query tile with every output
-column, so S is computed once a key tile (``wgmma`` at 16 bits, 3xTF32
-at float32); ``flash_wide_general`` for the rest (Q and K streamed in
-chunks of 64 columns, the output in slices of at most 256).  Each entry
-point returns which kernel it launched, and the launch is counted under
-that key.  The TPU kernel's tile sizes (``qc``, ``kc``) are not arguments
-here: tiles belong to the kernel, and the result depends on them only
-through the order of float summation.
+version in ``ref.py``; there is no other route.  Up to a head dim of 256
+the C entry point chooses the kernel, by dtype and shape: float32 the
+3xTF32 tensor-core kernel (launch key ``flash_f32``); bfloat16 the Hopper
+kernel (``flash``) where TMA can describe the tensors (d a multiple of
+8, 16-byte aligned bases, at least one key) and elsewhere the general
+kernel (``flash_general``: the same ``wgmma`` consumers behind a producer
+of threads); float16 the same two kernels at float16 (``flash_f16``,
+``flash_f16_general``).  Above 256, at every dtype, three routes:
+
+- ``flash_wide`` where TMA can describe the tensors and d <= 576: one
+  block a 64-row query tile with every output column, so S is computed
+  once a key tile (``wgmma`` at 16 bits, 3xTF32 at float32);
+- ``flash_realign`` then ``flash_wide`` for the other shapes with at
+  least one key and d <= 576 after padding (bases not 16-byte aligned, d
+  % 8 != 0): :func:`realign_plan` names the tensors to copy, each judged
+  by itself; :func:`pad8` copies each into fresh scratch with rows of dp
+  = d rounded up to a multiple of 8 (columns past d zero, which add
+  nothing to S), the C entry point runs on the scratch with d = dp and
+  the caller's scale (that of the real d), and where d % 8 != 0 the
+  kernel writes a padded output that :func:`unpad8` cuts back to d
+  columns.  The scratch costs one padded copy of each tensor copied: at
+  (16, 4096, 576) bf16 on unaligned bases 3 x 75.5 MB;
+- ``flash_wide_general`` for the rest, d > 576 after padding and Skv = 0
+  (Q and K streamed in chunks of 64 columns, the output in slices of at
+  most 256).
+
+Each entry point returns which kernel it launched, and the launch is
+counted under that key; each copy counts one ``flash_realign``.  The TPU
+kernel's tile sizes (``qc``, ``kc``) are not arguments here: tiles belong
+to the kernel, and the result depends on them only through the order of
+float summation.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_ref, pad8_ref, unpad8_ref
 
 _FN = {torch.float32: "repro_flash_attn_f32",
        torch.bfloat16: "repro_flash_attn_bf16",
@@ -36,6 +51,8 @@ _KEYS = {torch.float32: ("flash_f32", "flash_wide", "flash_wide_general"),
                           "flash_wide_general"),
          torch.float16: ("flash_f16", "flash_f16_general", "flash_wide",
                          "flash_wide_general")}
+#: widest head ``flash_wide`` takes (``hw::MAXD``, ``fw::MAXD`` in flash.cu)
+WIDE_MAXD = 576
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -59,6 +76,71 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention needs contiguous tensors")
 
 
+def padded(d: int) -> int:
+    """d rounded up to a multiple of 8: the row width of the scratch."""
+    return d + -d % 8
+
+
+def realign_plan(residues: tuple[int, int, int], d: int,
+                 skv: int) -> tuple[bool, bool, bool, bool] | None:
+    """Which tensors the wide route copies into padded, aligned scratch:
+    ``(q, k, v, o)`` for q, k and v whose data pointers are ``residues``
+    mod 16, head dim ``d`` and ``skv`` keys; None where the C entry point
+    takes the tensors as they are.
+
+    ``flash_wide`` takes what ``tma_shape`` (flash.cu:2733) admits, 16-byte
+    aligned bases, d % 8 == 0 and Skv > 0, up to d = ``hw::MAXD`` (576).
+    Above d = 256, with at least one key and d <= 576 after padding to a
+    multiple of 8, every other shape becomes one of those: each of q, k
+    and v is copied where its base is not 16-byte aligned or d % 8 != 0,
+    and the output is padded where d % 8 != 0 (a fresh tensor is always
+    aligned).  A choice by shape, not a fallback."""
+    if d <= 256 or skv == 0 or padded(d) > WIDE_MAXD:
+        return None
+    copy = tuple(r % 16 != 0 or d % 8 != 0 for r in residues)
+    return (*copy, d % 8 != 0) if any(copy) else None
+
+
+def _check_copy(x: torch.Tensor) -> None:
+    if x.dtype not in _FN:
+        raise TypeError(f"the realigning copy takes float16, float32 or "
+                        f"bfloat16, got {x.dtype}")
+    if x.ndim < 1 or not x.is_contiguous():
+        raise ValueError("the realigning copy needs a contiguous tensor")
+
+
+def pad8(x: torch.Tensor) -> torch.Tensor:
+    """(..., d) at any element boundary -> a fresh (..., dp) tensor, dp =
+    d rounded up to a multiple of 8, the columns past d zero; on the card
+    16-byte aligned with rows of a multiple of 16 bytes, what TMA can
+    describe.  One ``flash_realign`` launch (none for an empty tensor)."""
+    _check_copy(x)
+    if _build.on_cpu("flash_realign", x):
+        return pad8_ref(x)
+    d = x.shape[-1]
+    out = x.new_empty((*x.shape[:-1], padded(d)))
+    if x.numel():
+        _build.launch("flash_realign", "repro_flash_realign", x, out,
+                      x.numel() // d, d, x.element_size(), 0)
+    return out
+
+
+def unpad8(x: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., dp) from :func:`pad8`'s layout -> a fresh contiguous (..., d)
+    tensor of the first d columns.  One ``flash_realign`` launch (none for
+    an empty tensor)."""
+    _check_copy(x)
+    if x.shape[-1] != padded(d):
+        raise ValueError(f"unpad8: rows of {x.shape[-1]} do not pad d = {d}")
+    if _build.on_cpu("flash_realign", x):
+        return unpad8_ref(x, d)
+    out = x.new_empty((*x.shape[:-1], d))
+    if x.numel():
+        _build.launch("flash_realign", "repro_flash_realign", x, out,
+                      x.numel() // x.shape[-1], d, x.element_size(), 1)
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
@@ -76,11 +158,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _build.on_cpu("flash", q):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
-    o = torch.empty_like(q)
-    _build.launch(_KEYS[q.dtype], _FN[q.dtype], q, k, v, o, BH, Sq,
-                  k.shape[1], d, int(causal), int(window), float(softcap),
-                  float(scale))
-    return o
+    Skv = k.shape[1]
+    plan = realign_plan(tuple(x.data_ptr() % 16 for x in (q, k, v)), d, Skv)
+    if plan is None:
+        o = torch.empty_like(q)
+        _build.launch(_KEYS[q.dtype], _FN[q.dtype], q, k, v, o, BH, Sq, Skv,
+                      d, int(causal), int(window), float(softcap),
+                      float(scale))
+        return o
+    # the wide route on padded, aligned scratch (realign_plan); the scale
+    # stays the caller's, that of the real d
+    qs, ks, vs = (pad8(x) if c else x for x, c in zip((q, k, v), plan))
+    dp = padded(d)
+    o = q.new_empty((BH, Sq, dp)) if plan[3] else torch.empty_like(q)
+    _build.launch(_KEYS[q.dtype], _FN[q.dtype], qs, ks, vs, o, BH, Sq, Skv,
+                  dp, int(causal), int(window), float(softcap), float(scale))
+    return unpad8(o, d) if plan[3] else o
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

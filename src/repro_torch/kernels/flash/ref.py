@@ -1,7 +1,9 @@
-"""Plain PyTorch version of the flash attention kernel (K5)."""
+"""Plain PyTorch versions of the flash attention kernel (K5) and of the
+realigning copy in front of its wide route (``realign.cu``)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -52,3 +54,15 @@ def attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(ok[None], s, -torch.inf)
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
     return torch.einsum("bqk,bkd->bqd", p, v)
+
+
+def pad8_ref(x: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> a fresh (..., dp) copy, dp = d rounded up to a multiple
+    of 8, the columns past d zero."""
+    return F.pad(x, (0, -x.shape[-1] % 8))
+
+
+def unpad8_ref(x: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., dp) -> a fresh contiguous (..., d) copy of the first d
+    columns."""
+    return x[..., :d].contiguous()

@@ -142,9 +142,10 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 5e-3}
 #: relative L2 limit by dtype, ``||got - want|| / ||want||``
 FLASH_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2.5e-3}
 #: head dims of the wide route (d > 256) in the CPU tests: past the
-#: compiled widths, a multiple of 128, DeepSeek-V2's absorbed MLA width
-#: (kv_lora_rank 512 + qk_rope_dim 64)
-WIDE_DIMS = [257, 384, 576]
+#: compiled widths, d % 8 != 0 (300, and 575, the widest that pads to
+#: 576: the realigned route on the card), a multiple of 128, DeepSeek-V2's
+#: absorbed MLA width (kv_lora_rank 512 + qk_rope_dim 64)
+WIDE_DIMS = [257, 300, 384, 575, 576]
 
 
 def qkv(B, Sq, Skv, H, d, seed=0) -> tuple:

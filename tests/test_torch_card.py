@@ -566,12 +566,16 @@ def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0,
     q, k, v = (torch.from_numpy(x).to(dev, FLASH_DTYPES[dtype])
                for x in (q * np.float32(q_scale), k, v))
     before = {n: _build.launches[n] for n in FLASH_KEYS[dtype]}
+    copies = _build.launches["flash_realign"]
     got = flash_ops.attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
     added = {n: _build.launches[n] - c for n, c in before.items()}
     assert sum(added.values()) == 1
     if key is not None:
         assert added[key] == 1
+    # attention folds into fresh, aligned tensors
+    assert _build.launches["flash_realign"] - copies == \
+        _realigns(d, 0, dtype, Skv)
     torch.cuda.synchronize()
 
     def fold(x):
@@ -667,10 +671,12 @@ def _flash_folded(BH, Sq, Skv, d, dtype, key, *, offset=1, causal=True,
                for x in (q * np.float32(q_scale), k, v))
     if offset % (16 // q.element_size()):
         assert all(x.data_ptr() % 16 != 0 for x in (q, k, v))
-    n = _build.launches[key]
+    n, copies = _build.launches[key], _build.launches["flash_realign"]
     got = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
     assert _build.launches[key] == n + 1
+    assert _build.launches["flash_realign"] - copies == \
+        _realigns(d, offset, dtype, Skv)
     torch.cuda.synchronize()
     ref = flash_ref.attention_f64 if f64 else flash_ref.attention_ref
     want = ref(q, k, v, causal=causal, window=window, softcap=softcap)
@@ -853,19 +859,39 @@ def test_flash_f16_general_many_heads():
     _flash_folded(66000, 16, 16, 32, "float16", "flash_f16_general")
 
 
-# d > 256: two kernels at every dtype, chosen by shape.  flash_wide (S
-# once a key tile for every output column) takes what TMA could describe
-# up to d = 576: 16-byte aligned bases, d % 8 == 0, at least one key;
-# flash_wide_general takes the rest.
+# d > 256: three routes at every dtype, chosen by shape.  flash_wide (S
+# once a key tile for every output column) takes what TMA can describe up
+# to d = 576: 16-byte aligned bases, d % 8 == 0, at least one key.  Up to
+# 576 after padding d to a multiple of 8, with at least one key, the
+# wrapper first copies every other shape into padded, aligned scratch
+# (flash_realign: one launch a tensor it copies, and one for the output
+# where d % 8 != 0), then flash_wide takes it.  flash_wide_general takes
+# the rest: d > 576 after padding, Skv = 0.
 WIDE_D = [257, 300, 512, 576, 1000, 2048]
 WIDE_MAX = 576
 
 
+def _padded(d: int) -> int:
+    return d + -d % 8
+
+
 def _wide_key(d: int, offset: int = 0) -> str:
-    """The wide route the entry point picks for head dim ``d`` at bases
-    ``offset`` elements past a 16-byte boundary (0 for a fresh tensor)."""
-    aligned = offset == 0 and d % 8 == 0
-    return "flash_wide" if aligned and d <= WIDE_MAX else "flash_wide_general"
+    """The wide kernel that runs for head dim ``d`` with at least one key
+    at bases ``offset`` elements past a 16-byte boundary (0 for a fresh
+    tensor): flash_wide, behind flash_realign where the shape needs it
+    (``_realigns``), up to 576 after padding."""
+    return "flash_wide" if _padded(d) <= WIDE_MAX else "flash_wide_general"
+
+
+def _realigns(d: int, offset: int, dtype: str, Skv: int = 1) -> int:
+    """flash_realign launches of one call whose q, k and v lie ``offset``
+    elements past a 16-byte boundary: the three inputs where a base is not
+    16-byte aligned or d % 8 != 0, and the output where d % 8 != 0, on the
+    realigned route (256 < d, padded d <= 576, Skv > 0); else none."""
+    if d <= 256 or _padded(d) > WIDE_MAX or Skv == 0:
+        return 0
+    unaligned = offset * FLASH_DTYPES[dtype].itemsize % 16 != 0
+    return 3 * (unaligned or d % 8 != 0) + (d % 8 != 0)
 
 
 @pytest.mark.parametrize("d", WIDE_D)
@@ -874,7 +900,9 @@ def _wide_key(d: int, offset: int = 0) -> str:
 def test_flash_wide_head_dims(d, dtype, mode):
     """Widths past 256 (odd, d % 8 != 0, several output slices, 2048),
     the causal mask with a window and Gemma-2's softcap, and a ragged
-    cross-attention shape, each on the route its shape picks."""
+    cross-attention shape, each on the route its shape picks (257 and 300
+    on flash_wide behind flash_realign, 1000 and 2048 on the general
+    wide kernel)."""
     if mode == "cross":
         _flash_case(1, 70, 197, 2, d, False, 0, 0.0, dtype, seed=d,
                     key=_wide_key(d))
@@ -883,14 +911,15 @@ def test_flash_wide_head_dims(d, dtype, mode):
                     key=_wide_key(d))
 
 
-@pytest.mark.parametrize("d", [257, 576])
+@pytest.mark.parametrize("d", [257, 576, 584])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_flash_wide_unaligned_bases(d, dtype, offset):
     """Bases 0, 1 and 3 elements past a 16-byte boundary: TMA describes
-    only aligned ones with d % 8 == 0 (flash_wide), the general wide
-    kernel takes the rest with 16-byte copies where they are aligned and
-    d allows, narrower ones elsewhere."""
+    only aligned ones with d % 8 == 0; up to 576 the rest reach flash_wide
+    on realigned scratch (flash_realign), each tensor copied; past 576 the
+    general wide kernel stages them itself (at float32, offset 3 is 12
+    bytes past a 16-byte boundary)."""
     key = _wide_key(d, offset)
     _flash_folded(2, 130, 197, d, dtype, key, offset=offset,
                   window=48, softcap=50.0, seed=d + offset)
@@ -903,9 +932,9 @@ def test_flash_wide_unaligned_bases(d, dtype, offset):
                                       (264, 0), (512, 0)])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_flash_wide_route_boundary(d, offset, dtype):
-    """The edges of flash_wide's shapes: its widest head and the next
-    multiple of 8 above it (the general wide kernel's), each at an aligned
-    base and one element past it, and two widths inside."""
+    """The edges of flash_wide's shapes: its widest head (realigned one
+    element past an aligned base) and the next multiple of 8 above it (the
+    general wide kernel's at both bases), and two widths inside."""
     _flash_folded(2, 130, 197, d, dtype, _wide_key(d, offset),
                   offset=offset, window=48, softcap=50.0, seed=d + offset)
 
@@ -967,11 +996,93 @@ def test_flash_wide_softcap(window, dtype):
 
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_flash_wide_many_heads(dtype):
-    """B * H = 66,000: the flattened grid takes it on both wide routes
-    (flash_wide's one block a query tile; the general kernel's 2 output
-    slices a tile)."""
+    """B * H = 66,000: the flattened grid takes it on every wide route
+    (flash_wide's one block a query tile, at an aligned base and behind
+    flash_realign one element past it; the general kernel's 3 output
+    slices a tile at d = 584)."""
     _flash_folded(66000, 16, 16, 264, dtype, "flash_wide", offset=0)
-    _flash_folded(66000, 16, 16, 264, dtype, "flash_wide_general", offset=1)
+    _flash_folded(66000, 16, 16, 264, dtype, _wide_key(264, 1), offset=1)
+    _flash_folded(66000, 16, 16, 584, dtype, "flash_wide_general", offset=1)
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+@pytest.mark.parametrize("d,offset", [(300, 0), (576, 1), (575, 3)])
+def test_flash_wide_realigned_k_is_v(dtype, d, offset):
+    """k the same tensor as v on the realigned route: each is copied into
+    its own scratch (no aliasing assumed), then one flash_wide launch."""
+    dev = need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt = FLASH_DTYPES[dtype]
+    q, k, _ = (x[0].transpose(1, 0, 2) for x in qkv(1, 97, 130, 2, d, d))
+    q, k = (_at_offset(x, dev, tdt, offset) for x in (q, k))
+    before = {n: _build.launches[n] for n in ("flash_realign", "flash_wide")}
+    got = flash_ops.flash_attention(q, k, k, causal=True, window=48,
+                                    softcap=50.0)
+    added = {n: _build.launches[n] - c for n, c in before.items()}
+    assert added == {"flash_realign": _realigns(d, offset, dtype),
+                     "flash_wide": 1}
+    torch.cuda.synchronize()
+    want = flash_ref.attention_ref(q, k, k, causal=True, window=48,
+                                   softcap=50.0)
+    _held(got, want, dtype)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("d", [257, 300, 575, 576, 3])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_realign_matches_plain(d, dtype):
+    """The realigning copy against its plain version, bit for bit, at every
+    element offset past a 16-byte boundary (1-7 at 16 bits, 1-3 at
+    float32) and at 0, on 3 x 700 rows (several blocks): ``pad8`` from a
+    source at the offset into fresh, aligned scratch, ``unpad8`` back into a
+    fresh tensor (its rows start at any element boundary where d % 8 !=
+    0), and the reverse copy into a destination at the offset, inside a
+    buffer whose other bytes it must leave alone; one flash_realign launch
+    each."""
+    dev = need_card()
+    tdt = FLASH_DTYPES[dtype]
+    eb = tdt.itemsize
+    rng = np.random.default_rng(d)
+    x0 = rng.standard_normal((3, 700, d)).astype(np.float32)
+    for offset in range(16 // eb):
+        x = _at_offset(x0, dev, tdt, offset)
+        n = _build.launches["flash_realign"]
+        p = flash_ops.pad8(x)
+        assert _build.launches["flash_realign"] == n + 1
+        assert p.data_ptr() % 16 == 0 and p.shape == (3, 700, _padded(d))
+        assert torch.equal(_bits(p), _bits(flash_ref.pad8_ref(x)))
+        back = flash_ops.unpad8(p, d)
+        assert _build.launches["flash_realign"] == n + 2
+        assert torch.equal(_bits(back), _bits(x))
+        # the reverse copy into a base at the offset, 16 elements of
+        # sentinel on either side
+        buf = torch.full((x.numel() + offset + 16,), -7.0, dtype=tdt,
+                         device=dev)
+        dst = buf[offset:offset + x.numel()].view(x.shape)
+        _build.launch("flash_realign", "repro_flash_realign", p, dst,
+                      3 * 700, d, eb, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(dst), _bits(x))
+        rest = torch.cat([buf[:offset], buf[offset + x.numel():]])
+        assert bool((rest == -7.0).all())
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_realign_refuses_misaligned_scratch(dtype):
+    """The copy refuses an aligned side that is not 16-byte aligned: the
+    wrapper raises and counts nothing."""
+    dev = need_card()
+    tdt = FLASH_DTYPES[dtype]
+    x = torch.zeros(4, 300, dtype=tdt, device=dev)
+    bad = torch.empty(4 * 304 + 1, dtype=tdt, device=dev)[1:].view(4, 304)
+    n = _build.launches["flash_realign"]
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        _build.launch("flash_realign", "repro_flash_realign", x, bad, 4, 300,
+                      tdt.itemsize, 0)
+    assert _build.launches["flash_realign"] == n
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -97,6 +97,38 @@ def test_wide_attention_matches_jax_pallas(B, Sq, Skv, H, d, causal, window,
                                       softcap, dtype)
 
 
+#: the realigned wide route's cases (d % 8 != 0, padded to 304 and 576)
+PADDED_CASES = [c for d in (300, 575) for c in (
+    (1, 70, 70, 2, d, True, 0, 0.0), (2, 45, 130, 1, d, False, 0, 30.0),
+    (1, 96, 96, 1, d, True, 24, 50.0))]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", PADDED_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_padded_wide_attention_matches_jax_pallas(B, Sq, Skv, H, d, causal,
+                                                  window, softcap, dtype):
+    """What the card computes on the realigned route: q, k and v padded
+    with zero columns to a multiple of 8 (``ops.pad8``), attention over the
+    padded width at the real d's scale, the output cut back to d
+    (``ops.unpad8``); here the plain versions of each, against the Pallas
+    kernel in interpret mode on the unpadded inputs."""
+    jdt, tdt = DTYPES[dtype]
+    q, k, v = qkv(B, Sq, Skv, H, d)
+    want = jax_flash.attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                               jnp.asarray(v, jdt), causal=causal,
+                               window=window, softcap=softcap,
+                               use_pallas=True, interpret=True)
+    qf, kf, vf = (flash_ops.pad8(torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 2, 1, 3).reshape(B * H, -1, d))).to(tdt))
+        for x in (q, k, v))
+    assert qf.shape[-1] == d + -d % 8 and not qf[..., d:].any()
+    of = flash_ops.flash_attention(qf, kf, vf, causal=causal, window=window,
+                                   softcap=softcap, scale=d ** -0.5)
+    got = flash_ops.unpad8(of, d).reshape(B, H, Sq, d).transpose(1, 2)
+    tol = FLASH_TOL[dtype]
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", FLASH_CASES)
 def test_attention_ref_matches_jax(B, Sq, Skv, H, d, causal, window,
                                    softcap):
