@@ -85,8 +85,13 @@ launches each of ``flash_realign`` (the copy of each into padded,
 aligned scratch, timed beside its byte bound) and one of ``flash_wide``;
 the same at d = 569 (d % 8 != 0): four ``flash_realign`` launches, the
 output padded and cut back (the unpad timed beside its byte bound), and
-one ``flash_wide``; then (4, 1024, 640) causal, past ``flash_wide``'s
-widest head, one launch each of ``flash_wide_general``; each held to
+one ``flash_wide``; then past ``flash_wide``'s widest head (576) the
+cluster kernel, (4, 1024, 640) and (16, 4096, 1024) causal, one launch
+each of ``flash_wide_cluster`` (a query tile on a cluster of 2 blocks,
+each owning a share of d), and (4, 1024, 1030) on copies one element
+past a 16-byte boundary, four ``flash_realign`` launches and one
+``flash_wide_cluster`` (3 blocks); then (2, 512, 4160) causal, past the
+cluster's widest (4096), one launch each of ``flash_wide_general``; each held to
 the plain version at its dtype's limits and timed beside SDPA at that
 dtype (the backend it picks named).  Then the decoder-only model path
 (``run_models``)
@@ -1460,9 +1465,15 @@ FLASH_LIMITS = {torch.float32: (2e-5, 1e-5),
 # its 128 heads (a cut)
 WIDE_SRC = "src/repro/configs/deepseek_v2_236b.py"
 WIDE_D, WIDE_S, WIDE_H, WIDE_H_FULL = 576, 4096, 16, 128
-# the general wide kernel's shapes: a head past flash_wide's widest (576),
-# causal, at a quarter of the heads and of the length above
-WIDE_G_SHAPE, WIDE_G_NAME = (4, 1024, 640), "d 640 (past 576)"
+# the cluster kernel's shapes (flash_wide_cluster, 576 < d <= 4096): d 640
+# (two blocks a query tile) at a quarter of the heads and of the length
+# above, d 1024 (two blocks) at the heads and length above; and d 1030 (d
+# % 8 != 0, three blocks) at the first shape on bases one element past a
+# 16-byte boundary, realigned; no config has such a head
+WIDE_C_SHAPES = [((4, 1024, 640), "d 640"), ((16, 4096, 1024), "d 1024")]
+WIDE_C_U_SHAPE = (4, 1024, 1030)
+# the general wide kernel's shape: a head past the cluster's widest (4096)
+WIDE_G_SHAPE, WIDE_G_NAME = (2, 512, 4160), "d 4160 (past 4096)"
 # a head with d % 8 != 0 on the realigned route, at the shape above: the
 # output is padded and cut back (unpad); rows of 569 elements start at
 # every element offset within a 16-byte segment, and at float32 the last
@@ -1560,13 +1571,15 @@ def run_flash_wide(cuda: torch.device, normal) -> list:
     element past a 16-byte boundary with their own (three ``flash_realign``
     launches, one a tensor, and one ``flash_wide``), the copy alone timed
     beside its byte bound and held bit for bit to its plain version, and
-    at d % 8 != 0 (``run_flash_wide_unpadded``); then (``WIDE_G_SHAPE``) a
-    head past 576, one ``flash_wide_general`` launch a dtype.  Each output
-    held to the plain version at its dtype's limits and timed beside its
-    bound, the plain version and SDPA at that dtype (the backend it picks
-    named).  Returns the entries ``flash_wide``,
-    ``flash_realign`` and ``flash_wide_general`` of the kernels' record
-    (top-level numbers at bfloat16; every dtype's under ``shapes``)."""
+    at d % 8 != 0 (``run_flash_wide_unpadded``); then heads past 576 on
+    the cluster kernel (``run_flash_wide_cluster``) and past 4096
+    (``WIDE_G_SHAPE``), one ``flash_wide_general`` launch a dtype.  Each
+    output held to the plain version at its dtype's limits and timed
+    beside its bound, the plain version and SDPA at that dtype (the
+    backend it picks named).  Returns the entries ``flash_wide``,
+    ``flash_realign``, ``flash_wide_cluster`` and ``flash_wide_general``
+    of the kernels' record (top-level numbers at bfloat16; every dtype's
+    under ``shapes``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels._compare import unaligned
     from repro_torch.kernels.flash import ops as flash_ops
@@ -1679,6 +1692,9 @@ def run_flash_wide(cuda: torch.device, normal) -> list:
         n += 1
         cn += 4
     torch.cuda.empty_cache()
+    clrows, cln, ccn = run_flash_wide_cluster(normal)
+    cn += ccn
+    torch.cuda.empty_cache()
     grows = run_flash_wide_general(normal)
     log("wide", f"the wide phase took {time.perf_counter() - t_phase:.1f} s")
     top = "deepseek-v2 absorbed bfloat16"
@@ -1687,6 +1703,9 @@ def run_flash_wide(cuda: torch.device, normal) -> list:
                         rows + urows, top),
             flash_entry("flash_realign", cn, 0.0, crows, f"{top}, one tensor",
                         source="src/repro_torch/kernels/flash/realign.cu"),
+            flash_entry("flash_wide_cluster", cln,
+                        max(r["max_abs_err"] for r in clrows), clrows,
+                        "d 1024 bfloat16"),
             flash_entry("flash_wide_general", len(grows),
                         max(r["max_abs_err"] for r in grows), grows,
                         f"{WIDE_G_NAME} bfloat16")]
@@ -1778,18 +1797,113 @@ def run_flash_wide_unpadded(normal, dtype: torch.dtype) -> tuple:
     return row, crow
 
 
+def wide_row(name: str, shape: tuple, dtype: torch.dtype, out, want,
+             ops: float, call, plain, q, k, v) -> dict:
+    """One wide route's row of the kernels' record: ``out`` held to the
+    plain version's ``want`` at ``dtype``'s limits, ``call`` timed beside
+    ``plain``, the bound of ``ops`` operations on q, k, v and out (the
+    inputs' bytes) and SDPA on q, k, v (its backend named)."""
+    BH, S, d = shape
+    check(out.shape == shape and out.dtype == dtype
+          and bool(torch.isfinite(out).all()), f"{name}: output is not "
+          f"finite {dtype} of shape {shape}")
+    e, rel = within_limits(name, out, want, dtype)
+    b_ms, b_by, nbytes = wide_bound(q, ops)
+    lib_ms, backend, lib_rel = wide_sdpa(q, k, v, want)
+    row = {"shape": name, "dtype": str(dtype)[6:], "BH": BH, "S": S,
+           "d": d, "window": 0, "softcap": 0.0, "max_abs_err": e,
+           "rel_l2_err": rel, "ms": device_ms(call),
+           "plain_ms": device_ms(plain, reps=3), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms, "library": backend}
+    log("wide", f"{name} {shape} causal: max |kernel - plain| {e:.3g}, "
+        f"relative L2 {rel:.3g} (limits {FLASH_LIMITS[dtype]}); ms "
+        f"{row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, bound_ms "
+        f"{b_ms:.4f} ({b_by}; {ops} operations"
+        f"{', x3 over TF32' if dtype == torch.float32 else ''}, {nbytes} "
+        f"bytes); library_ms {lib_ms} (SDPA, is_causal, backend {backend}; "
+        f"relative L2 {lib_rel:.3g} off the plain version"
+        + ("" if lib_ms is not None else ": above the limit, so not timed "
+           "as this function") + ")"
+        + (f"; {row['ms'] / lib_ms:.3f}x SDPA's time" if lib_ms else ""))
+    return row
+
+
+def run_flash_wide_cluster(normal) -> tuple:
+    """The cluster kernel (``flash_wide_cluster``: a query tile on a
+    cluster of blocks, each owning a share of d, S summed once through
+    distributed shared memory) at ``WIDE_C_SHAPES`` causal at float32,
+    bfloat16 and float16, one launch each and nothing else; then at
+    ``WIDE_C_U_SHAPE`` on copies one element past a 16-byte boundary, four
+    ``flash_realign`` launches (q, k, v padded to 1032, the output cut
+    back) and one ``flash_wide_cluster``.  Each held to the plain version
+    at its dtype's limits and timed beside its bound, the plain version
+    and SDPA.  Returns its rows, its launches and the copies'."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._compare import unaligned
+    from repro_torch.kernels.flash import ops as flash_ops
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    rows, n, cn = [], 0, 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        dname = str(dtype)[6:]
+        for shape, sname in WIDE_C_SHAPES + [(WIDE_C_U_SHAPE, None)]:
+            BH, S, d = shape
+            q, k, v = (normal(shape, torch.float32).to(dtype)
+                       for _ in range(3))
+            xs = (q, k, v)
+            want_launches = {"flash_wide_cluster": 1}
+            if sname is None:   # the realigned route, d % 8 != 0
+                xs = tuple(unaligned(x) for x in xs)
+                check(all(x.data_ptr() % 16 != 0 for x in xs),
+                      "flash wide cluster: the unaligned copies lie on "
+                      "16-byte boundaries")
+                want_launches["flash_realign"] = 4
+                sname = f"d {d}, unaligned bases: flash_realign x4 + " \
+                    f"flash_wide_cluster"
+            flash_ops.cluster_blocks_seen()   # clears the record
+            _build.launches.clear()
+            out = flash_ops.flash_attention(*xs, causal=True)
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            check(launches == want_launches, f"flash wide cluster {dtype} "
+                  f"at {shape}: launches {launches}, not {want_launches}")
+            # the cluster size the launch ran with, as its kernel read it
+            # from %cluster_nctarank, beside flash.cu's own launch rule
+            blocks = flash_ops.cluster_blocks_seen()
+            rule = flash_ops.cluster_blocks(flash_ops.padded(d),
+                                            q.element_size())
+            check(blocks >= 2 and blocks == rule, f"flash wide cluster at "
+                  f"d {d}: the kernel ran on clusters of {blocks} blocks "
+                  f"(flash.cu's rule: {rule})")
+            n += launches["flash_wide_cluster"]
+            cn += launches.get("flash_realign", 0)
+            want = flash_ref.attention_ref(q, k, v, causal=True).float()
+            row = wide_row(
+                f"{sname} {dname}", shape, dtype, out, want,
+                4 * BH * d * causal_pairs(S, 0),
+                lambda xs=xs: flash_ops.flash_attention(*xs, causal=True),
+                lambda: flash_ref.attention_ref(q, k, v, causal=True),
+                q, k, v)
+            row["blocks_a_cluster"] = blocks
+            log("wide", f"{row['shape']}: clusters of {blocks} blocks, "
+                f"read in the kernel (%cluster_nctarank)")
+            rows.append(row)
+            del q, k, v, xs, out, want
+    return rows, n, cn
+
+
 def run_flash_wide_general(normal) -> list:
     """The general wide kernel where the wrapper sends it: a head past
-    ``flash_wide``'s widest, ``WIDE_G_SHAPE`` causal at float32, bfloat16
-    and float16, one ``flash_wide_general`` launch each and nothing else,
-    held to the plain version and timed beside its bound, the plain
-    version and SDPA.  Returns its rows of the kernels' record."""
+    ``flash_wide_cluster``'s widest, ``WIDE_G_SHAPE`` causal at float32,
+    bfloat16 and float16, one ``flash_wide_general`` launch each and
+    nothing else, held to the plain version and timed beside its bound,
+    the plain version and SDPA.  Returns its rows of the kernels'
+    record."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref
 
     BH, S, d = WIDE_G_SHAPE
-    ops = 4 * BH * d * causal_pairs(S, 0)
     grows = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v = (normal(WIDE_G_SHAPE, torch.float32).to(dtype)
@@ -1801,31 +1915,12 @@ def run_flash_wide_general(normal) -> list:
         check(launches == {"flash_wide_general": 1}, f"flash wide general "
               f"{dtype} at d {d}: launches {launches}, not one "
               f"flash_wide_general and nothing else")
-        check(out.shape == q.shape and bool(torch.isfinite(out).all()),
-              f"flash_wide_general {dtype}: output not finite")
         want = flash_ref.attention_ref(q, k, v, causal=True).float()
-        e, rel = within_limits(f"wide general {dtype}", out, want, dtype)
-        b_ms, b_by, _ = wide_bound(q, ops)
-        lib_ms, backend, lib_rel = wide_sdpa(q, k, v, want)
-        grow = {"shape": f"{WIDE_G_NAME} {str(dtype)[6:]}",
-                "dtype": str(dtype)[6:], "BH": BH, "S": S, "d": d,
-                "window": 0, "softcap": 0.0, "max_abs_err": e,
-                "rel_l2_err": rel,
-                "ms": device_ms(lambda: flash_ops.flash_attention(
-                    q, k, v, causal=True)),
-                "plain_ms": device_ms(lambda: flash_ref.attention_ref(
-                    q, k, v, causal=True), reps=5),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "library": backend}
-        log("wide", f"{grow['shape']} {WIDE_G_SHAPE} causal "
-            f"(flash_wide_general): max |kernel - plain| {e:.3g}, relative "
-            f"L2 {rel:.3g}; ms {grow['ms']:.4f}, plain_ms "
-            f"{grow['plain_ms']:.4f}, bound_ms {b_ms:.4f} ({b_by}); "
-            f"library_ms {grow['library_ms']} (SDPA, backend "
-            f"{grow['library']}; relative L2 {lib_rel:.3g} off the plain "
-            f"version" + ("" if lib_ms is not None else ": above the limit, "
-                          "so not timed as this function") + ")")
-        grows.append(grow)
+        grows.append(wide_row(
+            f"{WIDE_G_NAME} {str(dtype)[6:]}", WIDE_G_SHAPE, dtype, out, want,
+            4 * BH * d * causal_pairs(S, 0),
+            lambda: flash_ops.flash_attention(q, k, v, causal=True),
+            lambda: flash_ref.attention_ref(q, k, v, causal=True), q, k, v))
         del q, k, v, out, want
     return grows
 
@@ -2024,7 +2119,8 @@ def run_flash(cuda: torch.device) -> list:
     and the wide routes (``run_flash_wide``).  Returns K5's entries of
     the kernels' record: ``flash``, ``flash_general``, ``flash_f16``,
     ``flash_f16_general``, ``flash_f32``, ``flash_wide``,
-    ``flash_realign`` and ``flash_wide_general``."""
+    ``flash_realign``, ``flash_wide_cluster`` and
+    ``flash_wide_general``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash import ops as flash_ops
     from repro_torch.kernels.flash import ref as flash_ref

@@ -41,16 +41,19 @@ BUILD_DIR = _HERE.parents[2] / "build" / "repro_torch_kernels"
 #: kernel at bf16 and float16, ``flash_general`` and ``flash_f16_general``
 #: for the general kernel at bf16 and float16, ``flash_f32`` for float32,
 #: each at d <= 256; above, at every dtype, ``flash_wide`` for the kernels
-#: that compute S once a key tile (what TMA can describe, d <= 576; other
-#: shapes up to d = 576 after ``flash_realign``, the copy into padded,
-#: aligned scratch, one launch a tensor copied) and ``flash_wide_general``
-#: for the rest: d > 576 and Skv = 0).
+#: that compute S once a key tile in one block (what TMA can describe, d <=
+#: 576), ``flash_wide_cluster`` for those that compute it once across a
+#: thread-block cluster (576 < d <= 4096), other shapes up to d = 4096 after
+#: ``flash_realign``, the copy into padded, aligned scratch, one launch a
+#: tensor copied, and ``flash_wide_general`` for the rest: d > 4096 and
+#: Skv = 0).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry point -> argument types; every entry point returns cudaError_t
+# but repro_flash_cluster_blocks (a count)
 _SIGNATURES = {
     "repro_sat_gamma_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_sat_gamma_i32": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -74,6 +77,8 @@ _SIGNATURES = {
     "repro_flash_attn_f16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                              _P],
     "repro_flash_realign": [_P, _P, _I, _I, _I, _I, _P],
+    "repro_flash_cluster_blocks": [_I, _I],
+    "repro_flash_cluster_seen": [ctypes.POINTER(_I)],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -12,19 +12,22 @@ checkout's ``flash.cu``, timed but not held to ``this``'s output: the
 wide Hopper kernel without its S products, without its P V products,
 without either, and without its K and V loads (its producer arrives on
 the full barriers at once), which PERF.md's breakdown of ``flash_wide``
-reads.  ``nvcc``
+reads; the 16-bit cluster kernel without its cluster exchange (each
+block's S its own partial) and without its products.  ``nvcc``
 builds every source at once, each into a shared library of its own
 under ``build/flash_compare/`` (its C entry points as
 ``kernels/_build.py`` declares them), with ``-Xptxas -v``.  Then, on one
 card:
 
 - each build's SASS (``cuobjdump -sass``) against ``this``'s for every
-  K5 kernel either build has (21 in this checkout: the Hopper kernel
+  K5 kernel either build has (24 in this checkout: the Hopper kernel
   ``flash_wgmma_kernel`` and the general kernel ``flash_general_kernel``
   at each compiled width at bfloat16 and float16, ``flash_f32_kernel`` at
   each width, the wide Hopper kernel ``flash_wide_wgmma_kernel`` at
-  bfloat16 and float16, ``flash_wide_f32_kernel``, and the general wide
-  kernel ``flash_wide_kernel`` at each dtype);
+  bfloat16 and float16, ``flash_wide_f32_kernel``, the cluster kernels
+  ``flash_wide_cluster_kernel`` at bfloat16 and float16 and
+  ``flash_wide_cluster_f32_kernel``, and the general wide kernel
+  ``flash_wide_kernel`` at each dtype);
 - ``repro_flash_attn_bf16`` at ``chip_smoke.py``'s three K5 shapes
   (Gemma-2-9B local and global, Qwen3-0.6B; B=1, S=8192, 16 heads,
   causal), on aligned inputs (the Hopper kernel, return code 0) and on
@@ -46,6 +49,14 @@ card:
   ``flash_wide`` is the same source and flags as ``this.so``'s); beside
   them the copy alone (``ops.pad8`` on one of those inputs) and its byte
   bound;
+- the cluster route past d = 576 at ``CLUSTER_SHAPES``, (4, 1024, 640),
+  (16, 4096, 1024), (8, 4096, 2048) and (16, 4096, 1152) causal, at
+  bfloat16, float16 and float32 on aligned inputs: ``this``'s
+  ``flash_wide_cluster`` (return code -4 at 16 bits, -3 at float32) and
+  every other build's C entry point on the same inputs (the parent's
+  ``flash_wide_general``, -3 and -2; the code printed), held to
+  ``this``'s output at each dtype's limit and timed in turns, SDPA
+  (``is_causal``) timed once beside them;
 - ``flash_f32`` (return code 0 at float32) at (16, 2048, d) causal: d =
   128 (``chip_smoke.py``'s float32 check), and d = 256 with softcap 50
   and q 8x larger (held at 1e-4: a build that sums a row on the tensor
@@ -89,6 +100,10 @@ SHAPES = [("gemma2-9b local", 16, 8, 256, 4096, 50.0),
           ("qwen3-0.6b", 16, 8, 128, 0, 0.0)]
 TOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+#: the cluster route's shapes (BH, S, d), causal: chip_smoke.py's, then
+#: clusters of 4 blocks (d 2048) and of 3 (d 1152)
+CLUSTER_SHAPES = [(4, 1024, 640), (16, 4096, 1024), (8, 4096, 2048),
+                  (16, 4096, 1152)]
 
 
 def inputs(cuda: torch.device) -> dict:
@@ -152,39 +167,58 @@ _PV = "      switch (nch) {"
 _LOAD = """      hop::mbar_expect_tx(full0 + 8 * at.s, BOX);
       hop::tma_load(ring + at.s * BOX, map, 64 * c, (kb + i) * BK, bh,
                     full0 + 8 * at.s);"""
-#: diagnostic copies of flash.cu (timed only): name -> (text, replacement)
-#: pairs; ``p.BH < 0`` never holds, so the guarded work is left out
+_X = """      if (dl.C == 2)
+        exchange_pair(dl.rank, sc, base, gbase, wg, tid, i);
+      else
+        exchange(dl, sc, base, gbase, wg, tid, i);"""
+_CPV = """      if (nch == 2)
+        values<T, 2>(o, pa, vs);
+      else if (nch == 3)
+        values<T, 3>(o, pa, vs);
+      else
+        values<T, 4>(o, pa, vs);"""
+#: diagnostic copies of flash.cu (timed only): name -> (the namespace of
+#: the kernel edited, its (text, replacement) pairs); ``p.BH < 0`` never
+#: holds, so the guarded work is left out
 BREAKDOWN = {
-    "no_s": [(_S, _S.replace("hop::", "if (p.BH < 0) hop::", 1))],
-    "no_pv": [(_PV, "      if (p.BH < 0) switch (nch) {")],
-    "no_math": [(_S, _S.replace("hop::", "if (p.BH < 0) hop::", 1)),
-                (_PV, "      if (p.BH < 0) switch (nch) {")],
-    "no_load": [(_LOAD, "      hop::mbar_arrive(full0 + 8 * at.s);")],
+    "no_s": ("hw", [(_S, _S.replace("hop::", "if (p.BH < 0) hop::", 1))]),
+    "no_pv": ("hw", [(_PV, "      if (p.BH < 0) switch (nch) {")]),
+    "no_math": ("hw", [(_S, _S.replace("hop::", "if (p.BH < 0) hop::", 1)),
+                       (_PV, "      if (p.BH < 0) switch (nch) {")]),
+    "no_load": ("hw", [(_LOAD, "      hop::mbar_arrive(full0 + 8 * at.s);")]),
+    "cluster_no_exchange": ("hc", [(_X, "      if (p.BH < 0) {\n" + _X
+                                    + "\n      }")]),
+    "cluster_no_math": ("hc", [
+        (_S, _S.replace("hop::", "if (p.BH < 0) hop::", 1)),
+        (_CPV, "      if (p.BH < 0) {\n" + _CPV + "\n      }")]),
 }
 
 
 def breakdown(out_dir: pathlib.Path) -> dict:
     """Write ``BREAKDOWN``'s copies of this checkout's flash.cu under
-    ``out_dir``; returns name -> path."""
+    ``out_dir``, each edit made once inside its kernel's namespace;
+    returns name -> path."""
     src = (_HERE / "flash.cu").read_text()
     paths = {}
-    for name, edits in BREAKDOWN.items():
-        text = src
+    for name, (ns, edits) in BREAKDOWN.items():
+        start = src.index(f"namespace {ns} {{")
+        end = src.index(f"}}  // namespace {ns}")
+        body = src[start:end]
         for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"breakdown {name}: flash.cu no longer "
-                                   f"holds {old.strip()[:40]!r} once")
-            text = text.replace(old, new)
+            if body.count(old) != 1:
+                raise RuntimeError(f"breakdown {name}: flash.cu's {ns} no "
+                                   f"longer holds {old.strip()[:40]!r} once")
+            body = body.replace(old, new)
         out_dir.mkdir(parents=True, exist_ok=True)
         paths[name] = out_dir / f"{name}.cu"
-        paths[name].write_text(text)
+        paths[name].write_text(src[:start] + body + src[end:])
     return paths
 
 
 def _kernel_name(name: str) -> str:
     """A kernel's name without its namespace and signature, its 16-bit
     element type as ``bf16`` or ``f16``."""
-    name = re.sub(r"\b(hop|f32|wide|hw|fw)::", "", name)
+    name = re.sub(r"\b(hop|f32|wide|hw|fw|hc|fc)::", "", name)
     name = name.replace("__nv_bfloat16", "bf16").replace("__half", "f16")
     return name.split("(")[0].removeprefix("void ")
 
@@ -220,7 +254,8 @@ def main(argv=None) -> int:
     for name, lines in ptxas.items():
         print(f"ptxas {name}: " + " | ".join(lines), flush=True)
     record = {"card": card, "reps": _compare.REPS, "ptxas": ptxas,
-              "sass_equal": {}, "ms": {}, "max_abs_err": {}, "ret": {}}
+              "sass_equal": {}, "ms": {}, "max_abs_err": {}, "ret": {},
+              "sdpa_ms": {}}
 
     this = _compare.sass(OUT_DIR / "this.so", _kernel_name)
     for name in [n for n in libs if n != "this"]:
@@ -252,6 +287,14 @@ def main(argv=None) -> int:
         cases += [(name, "flash_wide", code, xs, 0, 0.0, tol),
                   (name, REALIGNED, code - 1,
                    tuple(_compare.unaligned(x) for x in xs), 0, 0.0, tol)]
+    for dt, code, tol in ((torch.bfloat16, -4, TOL),
+                          (torch.float16, -4, 5e-3),
+                          (torch.float32, -3, 2e-5)):
+        for shape in CLUSTER_SHAPES:
+            xs = tuple(torch.randn(shape, generator=gen, device=cuda).to(dt)
+                       for _ in range(3))
+            cases.append((f"d {shape[2]} {str(dt)[6:]}",
+                          "flash_wide_cluster", code, xs, 0, 0.0, tol))
     # float32 up to d = 256: chip_smoke.py's check, and Gemma-2's width
     # and softcap with q 8x larger, where a build that sums each row on
     # the tensor cores is about 5e-5 off float64 (so 1e-4 between builds)
@@ -312,6 +355,14 @@ def main(argv=None) -> int:
             times[name].append(_compare.device_ms(
                 lambda name=name: run(name, libs[name])))
         record["ms"][f"{shape} {route}"] = times
+        if route == "flash_wide_cluster":   # the library yardstick
+            q4, k4, v4 = (x[None] for x in xs)
+            t = _compare.device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True))
+            record["sdpa_ms"][shape] = t
+            print(f"{shape} SDPA (is_causal) {tuple(xs[0].shape)}: {t:.4f} "
+                  f"ms", flush=True)
         if route == REALIGNED:   # the copy alone: one tensor's bytes
             x = xs[0]
             nbytes = x.numel() * x.element_size() + \

@@ -19,9 +19,10 @@
 // mask, 2,048 at S = 8192, far above the H100's bf16 ridge of about 295.
 //
 // Every kernel owns one (query tile, bh) (the general wide kernel one
-// output slice of it) and loops over the key tiles itself, with m, l and the
-// output accumulator in registers; the TPU's sequential kv grid axis
-// becomes that loop.  The grid is (query tiles x BH) flattened into one
+// output slice of it; a cluster kernel's block one share of d's columns,
+// its cluster the whole tile) and loops over the key tiles itself, with
+// m, l and the output accumulator in registers; the TPU's sequential kv
+// grid axis becomes that loop.  The grid is (query tiles x BH) flattened into one
 // dimension (BH reaches 16 x batch; a y dimension would stop at 65,535),
 // heaviest query tiles first so the causal tail does not run alone.  The
 // key-tile loop starts at the first tile the window can reach and stops
@@ -30,17 +31,21 @@
 // rows are written.  (Above d = 256 the wrapper, ops.flash_attention, may
 // copy a tensor into padded, aligned scratch first: realign.cu.)
 //
-// Six kernels, chosen by dtype and shape in the C entry points; above
-// d = 256 three routes, the middle one the wrapper's:
+// Eight kernels, chosen by dtype and shape in the C entry points; above
+// d = 256 four routes, the third one the wrapper's:
 //   flash_wide  d <= 576, 16-byte aligned bases, d % 8 == 0, Skv > 0
 //               (tma_shape): flash_wide_wgmma_kernel<T> at 16 bits,
 //               flash_wide_f32_kernel at float32;
-//   flash_realign, then flash_wide: the other shapes with Skv > 0 and
-//               d <= 576 after padding d to a multiple of 8: the wrapper
-//               copies each tensor TMA cannot describe into aligned
-//               scratch of that width (realign.cu) and calls this entry
-//               point on it, which takes flash_wide by the rule above;
-//   flash_wide_general  the rest, d > 576 and Skv = 0:
+//   flash_wide_cluster  the same shapes with 576 < d <= CLUSTER_MAXD
+//               (4096): flash_wide_cluster_kernel<T> at 16 bits,
+//               flash_wide_cluster_f32_kernel at float32;
+//   flash_realign, then flash_wide or flash_wide_cluster: the other
+//               shapes with Skv > 0 and d <= 4096 after padding d to a
+//               multiple of 8: the wrapper copies each tensor TMA cannot
+//               describe into aligned scratch of that width (realign.cu)
+//               and calls this entry point on it, which takes a kernel by
+//               the rules above;
+//   flash_wide_general  the rest, d > 4096 and Skv = 0:
 //               flash_wide_kernel<T> at every dtype.
 //
 // * bfloat16 and float16 on Hopper (flash_wgmma_kernel<T, D>; launch keys
@@ -217,10 +222,54 @@
 //   one __syncthreads a step (a resident Q would take 147 KB).  A warp
 //   skips its S of a tile where its rows keep none of its keys, its P V
 //   where they keep none of the tile's.
-// * d > 256, every dtype, every shape the two above do not take: bases
-//   not 16-byte aligned, d % 8 != 0, Skv = 0, d > 576; through the
-//   wrapper's route only d > 576 after padding and Skv = 0, the rest
-//   reaching flash_wide on realigned scratch
+// * 576 < d <= 4096 where the same shapes hold, every dtype
+//   (flash_wide_cluster_kernel<T>, flash_wide_cluster_f32_kernel; launch
+//   key "flash_wide_cluster"): what one SM cannot hold (at d = 640 Q and
+//   a whole V tile alone take 160 KB at 16 bits), spread over a
+//   thread-block cluster of C blocks a query tile (cudaLaunchKernelEx
+//   with a cluster dimension; C the fewest blocks whose shares hold NB =
+//   8 chunks each, at most 8, a portable cluster: 2 at d = 640 and 1024,
+//   3 at 1032, 4 at 2048; at 16 bits 6 and 7 are taken as 8, whose
+//   reduce-scatter slots fit; cudaOccupancyMaxActiveClusters checks that
+//   a cluster can be placed, and a refusal returns its error).  Block r
+//   owns d's 64-column chunks [r CH / C, (r + 1) CH / C) and is
+//   flash_wide's block on them: it loads only its columns of Q, K and V,
+//   writes only its columns of O, and computes its partial S of each key
+//   tile over them (at 16 bits its two warpgroups' halves added through
+//   shared memory, as flash_wide's).  The cluster then sums the partials
+//   through distributed shared memory (namespace cl), by st.async stores
+//   of 16 bytes into a peer's shared memory, counted in bytes on the
+//   peer's mbarrier, whose waiters acquire at cluster scope.  A cluster of
+//   2 at 16 bits in one round: each block sends its partial to the other
+//   into one of two tiles' buffers, and every thread adds the two in rank
+//   order itself.  Wider clusters (and float32) in two: each thread holds
+//   its scores in units of 4 (8 units a thread of a warpgroup at 16 bits,
+//   4 a lane at float32), dealt to the blocks in ranges; each block sends
+//   each unit it does not own to its owner's slot for the sender (the
+//   reduce-scatter); the owner adds the C partials of its units in
+//   ascending rank (at 16 bits the warpgroup of the unit's half) and
+//   sends the sum to every block (the all-gather).  Each score is summed
+//   in one order, so every block holds the same S bit for bit and runs
+//   the same online softmax (redundantly, on the whole tile) before P V on
+//   its own columns: S computed once, not once a slice, and Q, K, V and O
+//   each cross device memory once.  One buffer a round suffices for two
+//   rounds (two tiles' buffers for one): a block sends tile i's partials
+//   only after it has every block's tile i - 1 sums (or partials), which
+//   each block sends only after reading its tile i - 1 slots (at 16 bits
+//   its two warpgroups meet on the in-block exchange's barrier between);
+//   a slot a thread reads is read, and its sum sent, by the same thread.
+//   A cluster barrier (barrier.cluster) after the mbarriers'
+//   initialisation and one before a block exits.  Shared memory at 16
+//   bits: Q 8 boxes, the K ring 4, the V ring 8 (a whole tile's share),
+//   the in-block exchange 32 KB, the exchange 32 KB (230,616 bytes; K's
+//   ring of 4 makes the room); a warpgroup holds O on at most 4 chunks
+//   (128 accumulators).  At float32 fw's 2 slots with V rows of at most
+//   512 columns and P, then 24 KB of slots and 24 KB of gathered S
+//   (208,656 bytes).
+// * d > 256, every dtype, every shape the three above do not take: bases
+//   not 16-byte aligned, d % 8 != 0, Skv = 0, d > 4096; through the
+//   wrapper's route only d > 4096 after padding and Skv = 0, the rest
+//   reaching flash_wide or flash_wide_cluster on realigned scratch
 //   (flash_wide_kernel<T>; launch key "flash_wide_general"): what no
 //   register tile of the others holds (an output row of d float32
 //   accumulators).  8 warps, each owning 16 of the block's 128 query
@@ -257,8 +306,9 @@
 // Widths: compiled D = 64, 128, 256; a smaller d takes the next width
 // with the columns past d zero in shared memory and never written, so
 // every 1 <= d <= 256 works; above 256 the wide kernels take any d up to
-// 576 in 64-column chunks (columns past d zero), the general wide kernel
-// any d (its columns past d zero, its last slice narrower).  Above 48 KB
+// 576 in 64-column chunks (columns past d zero), the cluster kernels up to
+// 4096 likewise, the general wide kernel any d (its columns past d zero,
+// its last slice narrower).  Above 48 KB
 // of shared memory every launch first raises the kernel's dynamic limit
 // (cudaFuncSetAttribute; at most 227 KB).  A refused launch or tensor map
 // returns a CUDA error code and the wrapper raises; it never returns
@@ -285,8 +335,15 @@
 //   flash_wide_f32_kernel: 168 registers (one block of 384 threads), 44
 //     bytes of spill stores and 52 of spill loads a thread; 175,872
 //     bytes;
+//   flash_wide_cluster_kernel<T>, T bf16 and float16: 168 registers a
+//     thread at launch (setmaxnreg then gives the producer 24 and the
+//     consumers 240), no spills; 230,616 bytes;
+//   flash_wide_cluster_f32_kernel: 168 registers, 24 bytes of spill
+//     stores and 32 of spill loads a thread; 208,656 bytes;
 //   flash_wide_kernel<float>, <bf16>, <float16>: 255 registers, no
-//     spills; 125,440, 89,088 and 89,088 bytes (the parent's SASS).
+//     spills; 125,440, 89,088 and 89,088 bytes (the parent's SASS; every
+//     kernel but the cluster kernels has the parent's SASS,
+//     kernels/flash/compare.py).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -2032,7 +2089,7 @@ constexpr int NC = 2;                // consumer warpgroups
 constexpr int NTH = 128 * (NC + 1);  // and one producer warpgroup
 constexpr int BQ = 64;               // query rows a block: one m64 tile
 constexpr int BK = 64;               // keys a tile
-constexpr int MAXD = 576;            // widest head a block's registers hold
+constexpr int MAXD = 576;            // widest head a block holds (ops.WIDE_MAXD)
 constexpr int MAXCH = MAXD / 64;     // 64-column chunks of Q, K, V
 constexpr int MAXC = (MAXCH + 1) / 2;  // chunks of O a warpgroup, at most
 constexpr int RK = 6;                // K boxes in flight
@@ -2393,6 +2450,584 @@ int launch(Params p, cudaStream_t st) {
 }  // namespace hw
 
 // ---------------------------------------------------------------------------
+// Thread-block clusters: what the two cluster kernels below share.  A
+// cluster of C blocks takes one (query tile, bh); block r owns a share of
+// d's 64-column chunks, computes a partial S over it, and the cluster sums
+// the partials through distributed shared memory: in two rounds, each
+// block sends each unit (4 scores a thread) of its partial to the block
+// that owns the unit (st.async, counted in bytes on the owner's mbarrier),
+// the owner adds the C partials in ascending rank and sends the sum to
+// every block (the 16-bit kernel's pairs swap their partials in one
+// round).  Every S element is summed in one order, so every block holds
+// the same S bit for bit.
+
+// widest head flash_wide_cluster takes (ops.CLUSTER_MAXD)
+constexpr int CLUSTER_MAXD = 4096;
+
+namespace cl {
+
+__device__ __forceinline__ int rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ int size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+
+// the blocks a cluster the last cluster launch ran with, as its grid's
+// first block read them (repro_flash_cluster_seen)
+__device__ int seen;
+
+__device__ __forceinline__ void record(int C) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) seen = C;
+}
+
+// this block's shared-memory address ``addr`` in block ``r`` of the cluster
+__device__ __forceinline__ uint32_t peer(uint32_t addr, int r) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(addr), "r"(r));
+  return a;
+}
+
+// 16 bytes to ``addr`` (from peer()), counted on the mbarrier ``bar`` of
+// the same block
+__device__ __forceinline__ void send(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// until the phase of parity ``parity`` of this block's ``bar`` has
+// completed, with what the cluster's blocks sent to it visible
+__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// every thread of every block of the cluster
+__device__ __forceinline__ void sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// N units dealt to the C blocks of a cluster in ranges: block r sums
+// units [first(r), first(r + 1)); at most most() units a block
+template <int N>
+struct Deal {
+  int C, rank;
+  __device__ int first(int r) const { return r * N / C; }
+  __device__ int owner(int u) const { return ((u + 1) * C - 1) / N; }
+  __device__ int most() const { return (N + C - 1) / C; }
+};
+
+// The slot of unit u from block j among block r's (u's owner's)
+// reduce-scatter slots: the other blocks' in rank order, most() a block
+template <int N>
+__device__ __forceinline__ int slot(const Deal<N>& dl, int j, int r, int u) {
+  return (j < r ? j : j - 1) * dl.most() + u - dl.first(r);
+}
+
+// The sum of unit u: the partial ``mine`` of this block and those the
+// other blocks sent (from ``rs``, slot() of 16 x ``lanes`` bytes, this
+// thread's at ``lane``), added in ascending rank
+template <int N>
+__device__ __forceinline__ float4 total(const Deal<N>& dl, float4 mine,
+                                        const unsigned char* rs, int u,
+                                        int lanes, int lane) {
+  float4 s = mine;
+  for (int j = 0; j < dl.C; ++j) {
+    const float4 x =
+        j == dl.rank ? mine
+                     : *reinterpret_cast<const float4*>(
+                           rs + (slot(dl, j, dl.rank, u) * lanes + lane) * 16);
+    s = j == 0 ? x : add(s, x);
+  }
+  return s;
+}
+
+// ``blocks`` blocks in clusters of C after raising the kernel's dynamic
+// shared memory; a cluster that cannot be placed, or a refused launch,
+// returns its CUDA error (no other kernel is tried)
+template <typename K, typename... A>
+int launch(K kernel, int blocks, int threads, int smem, int C,
+           cudaStream_t st, A... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = (unsigned)C;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int placed = 0;
+  e = cudaOccupancyMaxActiveClusters(&placed, kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (placed < 1) return (int)cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace cl
+
+// ---------------------------------------------------------------------------
+// 576 < d <= CLUSTER_MAXD at 16 bits on Hopper: flash_wide's block on a
+// share of d, C blocks a query tile in a cluster, S summed once through
+// distributed shared memory (a pair in one round, wider clusters in two)
+
+namespace hc {
+
+using hw::BK;
+using hw::BOX;
+using hw::BQ;
+using hw::NC;
+using hw::NTH;
+using hw::PREG;
+using hw::CREG;
+constexpr int MAXCL = 8;              // blocks a cluster (portable)
+constexpr int NB = 8;                 // 64-column chunks a block owns, at most
+constexpr int MAXC = NB / 2;          // chunks of O a warpgroup, at most
+constexpr int RK = 4;                 // K boxes in flight
+constexpr int RV = NB;                // V boxes in flight: a whole tile's
+constexpr int NG = BK / 2 / 4;        // units of a thread's scores: 4 each
+constexpr int GB = 128 * 16;          // bytes of a unit over a warpgroup
+// shared memory, from a 1024-byte aligned base: Q (NB boxes), the K ring,
+// the V ring, the warpgroups' partial S, the exchange's 32 KB, the
+// barriers (Q full; K full and empty; V full and empty; the exchange's
+// two).  A cluster of 2 blocks sums in one round and takes the 32 KB as
+// two tiles' buffers of the other block's partial; wider ones sum in two,
+// into the reduce-scatter's slots ((C - 1) x ceil(NG / C) units, at most
+// 8: C = 6 and 7 would need 10 and 12, so the kernel takes 8 blocks
+// there) and the all-gathered S (NG units)
+constexpr int SK = NB * BOX, SV = SK + RK * BOX, SX = SV + RV * BOX;
+constexpr int SR = SX + NC * BQ * BK * 4;
+constexpr int SA = SR + 8 * GB;
+constexpr int SB = SA + NG * GB;
+constexpr int SMEM = SB + 8 * (3 + 2 * RK + 2 * RV) + 1024;
+static_assert(SMEM <= 232448, "shared memory");
+static_assert(MAXCL * NB * 64 >= CLUSTER_MAXD, "reach");
+static_assert(MAXCL <= NG, "every block sums at least one unit");
+
+struct Bars {
+  uint32_t bar;
+  __device__ uint32_t q() const { return bar; }
+  __device__ uint32_t kfull(int s) const { return bar + 8 * (1 + s); }
+  __device__ uint32_t kempty(int s) const {
+    return bar + 8 * (1 + RK + s);
+  }
+  __device__ uint32_t vfull(int s) const {
+    return bar + 8 * (1 + 2 * RK + s);
+  }
+  __device__ uint32_t vempty(int s) const {
+    return bar + 8 * (1 + 2 * RK + RV + s);
+  }
+  __device__ uint32_t rs() const {
+    return bar + 8 * (1 + 2 * RK + 2 * RV);
+  }
+  __device__ uint32_t ag() const { return rs() + 8; }
+};
+
+// blocks a cluster for head dim d: the fewest whose shares of d's chunks
+// hold NB each, 6 and 7 taken as 8 (their slots would not fit)
+// (repro_flash_cluster_blocks)
+inline int blocks_for(int d) {
+  const int C = ((d + 63) / 64 + NB - 1) / NB;
+  return C == 6 || C == 7 ? 8 : C;
+}
+
+template <typename T, int NCH>
+__device__ __forceinline__ void values(float (&o)[MAXC][32],
+                                       const uint32_t (&pa)[BK / 16][4],
+                                       const uint32_t (&vs)[MAXC]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < NCH; ++j)
+      hop::wgmma_rs<T>(o[j], pa[kk],
+                       hop::desc(vs[j] + kk * 16 * 128, BOX, 1024));
+}
+
+// The cluster's S of a tile in two rounds, from this block's (in ``sc``,
+// the same in both warpgroups): warpgroup wg sends units [4 wg, 4 wg + 4)
+// of it to their owners, sums those it owns itself (C partials in
+// ascending rank) and sends each sum to every block, itself included;
+// then every thread reads the whole S.  Race-free with one buffer a
+// round: a block sends tile i's partials only after it has all of tile
+// i - 1's sums, so every block has read its tile i - 1 slots (its
+// warpgroups met on the in-block exchange's barrier of tile i in
+// between).
+__device__ __forceinline__ void exchange(const cl::Deal<NG>& dl,
+                                         float (&sc)[BK / 2], uint32_t base,
+                                         const unsigned char* gbase, int wg,
+                                         int tid, int i) {
+  const Bars bars{base + SB};
+  const int me = dl.rank, ob = dl.first(me), oe = dl.first(me + 1);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    const int r = dl.owner(g);
+    if (g / (NG / 2) != wg || r == me) continue;
+    cl::send(cl::peer(base + SR + (cl::slot(dl, me, r, g) * 128 + tid) * 16,
+                      r),
+             make_float4(sc[4 * g], sc[4 * g + 1], sc[4 * g + 2],
+                         sc[4 * g + 3]),
+             cl::peer(bars.rs(), r));
+  }
+  if (threadIdx.x == 0)
+    hop::mbar_expect_tx(bars.rs(), (dl.C - 1) * (oe - ob) * GB);
+  cl::wait(bars.rs(), i & 1);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    if (g / (NG / 2) != wg || g < ob || g >= oe) continue;
+    const float4 s = cl::total(
+        dl,
+        make_float4(sc[4 * g], sc[4 * g + 1], sc[4 * g + 2], sc[4 * g + 3]),
+        gbase + SR, g, 128, tid);
+    for (int r = 0; r < dl.C; ++r)
+      cl::send(cl::peer(base + SA + (g * 128 + tid) * 16, r), s,
+               cl::peer(bars.ag(), r));
+  }
+  if (threadIdx.x == 0) hop::mbar_expect_tx(bars.ag(), NG * GB);
+  cl::wait(bars.ag(), i & 1);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        gbase + SA + (g * 128 + tid) * 16);
+    sc[4 * g] = x.x;
+    sc[4 * g + 1] = x.y;
+    sc[4 * g + 2] = x.z;
+    sc[4 * g + 3] = x.w;
+  }
+}
+
+// The S of a tile of a cluster of 2 blocks in one round: each block sends
+// its partial (warpgroup wg units [4 wg, 4 wg + 4)) to the other, into
+// tile i's buffer (i % 2; counted on that buffer's mbarrier, bars.rs() or
+// bars.ag()), and every thread adds the two partials in rank order
+// itself: the same sum of the same bits in both blocks.  Two buffers
+// suffice: a block sends tile i's partial only after it has the other's
+// tile i - 1 partial, which that block sends only after both its
+// warpgroups met on the in-block exchange's barrier of tile i - 1, past
+// their reads of tile i - 2.
+__device__ __forceinline__ void exchange_pair(int me, float (&sc)[BK / 2],
+                                              uint32_t base,
+                                              const unsigned char* gbase,
+                                              int wg, int tid, int i) {
+  const Bars bars{base + SB};
+  const int b = i & 1;
+  const uint32_t bar = b == 0 ? bars.rs() : bars.ag();
+  const int buf = SR + b * NG * GB;
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    if (g / (NG / 2) != wg) continue;
+    cl::send(cl::peer(base + buf + (g * 128 + tid) * 16, 1 - me),
+             make_float4(sc[4 * g], sc[4 * g + 1], sc[4 * g + 2],
+                         sc[4 * g + 3]),
+             cl::peer(bar, 1 - me));
+  }
+  if (threadIdx.x == 0) hop::mbar_expect_tx(bar, NG * GB);
+  cl::wait(bar, (i >> 1) & 1);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    const float4 mine =
+        make_float4(sc[4 * g], sc[4 * g + 1], sc[4 * g + 2], sc[4 * g + 3]);
+    const float4 other = *reinterpret_cast<const float4*>(
+        gbase + buf + (g * 128 + tid) * 16);
+    const float4 s = me == 0 ? cl::add(mine, other) : cl::add(other, mine);
+    sc[4 * g] = s.x;
+    sc[4 * g + 1] = s.y;
+    sc[4 * g + 2] = s.z;
+    sc[4 * g + 3] = s.w;
+  }
+}
+
+// A consumer warpgroup: hw::consume on the block's CH chunks from chunk c0
+// of d, the cluster's exchange after the in-block one
+template <typename T>
+__device__ __forceinline__ void consume(const Params& p, int q0, int bh,
+                                        int kb, int n, int c0, int CH,
+                                        const cl::Deal<NG>& dl,
+                                        uint32_t base, unsigned char* gbase) {
+  const Bars bars{base + SB};
+  const uint32_t sQ = base, sK = base + SK, sV = base + SV;
+  float* xs = reinterpret_cast<float*>(gbase + SX);
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const int row = q0 + 16 * warp + lane / 4;
+  const int rows[2] = {row, row + 8};
+  const hw::Split sp(CH);
+  const int s0 = wg == 0 ? 0 : sp.sa, sn = wg == 0 ? sp.sa : CH - sp.sa;
+  const int cb = wg == 0 ? 0 : sp.ob, nch = wg == 0 ? sp.ob : CH - sp.ob;
+  float* mine = xs + wg * BQ * BK + tid;
+  const float* other = xs + (1 - wg) * BQ * BK + tid;
+  const bool cap = p.softcap > 0.f;
+  const float sl = p.scale * hop::LOG2E;
+  const float cs = p.scale / p.softcap, lc = p.softcap * hop::LOG2E;
+  float o[MAXC][32], sc[BK / 2], m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int j = 0; j < MAXC; ++j)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) o[j][x] = 0.f;
+
+  hop::mbar_wait(bars.q(), 0);
+  for (int i = 0; i <= n; ++i) {
+    if (i < n) {
+      const uint32_t qs = hop::opaque(sQ);
+      for (int j = 0; j < sn; ++j) {
+        const int b = i * CH + hw::kpos(wg, j), s = b % RK;
+        hop::mbar_wait(bars.kfull(s), (b / RK) & 1);
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss<T>(sc, hop::desc(qs + (s0 + j) * BOX + kk * 32, 16,
+                                         1024),
+                           hop::desc(sK + s * BOX + kk * 32, 16, 1024),
+                           (j | kk) != 0);
+        hop::wg_commit();
+        if (j > 0) {
+          hop::wg_wait<1>();
+          if (lane == 0)
+            hop::mbar_arrive(
+                bars.kempty((i * CH + hw::kpos(wg, j - 1)) % RK));
+        }
+      }
+    }
+    if (i > 0) {  // O += P_{i-1} V_{i-1} on this warpgroup's chunks
+      uint32_t vs[MAXC];
+      const int b0 = (i - 1) * CH + cb;
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) {
+        const int s = (b0 + j) % RV;
+        vs[j] = sV + s * BOX;
+        if (j < nch) hop::mbar_wait(bars.vfull(s), ((b0 + j) / RV) & 1);
+      }
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) hop::fence_regs(o[j]);
+      hop::wg_fence();
+      if (nch == 2)
+        values<T, 2>(o, pa, vs);
+      else if (nch == 3)
+        values<T, 3>(o, pa, vs);
+      else
+        values<T, 4>(o, pa, vs);
+      hop::wg_commit();
+    }
+    if (i < n) {
+      if (i > 0)
+        hop::wg_wait<1>();
+      else
+        hop::wg_wait<0>();
+      hop::fence_regs(sc);
+      if (lane == 0)
+        hop::mbar_arrive(bars.kempty((i * CH + hw::kpos(wg, sn - 1)) % RK));
+      if (i > 0)
+        asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(128 * NC)
+                     : "memory");
+#pragma unroll
+      for (int r = 0; r < BK / 2; ++r) mine[r * 128] = sc[r];
+      asm volatile("bar.sync 1, %0;\n" ::"n"(128 * NC) : "memory");
+#pragma unroll
+      for (int r = 0; r < BK / 2; ++r) sc[r] += other[r * 128];
+      if (i + 1 < n)
+        asm volatile("bar.arrive %0, %1;\n" ::"r"(3 - wg), "n"(128 * NC)
+                     : "memory");
+      if (dl.C == 2)
+        exchange_pair(dl.rank, sc, base, gbase, wg, tid, i);
+      else
+        exchange(dl, sc, base, gbase, wg, tid, i);
+      const int k0 = (kb + i) * BK;
+      const bool edge = k0 + BK > p.Skv || (p.causal && k0 + BK - 1 > q0) ||
+                        (p.window > 0 && q0 + BQ - 1 - k0 >= p.window);
+      if (cap) {
+        if (edge)
+          hop::softmax<T, BK, true, true>(p, sc, m, l, corr, rows, k0, t, sl,
+                                          cs, lc);
+        else
+          hop::softmax<T, BK, false, true>(p, sc, m, l, corr, rows, k0, t,
+                                           sl, cs, lc);
+      } else if (edge || !(sl > 0.f)) {
+        hop::softmax<T, BK, true, false>(p, sc, m, l, corr, rows, k0, t, sl,
+                                         cs, lc);
+      } else {
+        hop::softmax<T, BK, false, false>(p, sc, m, l, corr, rows, k0, t, sl,
+                                          cs, lc);
+      }
+    }
+    if (i > 0) {
+      hop::wg_wait<0>();
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j) hop::fence_regs(o[j]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          asm volatile("" : "+r"(pa[kk][x])::"memory");
+      const int b0 = (i - 1) * CH + cb;
+      if (lane == 0)
+        for (int j = 0; j < nch; ++j)
+          hop::mbar_arrive(bars.vempty((b0 + j) % RV));
+    }
+    if (i < n) {
+#pragma unroll
+      for (int j = 0; j < MAXC; ++j)
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          o[j][4 * x] *= corr[0];
+          o[j][4 * x + 1] *= corr[0];
+          o[j][4 * x + 2] *= corr[1];
+          o[j][4 * x + 3] *= corr[1];
+        }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        pa[j / 2][2 * (j % 2)] = hop::pack_f<T>(sc[4 * j], sc[4 * j + 1]);
+        pa[j / 2][2 * (j % 2) + 1] =
+            hop::pack_f<T>(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+  }
+  T* og = static_cast<T*>(p.o) + (long long)bh * p.Sq * p.d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= p.Sq) continue;
+    T* orow = og + (long long)rows[h] * p.d;
+#pragma unroll
+    for (int j = 0; j < MAXC; ++j) {
+      if (j >= nch) continue;
+#pragma unroll
+      for (int x = 0; x < 8; ++x) {
+        const int col = (c0 + cb + j) * 64 + 8 * x + 2 * t;
+        if (col < p.d)
+          *reinterpret_cast<typename Vec2<T>::type*>(orow + col) =
+              to2<T>(o[j][4 * x + 2 * h] / l[h],
+                     o[j][4 * x + 2 * h + 1] / l[h]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NTH, 1)
+    flash_wide_cluster_kernel(const __grid_constant__ Params p,
+                              const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv) {
+  extern __shared__ unsigned char smem_hc[];
+  const uint32_t raw = hop::smem_u32(smem_hc);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const Bars bars{base + SB};
+  const cl::Deal<NG> dl{cl::size(), cl::rank()};
+  cl::record(dl.C);
+  // this block's chunks of d: [c0, c0 + nc)
+  const int CH = (p.d + 63) / 64;
+  const int c0 = dl.rank * CH / dl.C, nc = (dl.rank + 1) * CH / dl.C - c0;
+  // the cluster's (query tile, bh), heaviest query tiles first
+  const int tile = blockIdx.x / dl.C;
+  const int qt = p.nq - 1 - tile / p.BH, bh = tile % p.BH;
+  const int q0 = qt * BQ;
+  int kb, ke;
+  kv_range(p, q0, BQ, BK, kb, ke);
+  const int n = max(ke - kb, 0);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(bars.q(), 1);
+    for (int s = 0; s < RK; ++s) {
+      hop::mbar_init(bars.kfull(s), 1);
+      hop::mbar_init(bars.kempty(s), 4);
+    }
+    for (int s = 0; s < RV; ++s) {
+      hop::mbar_init(bars.vfull(s), 1);
+      hop::mbar_init(bars.vempty(s), 4);
+    }
+    hop::mbar_init(bars.rs(), 1);
+    hop::mbar_init(bars.ag(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cl::sync();  // every block's barriers before any block sends
+
+  if (threadIdx.x >= 128 * NC) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PREG));
+    const int pt = threadIdx.x - 128 * NC;
+    if (pt == 0) {  // Q's chunks once, then the K boxes
+      hop::mbar_expect_tx(bars.q(), nc * BOX);
+      for (int c = 0; c < nc; ++c)
+        hop::tma_load(base + c * BOX, &tq, 64 * (c0 + c), q0, bh, bars.q());
+      const hw::Split sp(nc);
+      hw::produce<RK>(&tk, base + SK, bars.kfull(0), bars.kempty(0),
+                         kb, n, 2 * sp.sa, [&](int x) {
+                           const int c = x % 2 == 0 ? x / 2 : sp.sa + x / 2;
+                           return c < nc ? c0 + c : -1;
+                         }, bh);
+    } else if (pt == 32) {
+      hw::produce<RV>(&tv, base + SV, bars.vfull(0), bars.vempty(0),
+                         kb, n, nc, [&](int x) { return c0 + x; }, bh);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CREG));
+    consume<T>(p, q0, bh, kb, n, c0, nc, dl, base, smem_hc + (base - raw));
+  }
+  cl::sync();  // no block leaves while a peer may still send to it
+}
+
+template <typename T>
+int launch(Params p, cudaStream_t st) {
+  p.nq = (p.Sq + BQ - 1) / BQ;
+  const int C = blocks_for(p.d);
+  if (C < 2 || C > MAXCL) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)p.nq * p.BH * C;
+  if (blocks == 0) return 0;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  constexpr CUtensorMapDataType ty = kF16<T>
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tq, tk, tv;
+  if (!hop::encode(&tq, ty, p.q, p.d, p.Sq, p.BH, BQ) ||
+      !hop::encode(&tk, ty, p.k, p.d, p.Skv, p.BH, BK) ||
+      !hop::encode(&tv, ty, p.v, p.d, p.Skv, p.BH, BK))
+    return (int)cudaErrorInvalidValue;
+  return cl::launch(flash_wide_cluster_kernel<T>, (int)blocks, NTH, SMEM, C,
+                    st, p, tq, tk, tv);
+}
+
+}  // namespace hc
+
+// ---------------------------------------------------------------------------
 // d > 256 at float32: one block a 64-row query tile with every output
 // column, S = Q K^T once a key tile, split by keys across the warps that
 // own the same rows' output slices; 3xTF32 on mma.sync m16n8k8
@@ -2408,7 +3043,7 @@ constexpr int KW = 32;           // keys of a tile a warp's S covers
 constexpr int BK = KW * CG;      // keys a tile
 constexpr int VK = 32;           // keys of V a step
 constexpr int CW = 64;           // columns of Q and K a step
-constexpr int MAXD = 576;        // widest head: a slice's accumulators
+constexpr int MAXD = 576;        // widest head (ops.WIDE_MAXD)
 constexpr int NV = MAXD / CG / 8;  // 8-column tiles of a slice, at most
 constexpr int LC = CW + 8;       // chunk rows in floats: the fragment
 constexpr int LV = MAXD + 4;     // loads of a warp hit 32 distinct banks
@@ -2695,6 +3330,348 @@ int launch(const Params& p, cudaStream_t st) {
 }  // namespace fw
 
 // ---------------------------------------------------------------------------
+// 576 < d <= CLUSTER_MAXD at float32: flash_wide_f32_kernel's block on a
+// share of d, C blocks a query tile in a cluster, S summed once through
+// distributed shared memory
+
+namespace fc {
+
+using fw::BK;
+using fw::BQ;
+using fw::CG;
+using fw::CW;
+using fw::KW;
+using fw::LC;
+using fw::LP;
+using fw::NT;
+using fw::NW;
+using fw::RG;
+using fw::VK;
+constexpr int NB = 8;                  // 64-column chunks a block owns, at most
+constexpr int MAXCL = 8;               // blocks a cluster (portable)
+constexpr int MAXW = NB * CW;          // columns a block owns, at most
+constexpr int NV = (MAXW + 8 * CG - 1) / (8 * CG);  // 8-column tiles a slice
+constexpr int LV = MAXW + 4;           // loads of a warp hit 32 distinct banks
+constexpr int SLOT = (BQ + BK) * LC > VK * LV ? (BQ + BK) * LC : VK * LV;
+constexpr int NU = NW * KW / 8;        // units of a tile's S: a warp's 8 keys
+constexpr int UB = 32 * 16;            // bytes of a unit: 4 floats a lane
+// bytes: 2 slots, P, the column groups' row maxima (fw's); the
+// reduce-scatter's slots ((C - 1) x ceil(NU / C) units, at most NU), the
+// all-gathered units, the two rounds' barriers
+constexpr int SR = 4 * (2 * SLOT + BQ * LP + CG * BQ);
+constexpr int SA = SR + NU * UB;
+constexpr int SB = SA + NU * UB;
+constexpr int SMEM = SB + 16;
+static_assert(SMEM <= 232448, "shared memory");
+static_assert(MAXCL * MAXW >= CLUSTER_MAXD, "reach");
+
+// blocks a cluster for head dim d: the fewest whose shares of d's chunks
+// hold NB each (repro_flash_cluster_blocks)
+inline int blocks_for(int d) { return ((d + CW - 1) / CW + NB - 1) / NB; }
+
+// rows [r0, r0 + VK) and columns [c0, c1) of a (len, d) float32 matrix
+// into s[VK][LV] by 16-byte cp.async (the bases are 16-byte aligned, d and
+// c1 - c0 multiples of 8), zero at rows past len; columns past c1 are
+// never read
+__device__ __forceinline__ void stage_v(uint32_t s, const float* g, int r0,
+                                        int len, int c0, int c1, int d) {
+  const int units = (c1 - c0) / 4;
+  for (int idx = threadIdx.x; idx < VK * units; idx += NT) {
+    const int r = idx / units, c = (idx % units) * 4;
+    const bool ok = r0 + r < len;
+    f32::cp_async16(s + 4 * (r * LV + c),
+                    ok ? g + (long long)(r0 + r) * d + c0 + c : g, ok);
+  }
+}
+
+// One block: flash_wide_f32_kernel on columns [col0, col0 + W) of d (its
+// chunks), the cluster's exchange of S after each tile's last S step:
+// warp w's lanes send their units (4 w + j: its scores of keys 8 j ..
+// 8 j + 7) to the owners, sum those the block owns (C partials in
+// ascending rank), send each sum to the other blocks and read the rest.
+// Race-free with one buffer a round: each unit's slot is read, and its
+// sum sent, by the same thread, and a block sends tile i's partials only
+// after it has all of tile i - 1's sums.
+__global__ void __launch_bounds__(NT, 1)
+    flash_wide_cluster_f32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) float smem_fc[];
+  float* Ps = smem_fc + 2 * SLOT;
+  float* red = Ps + BQ * LP;
+  const unsigned char* bytes = reinterpret_cast<const unsigned char*>(smem_fc);
+  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem_fc));
+  const uint32_t rsb = s0 + SB, agb = s0 + SB + 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp % RG, cg = warp / RG;
+  const cl::Deal<NU> dl{cl::size(), cl::rank()};
+  cl::record(dl.C);
+  const int me = dl.rank, ob = dl.first(me), oe = dl.first(me + 1);
+  const int d = p.d, CHD = (d + CW - 1) / CW;
+  // this block's columns of d: chunks [k0c, k0c + CH)
+  const int k0c = me * CHD / dl.C, CH = (me + 1) * CHD / dl.C - k0c;
+  const int col0 = CW * k0c, W = min(d, CW * (k0c + CH)) - col0;
+  const int tile = blockIdx.x / dl.C;
+  const int qt = p.nq - 1 - tile / p.BH, bh = tile % p.BH;
+  const int q0 = qt * BQ;
+  const float* q = static_cast<const float*>(p.q) + (long long)bh * p.Sq * d;
+  const float* k = static_cast<const float*>(p.k) + (long long)bh * p.Skv * d;
+  const float* v = static_cast<const float*>(p.v) + (long long)bh * p.Skv * d;
+  float* o = static_cast<float*>(p.o) + (long long)bh * p.Sq * d;
+  int kb, ke;
+  kv_range(p, q0, BQ, BK, kb, ke);
+  const int SPT = CH + BK / VK;  // steps a tile
+  const int n = ke > kb ? (ke - kb) * SPT : 0;
+  // this warp's output slice of the block's columns: [c0, c0 + cw)
+  const int sw = (W + 8 * CG - 1) / (8 * CG) * 8;
+  const int c0 = cg * sw, cw = min(sw, W - c0), nd = (cw + 7) / 8;
+  const int w0 = q0 + 16 * rg;
+  const int rows[2] = {w0 + g, w0 + g + 8};
+  if (threadIdx.x == 0) {
+    hop::mbar_init(rsb, 1);
+    hop::mbar_init(agb, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cl::sync();  // every block's barriers before any block sends
+
+  auto issue = [&](int s) {  // step s's copies into slot s % 2
+    const int i = s / SPT, r = s % SPT, k0 = (kb + i) * BK;
+    const uint32_t a = s0 + 4 * (s % 2) * SLOT;
+    if (r < CH) {
+      fw::stage<BQ, CW, LC>(a, q, q0, p.Sq, col0 + r * CW, d);
+      fw::stage<BK, CW, LC>(a + 4 * BQ * LC, k, k0, p.Skv, col0 + r * CW, d);
+    } else {
+      stage_v(a, v, k0 + (r - CH) * VK, p.Skv, col0, col0 + W, d);
+    }
+  };
+
+  float acc[NV][4], sc[KW / 8][4], m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[x][e] = 0.f;
+  bool edge = false;
+
+  if (n > 0) issue(0);
+  f32::cp_commit();
+  for (int s = 0; s < n; ++s) {
+    const int i = s / SPT, r = s % SPT, k0 = (kb + i) * BK;
+    f32::cp_wait<0>();
+    __syncthreads();
+    if (s + 1 < n) issue(s + 1);
+    f32::cp_commit();
+    const float* a = smem_fc + (s % 2) * SLOT;
+    const int kw0 = k0 + KW * cg;
+    if (r < CH) {
+      if (r == 0) {
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      }
+      const bool dead = kw0 >= p.Skv || (p.causal && kw0 > w0 + 15) ||
+                        (p.window > 0 && w0 - (kw0 + KW - 1) >= p.window);
+      if (!dead) {
+        const float* Qw = a + 16 * rg * LC;
+        const float* Kc = a + BQ * LC + KW * cg * LC;
+        const int cols = d - (col0 + r * CW);
+#pragma unroll
+        for (int kk = 0; kk < CW / 8; ++kk) {
+          if (8 * kk < cols) {
+            const float2 q0v = *reinterpret_cast<const float2*>(
+                Qw + g * LC + 8 * kk + 2 * t);
+            const float2 q1v = *reinterpret_cast<const float2*>(
+                Qw + (g + 8) * LC + 8 * kk + 2 * t);
+            uint32_t ah[4], al[4];
+            f32::split(q0v.x, ah[0], al[0]);
+            f32::split(q1v.x, ah[1], al[1]);
+            f32::split(q0v.y, ah[2], al[2]);
+            f32::split(q1v.y, ah[3], al[3]);
+#pragma unroll
+            for (int j = 0; j < KW / 8; ++j) {
+              const float2 kv = *reinterpret_cast<const float2*>(
+                  Kc + (8 * j + g) * LC + 8 * kk + 2 * t);
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              f32::mma3(part, ah, al, kv.x, kv.y);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sc[j][e] += part[e];
+            }
+          }
+        }
+      }
+      if (r == CH - 1) {
+        // the cluster's S: units to their owners, the owned ones summed
+        // and sent back, the rest read
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j) {
+          const int u = 4 * warp + j, to = dl.owner(u);
+          if (to != me)
+            cl::send(cl::peer(s0 + SR + (cl::slot(dl, me, to, u) * 32 +
+                                         lane) * 16, to),
+                     make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]),
+                     cl::peer(rsb, to));
+        }
+        if (threadIdx.x == 0)
+          hop::mbar_expect_tx(rsb, (dl.C - 1) * (oe - ob) * UB);
+        cl::wait(rsb, i & 1);
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j) {
+          const int u = 4 * warp + j;
+          if (u < ob || u >= oe) continue;
+          const float4 x = cl::total(
+              dl, make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]),
+              bytes + SR, u, 32, lane);
+          sc[j][0] = x.x;
+          sc[j][1] = x.y;
+          sc[j][2] = x.z;
+          sc[j][3] = x.w;
+          for (int to = 0; to < dl.C; ++to)
+            if (to != me)
+              cl::send(cl::peer(s0 + SA + (u * 32 + lane) * 16, to), x,
+                       cl::peer(agb, to));
+        }
+        if (threadIdx.x == 0)
+          hop::mbar_expect_tx(agb, (NU - (oe - ob)) * UB);
+        cl::wait(agb, i & 1);
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j) {
+          const int u = 4 * warp + j;
+          if (u >= ob && u < oe) continue;
+          const float4 x = *reinterpret_cast<const float4*>(
+              bytes + SA + (u * 32 + lane) * 16);
+          sc[j][0] = x.x;
+          sc[j][1] = x.y;
+          sc[j][2] = x.z;
+          sc[j][3] = x.w;
+        }
+        edge = dead || kw0 + KW > p.Skv || (p.causal && kw0 + KW - 1 > w0) ||
+               (p.window > 0 && w0 + 15 - kw0 >= p.window);
+        float mx[2];
+        if (edge)
+          fw::logits<true>(p, sc, mx, rows, kw0, t);
+        else
+          fw::logits<false>(p, sc, mx, rows, kw0, t);
+        if (t == 0) {
+          red[cg * BQ + 16 * rg + g] = mx[0];
+          red[cg * BQ + 16 * rg + g + 8] = mx[1];
+        }
+      }
+    } else {
+      const int vs = r - CH;
+      const bool dead = (p.causal && k0 > w0 + 15) ||
+                        (p.window > 0 && w0 - (k0 + BK - 1) >= p.window);
+      if (vs == 0) {
+        float corr[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mn = m[h];
+#pragma unroll
+          for (int c = 0; c < CG; ++c)
+            mn = fmaxf(mn, red[c * BQ + 16 * rg + g + 8 * h]);
+          corr[h] = expf(m[h] - mn);
+          m[h] = mn;
+          l[h] *= corr[h];
+        }
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const float x = sc[j][e];
+            float pe = expf(x - m[h]);
+            if (edge && x == NEG_INF) pe = 0.f;
+            sc[j][e] = pe;
+            l[h] += pe;
+          }
+#pragma unroll
+        for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(Ps + (16 * rg + g + 8 * h) * LP +
+                                       KW * cg + 8 * j + 2 * t) =
+                make_float2(sc[j][2 * h], sc[j][2 * h + 1]);
+#pragma unroll
+        for (int x = 0; x < NV; ++x) {
+          acc[x][0] *= corr[0];
+          acc[x][1] *= corr[0];
+          acc[x][2] *= corr[1];
+          acc[x][3] *= corr[1];
+        }
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "n"(32 * CG)
+                     : "memory");
+      }
+      if (!dead) {
+        const float* Pw = Ps + 16 * rg * LP + VK * vs;
+#pragma unroll
+        for (int j = 0; j < VK / 8; ++j) {
+          const float2 p0 =
+              *reinterpret_cast<const float2*>(Pw + g * LP + 8 * j + 2 * t);
+          const float2 p1 = *reinterpret_cast<const float2*>(
+              Pw + (g + 8) * LP + 8 * j + 2 * t);
+          uint32_t ah[4], al[4];
+          f32::split(p0.x, ah[0], al[0]);
+          f32::split(p1.x, ah[1], al[1]);
+          f32::split(p0.y, ah[2], al[2]);
+          f32::split(p1.y, ah[3], al[3]);
+          const float* vp = a + (8 * j + 2 * t) * LV + c0 + g;
+#pragma unroll
+          for (int x = 0; x < NV; ++x) {
+            if (x < nd) {
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+              f32::mma3(part, ah, al, vp[8 * x], vp[LV + 8 * x]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[x][e] += part[e];
+            }
+          }
+        }
+      }
+    }
+  }
+  f32::cp_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __syncthreads();
+  if (t == 0) {
+    red[cg * BQ + 16 * rg + g] = l[0];
+    red[cg * BQ + 16 * rg + g + 8] = l[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = 0.f;
+#pragma unroll
+    for (int c = 0; c < CG; ++c) lt += red[c * BQ + 16 * rg + g + 8 * h];
+    l[h] = fmaxf(lt, 1e-30f);
+  }
+#pragma unroll
+  for (int x = 0; x < NV; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1, col = 8 * x + 2 * t + (e & 1);
+      if (rows[h] < p.Sq && col < cw)
+        o[(long long)rows[h] * d + col0 + c0 + col] = acc[x][e] / l[h];
+    }
+  cl::sync();  // no block leaves while a peer may still send to it
+}
+
+int launch(Params p, cudaStream_t st) {
+  p.nq = (p.Sq + BQ - 1) / BQ;
+  const int C = blocks_for(p.d);
+  if (C < 2 || C > MAXCL) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)p.nq * p.BH * C;
+  if (blocks == 0) return 0;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  return cl::launch(flash_wide_cluster_f32_kernel, (int)blocks, NT, SMEM, C,
+                    st, p);
+}
+
+}  // namespace fc
+
+// ---------------------------------------------------------------------------
 // launch
 
 template <int D>
@@ -2740,9 +3717,10 @@ bool tma_shape(const void* q, const void* k, const void* v, const void* o,
 
 // The 16-bit entry points' choice: up to d = 256 the Hopper kernel
 // (returns 0) where TMA can describe the tensors and the general kernel
-// (-1) for the rest; above, the wide Hopper kernel (-2) where TMA can
-// describe them and d <= 576, the general wide kernel (-3) for the rest.
-// A choice by shape, not a fallback.
+// (-1) for the rest; above, where TMA can describe them, the wide Hopper
+// kernel (-2) up to d = 576 and the cluster kernel (-4) up to
+// CLUSTER_MAXD, the general wide kernel (-3) for the rest.  A choice by
+// shape, not a fallback: a refused launch returns its error.
 template <typename T>
 int attn16(const void* q, const void* k, const void* v, void* o, int BH,
            int Sq, int Skv, int d, int causal, int window, float softcap,
@@ -2752,10 +3730,15 @@ int attn16(const void* q, const void* k, const void* v, void* o, int BH,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d < 1) return (int)cudaErrorInvalidValue;
   const bool tma = tma_shape(q, k, v, o, Skv, d);
-  if (d > 256) {
-    const bool one_s = tma && d <= hw::MAXD;  // S once a tile
-    const int e = one_s ? hw::launch<T>(p, st) : wide::launch<T>(p, st);
-    return e != 0 ? e : one_s ? -2 : -3;
+  if (d > 256) {  // S once a tile where TMA can describe the tensors
+    const int key = !tma                   ? 3
+                    : d <= hw::MAXD        ? 2
+                    : d <= CLUSTER_MAXD    ? 4
+                                           : 3;
+    const int e = key == 2   ? hw::launch<T>(p, st)
+                  : key == 4 ? hc::launch<T>(p, st)
+                             : wide::launch<T>(p, st);
+    return e != 0 ? e : -key;
   }
   if (tma) {
     if (d <= 64) return hop::launch<T, 64>(p, st);
@@ -2775,10 +3758,13 @@ int attn16(const void* q, const void* k, const void* v, void* o, int BH,
 // that kernel's key):
 //   float32:  0 flash_f32_kernel (d <= 256), -1 flash_wide_f32_kernel
 //             (256 < d <= 576, what TMA could describe), -2
-//             flash_wide_kernel (the rest above 256);
+//             flash_wide_kernel (the rest above 256), -3
+//             flash_wide_cluster_f32_kernel (576 < d <= CLUSTER_MAXD,
+//             what TMA could describe);
 //   bfloat16: 0 flash_wgmma_kernel, -1 flash_general_kernel, -2
-//             flash_wide_wgmma_kernel, -3 flash_wide_kernel;
-//   float16:  the same four kernels at float16.
+//             flash_wide_wgmma_kernel, -3 flash_wide_kernel, -4
+//             flash_wide_cluster_kernel;
+//   float16:  the same five kernels at float16.
 extern "C" int repro_flash_attn_f32(const void* q, const void* k,
                                     const void* v, void* o, int BH, int Sq,
                                     int Skv, int d, int causal, int window,
@@ -2792,9 +3778,15 @@ extern "C" int repro_flash_attn_f32(const void* q, const void* k,
   if (d <= 128) return launch_f32<128>(p, st);
   if (d <= 256) return launch_f32<256>(p, st);
   // S once a tile where TMA could describe the tensors
-  const bool one_s = tma_shape(q, k, v, o, Skv, d) && d <= fw::MAXD;
-  const int e = one_s ? fw::launch(p, st) : wide::launch<float>(p, st);
-  return e != 0 ? e : one_s ? -1 : -2;
+  const bool tma = tma_shape(q, k, v, o, Skv, d);
+  const int key = !tma                 ? 2
+                  : d <= fw::MAXD      ? 1
+                  : d <= CLUSTER_MAXD  ? 3
+                                       : 2;
+  const int e = key == 1   ? fw::launch(p, st)
+                : key == 3 ? fc::launch(p, st)
+                           : wide::launch<float>(p, st);
+  return e != 0 ? e : -key;
 }
 
 extern "C" int repro_flash_attn_bf16(const void* q, const void* k,
@@ -2813,4 +3805,21 @@ extern "C" int repro_flash_attn_f16(const void* q, const void* k,
                                     void* stream) {
   return attn16<f16>(q, k, v, o, BH, Sq, Skv, d, causal, window, softcap,
                      scale, stream);
+}
+
+// blocks a cluster flash_wide_cluster launches for head dim d (a multiple
+// of 8 up to CLUSTER_MAXD) at elements of elem_bytes: the launch's own
+// rule (hc::blocks_for at 16 bits, fc::blocks_for at float32)
+extern "C" int repro_flash_cluster_blocks(int d, int elem_bytes) {
+  return elem_bytes == 4 ? fc::blocks_for(d) : hc::blocks_for(d);
+}
+
+// the blocks a cluster the last flash_wide_cluster launch ran with, as
+// its grid's first block read them from %cluster_nctarank, into *out (0
+// where none ran since the last call); then 0 again
+extern "C" int repro_flash_cluster_seen(int* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, cl::seen, sizeof(int));
+  if (e != cudaSuccess) return (int)e;
+  const int zero = 0;
+  return (int)cudaMemcpyToSymbol(cl::seen, &zero, sizeof(int));
 }

@@ -144,8 +144,31 @@ FLASH_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 2.5e-3}
 #: head dims of the wide route (d > 256) in the CPU tests: past the
 #: compiled widths, d % 8 != 0 (300, and 575, the widest that pads to
 #: 576: the realigned route on the card), a multiple of 128, DeepSeek-V2's
-#: absorbed MLA width (kv_lora_rank 512 + qk_rope_dim 64)
-WIDE_DIMS = [257, 300, 384, 575, 576]
+#: absorbed MLA width (kv_lora_rank 512 + qk_rope_dim 64); past it, the
+#: cluster route's: 640 and 1024 (two blocks a query tile) and 1030 (d %
+#: 8 != 0, realigned to 1032 on the card: three blocks at 16 bits)
+WIDE_DIMS = [257, 300, 384, 575, 576, 640, 1024, 1030]
+#: 64-column chunks of d a block of ``flash_wide_cluster`` owns at most
+#: (``hc::NB`` and ``fc::NB`` in flash.cu)
+CLUSTER_SHARE = 8
+
+
+def cluster_shares(d: int, elem_bytes: int) -> list[tuple[int, int]]:
+    """``flash_wide_cluster``'s blocks for head dim ``d`` and elements of
+    ``elem_bytes``, as the CPU emulation of its sum order models them: the
+    64-column chunks ``[c0, c1)`` of d each block owns, by rank.  The
+    cluster is the fewest blocks whose shares hold ``CLUSTER_SHARE``
+    chunks each, balanced (block r from r * CH // C); at 16 bits 6 and 7
+    blocks are taken as 8, whose reduce-scatter slots fit the kernel's
+    shared memory.  A model of flash.cu's ``blocks_for``: the card tests
+    hold its block count to the library's own rule
+    (``ops.cluster_blocks``) at every width and to the cluster size each
+    launch reads in the kernel (``ops.cluster_blocks_seen``)."""
+    ch = -(-d // 64)
+    c = -(-ch // CLUSTER_SHARE)
+    if elem_bytes == 2 and c in (6, 7):
+        c = 8
+    return [(r * ch // c, (r + 1) * ch // c) for r in range(c)]
 
 
 def qkv(B, Sq, Skv, H, d, seed=0) -> tuple:

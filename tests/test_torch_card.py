@@ -35,7 +35,7 @@ import pytest
 import torch
 
 from _torch_parity import (FLASH_CASES, FLASH_REL_L2, FLASH_TOL,
-                           alternating_case,
+                           alternating_case, cluster_shares,
                            big_total_case, int_loads, long_run_case,
                            need_card, plateau_case, probe_case, qkv,
                            rectload_case, solver_case)
@@ -534,11 +534,7 @@ def test_nicol_optimal_device_on_card_matches_cpu(dtype, n):
 
 #: launch keys of K5's kernels by dtype (which one takes a call is the C
 #: entry point's choice)
-FLASH_KEYS = {"float32": ("flash_f32", "flash_wide", "flash_wide_general"),
-              "bfloat16": ("flash", "flash_general", "flash_wide",
-                           "flash_wide_general"),
-              "float16": ("flash_f16", "flash_f16_general", "flash_wide",
-                          "flash_wide_general")}
+FLASH_KEYS = {name: flash_ops._KEYS[dt] for name, dt in FLASH_DTYPES.items()}
 #: the general kernel's key by 16-bit dtype
 GENERAL = {"bfloat16": "flash_general", "float16": "flash_f16_general"}
 
@@ -554,6 +550,16 @@ def _held(got: torch.Tensor, want: torch.Tensor, dtype: str) -> None:
         assert float((got - want).norm()) / norm <= FLASH_REL_L2[dtype]
 
 
+def _clusters_seen(d: int, dtype: str, cluster: bool) -> None:
+    """The cluster size of the launch just made, as its kernel read it
+    from ``%cluster_nctarank`` (``ops.cluster_blocks_seen``, which clears
+    the record): ``cluster_shares``'s count at d padded to a multiple of 8
+    where ``flash_wide_cluster`` ran, else 0 (no cluster launch)."""
+    eb = FLASH_DTYPES[dtype].itemsize
+    want = len(cluster_shares(flash_ops.padded(d), eb)) if cluster else 0
+    assert flash_ops.cluster_blocks_seen() == want
+
+
 def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0,
                 q_scale=1.0, key=None):
     """K5 through ``attention`` on the card against the plain version on
@@ -567,12 +573,14 @@ def _flash_case(B, Sq, Skv, H, d, causal, window, softcap, dtype, seed=0,
                for x in (q * np.float32(q_scale), k, v))
     before = {n: _build.launches[n] for n in FLASH_KEYS[dtype]}
     copies = _build.launches["flash_realign"]
+    flash_ops.cluster_blocks_seen()
     got = flash_ops.attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
     added = {n: _build.launches[n] - c for n, c in before.items()}
     assert sum(added.values()) == 1
     if key is not None:
         assert added[key] == 1
+    _clusters_seen(d, dtype, added.get("flash_wide_cluster", 0) == 1)
     # attention folds into fresh, aligned tensors
     assert _build.launches["flash_realign"] - copies == \
         _realigns(d, 0, dtype, Skv)
@@ -672,9 +680,11 @@ def _flash_folded(BH, Sq, Skv, d, dtype, key, *, offset=1, causal=True,
     if offset % (16 // q.element_size()):
         assert all(x.data_ptr() % 16 != 0 for x in (q, k, v))
     n, copies = _build.launches[key], _build.launches["flash_realign"]
+    flash_ops.cluster_blocks_seen()
     got = flash_ops.flash_attention(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
     assert _build.launches[key] == n + 1
+    _clusters_seen(d, dtype, key == "flash_wide_cluster")
     assert _build.launches["flash_realign"] - copies == \
         _realigns(d, offset, dtype, Skv)
     torch.cuda.synchronize()
@@ -859,36 +869,36 @@ def test_flash_f16_general_many_heads():
     _flash_folded(66000, 16, 16, 32, "float16", "flash_f16_general")
 
 
-# d > 256: three routes at every dtype, chosen by shape.  flash_wide (S
+# d > 256: four routes at every dtype, chosen by shape.  flash_wide (S
 # once a key tile for every output column) takes what TMA can describe up
-# to d = 576: 16-byte aligned bases, d % 8 == 0, at least one key.  Up to
-# 576 after padding d to a multiple of 8, with at least one key, the
-# wrapper first copies every other shape into padded, aligned scratch
-# (flash_realign: one launch a tensor it copies, and one for the output
-# where d % 8 != 0), then flash_wide takes it.  flash_wide_general takes
-# the rest: d > 576 after padding, Skv = 0.
-WIDE_D = [257, 300, 512, 576, 1000, 2048]
-WIDE_MAX = 576
-
-
-def _padded(d: int) -> int:
-    return d + -d % 8
+# to d = 576 (ops.WIDE_MAXD): 16-byte aligned bases, d % 8 == 0, at least
+# one key; flash_wide_cluster the same shapes up to d = 4096
+# (ops.CLUSTER_MAXD), a cluster of blocks a query tile.  Up to 4096 after
+# padding d to a multiple of 8, with at least one key, the wrapper first
+# copies every other shape into padded, aligned scratch (flash_realign:
+# one launch a tensor it copies, and one for the output where d % 8 != 0),
+# then flash_wide or flash_wide_cluster takes it.  flash_wide_general
+# takes the rest: d > 4096 after padding, Skv = 0.
+WIDE_D = [257, 300, 512, 576, 1000, 2048, 2624, 4096, 4200]
+WIDE_MAX = flash_ops.WIDE_MAXD
+REACH = flash_ops.CLUSTER_MAXD
 
 
 def _wide_key(d: int, offset: int = 0) -> str:
     """The wide kernel that runs for head dim ``d`` with at least one key
     at bases ``offset`` elements past a 16-byte boundary (0 for a fresh
-    tensor): flash_wide, behind flash_realign where the shape needs it
-    (``_realigns``), up to 576 after padding."""
-    return "flash_wide" if _padded(d) <= WIDE_MAX else "flash_wide_general"
+    tensor): ``ops.wide_key``, behind flash_realign where the shape needs
+    it (``_realigns``)."""
+    return flash_ops.wide_key(d)
 
 
 def _realigns(d: int, offset: int, dtype: str, Skv: int = 1) -> int:
     """flash_realign launches of one call whose q, k and v lie ``offset``
     elements past a 16-byte boundary: the three inputs where a base is not
     16-byte aligned or d % 8 != 0, and the output where d % 8 != 0, on the
-    realigned route (256 < d, padded d <= 576, Skv > 0); else none."""
-    if d <= 256 or _padded(d) > WIDE_MAX or Skv == 0:
+    realigned route (256 < d, padded d <= ``REACH``, Skv > 0); else
+    none."""
+    if d <= 256 or flash_ops.padded(d) > REACH or Skv == 0:
         return 0
     unaligned = offset * FLASH_DTYPES[dtype].itemsize % 16 != 0
     return 3 * (unaligned or d % 8 != 0) + (d % 8 != 0)
@@ -901,8 +911,8 @@ def test_flash_wide_head_dims(d, dtype, mode):
     """Widths past 256 (odd, d % 8 != 0, several output slices, 2048),
     the causal mask with a window and Gemma-2's softcap, and a ragged
     cross-attention shape, each on the route its shape picks (257 and 300
-    on flash_wide behind flash_realign, 1000 and 2048 on the general
-    wide kernel)."""
+    on flash_wide behind flash_realign, 1000, 2048, 2624 and 4096 on
+    flash_wide_cluster, 4200 on the general wide kernel)."""
     if mode == "cross":
         _flash_case(1, 70, 197, 2, d, False, 0, 0.0, dtype, seed=d,
                     key=_wide_key(d))
@@ -911,15 +921,17 @@ def test_flash_wide_head_dims(d, dtype, mode):
                     key=_wide_key(d))
 
 
-@pytest.mark.parametrize("d", [257, 576, 584])
+@pytest.mark.parametrize("d", [257, 576, 584, 640, 1030, 4104])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_flash_wide_unaligned_bases(d, dtype, offset):
     """Bases 0, 1 and 3 elements past a 16-byte boundary: TMA describes
-    only aligned ones with d % 8 == 0; up to 576 the rest reach flash_wide
-    on realigned scratch (flash_realign), each tensor copied; past 576 the
-    general wide kernel stages them itself (at float32, offset 3 is 12
-    bytes past a 16-byte boundary)."""
+    only aligned ones with d % 8 == 0; up to 4096 the rest reach flash_wide
+    (up to 576) or flash_wide_cluster on realigned scratch
+    (flash_realign), each tensor copied, and at d = 1030 the output too
+    (at float32, offset 3 is 12 bytes past a 16-byte boundary); past the
+    reach (4104) the general wide kernel stages the unaligned rows
+    itself."""
     key = _wide_key(d, offset)
     _flash_folded(2, 130, 197, d, dtype, key, offset=offset,
                   window=48, softcap=50.0, seed=d + offset)
@@ -929,12 +941,16 @@ def test_flash_wide_unaligned_bases(d, dtype, offset):
 
 @pytest.mark.parametrize("d,offset", [(WIDE_MAX, 0), (WIDE_MAX, 1),
                                       (WIDE_MAX + 8, 0), (WIDE_MAX + 8, 1),
-                                      (264, 0), (512, 0)])
+                                      (264, 0), (512, 0), (REACH, 0),
+                                      (REACH, 1), (REACH + 8, 0),
+                                      (REACH + 8, 1)])
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
 def test_flash_wide_route_boundary(d, offset, dtype):
-    """The edges of flash_wide's shapes: its widest head (realigned one
-    element past an aligned base) and the next multiple of 8 above it (the
-    general wide kernel's at both bases), and two widths inside."""
+    """The edges of the wide routes: flash_wide's widest head and the next
+    multiple of 8 above it (flash_wide_cluster's narrowest), the cluster's
+    widest (8 blocks) and the next multiple of 8
+    (the general wide kernel's), each aligned and one element past an
+    aligned base (realigned up to the reach), and two widths inside."""
     _flash_folded(2, 130, 197, d, dtype, _wide_key(d, offset),
                   offset=offset, window=48, softcap=50.0, seed=d + offset)
 
@@ -998,11 +1014,38 @@ def test_flash_wide_softcap(window, dtype):
 def test_flash_wide_many_heads(dtype):
     """B * H = 66,000: the flattened grid takes it on every wide route
     (flash_wide's one block a query tile, at an aligned base and behind
-    flash_realign one element past it; the general kernel's 3 output
-    slices a tile at d = 584)."""
+    flash_realign one element past it; at d = 584 flash_wide_cluster's
+    clusters of 2 blocks a query tile, 132,000 blocks, behind
+    flash_realign; past the reach, at d = 4104, the general wide kernel's
+    17 output slices a head, 1,122,000 blocks, on bases one element past
+    a 16-byte boundary, with one query and one key a head so the inputs
+    stay near 1 GB at float32)."""
     _flash_folded(66000, 16, 16, 264, dtype, "flash_wide", offset=0)
     _flash_folded(66000, 16, 16, 264, dtype, _wide_key(264, 1), offset=1)
-    _flash_folded(66000, 16, 16, 584, dtype, "flash_wide_general", offset=1)
+    _flash_folded(66000, 16, 16, 584, dtype, _wide_key(584, 1), offset=1)
+    _flash_folded(66000, 1, 1, REACH + 8, dtype, "flash_wide_general",
+                  offset=1)
+
+
+@pytest.mark.parametrize("eb", [2, 4])
+def test_cluster_blocks_rule_matches_the_emulation(eb):
+    """flash.cu's own rule for the blocks a cluster (``ops.cluster_blocks``,
+    read from the library) against the CPU emulation's model of it
+    (``cluster_shares``) at every width the cluster route takes."""
+    need_card()
+    for d in range(WIDE_MAX + 8, REACH + 1, 8):
+        assert flash_ops.cluster_blocks(d, eb) == len(cluster_shares(d, eb))
+
+
+@pytest.mark.parametrize("d", [640, 1152, 2048, 2560, 3072, 3584, 4096])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_cluster_sizes(d, dtype):
+    """Every cluster size the route launches, 2, 3, 4, 5, 6, 7 and 8 blocks
+    at float32 (at 16 bits 6 and 7 run as 8), each read in the kernel
+    (``_flash_folded`` holds it to ``cluster_shares``), the output held to
+    the plain version."""
+    _flash_folded(2, 130, 197, d, dtype, "flash_wide_cluster", offset=0,
+                  window=48, softcap=50.0, seed=d)
 
 
 @pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
@@ -1025,6 +1068,60 @@ def test_flash_wide_realigned_k_is_v(dtype, d, offset):
     want = flash_ref.attention_ref(q, k, k, causal=True, window=48,
                                    softcap=50.0)
     _held(got, want, dtype)
+
+
+#: lengths on both sides of flash_wide_cluster's tiles: 64 query rows, 64
+#: keys at 16 bits and 96 at float32
+CLUSTER_EDGE_LENGTHS = [(63, 63, True), (65, 65, True), (97, 95, True),
+                        (191, 193, True), (1, 96, False), (200, 33, False),
+                        (129, 1000, False)]
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", CLUSTER_EDGE_LENGTHS)
+@pytest.mark.parametrize("d", [640, 1024, 1152])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_cluster_tile_edges(Sq, Skv, causal, d, dtype):
+    """Ragged lengths on both sides of the cluster kernels' tiles, at two
+    blocks a query tile (d = 640 and 1024: the one-round exchange at 16
+    bits) and three (1152: the two-round exchange)."""
+    _flash_folded(2, Sq, Skv, d, dtype, "flash_wide_cluster", offset=0,
+                  causal=causal, seed=Sq + Skv + d)
+
+
+@pytest.mark.parametrize("window", [32, 64, 100])
+@pytest.mark.parametrize("d", [640, 1024, 1152])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_cluster_window_edges(window, d, dtype):
+    _flash_folded(2, 512, 512, d, dtype, "flash_wide_cluster", offset=0,
+                  window=window, seed=window + d)
+
+
+@pytest.mark.parametrize("window", [0, 256])
+@pytest.mark.parametrize("d", [640, 1024, 1152])
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_cluster_softcap(window, d, dtype):
+    """The softcap with q 8x larger on flash_wide_cluster; at float32 held
+    to the function computed in float64, as ``test_flash_wide_softcap``
+    is (the plain version's own rounding of logits near 40)."""
+    _flash_folded(2, 1024, 1024, d, dtype, "flash_wide_cluster", offset=0,
+                  window=window, softcap=50.0, q_scale=8.0,
+                  f64=dtype == "float32")
+
+
+@pytest.mark.parametrize("dtype", list(FLASH_DTYPES))
+def test_flash_wide_cluster_no_keys_takes_the_general_kernel(dtype):
+    """Skv = 0 at d = 1024: TMA cannot describe it, so the general wide
+    kernel takes it and writes zeros, as the plain version does."""
+    dev = need_card()
+    tdt = FLASH_DTYPES[dtype]
+    q = torch.randn(3, 70, 1024, device=dev).to(tdt)
+    k = torch.zeros(3, 0, 1024, device=dev, dtype=tdt)
+    before = {n: _build.launches[n] for n in FLASH_KEYS[dtype]}
+    got = flash_ops.flash_attention(q, k, k, causal=False)
+    added = {n: _build.launches[n] - c for n, c in before.items()
+             if _build.launches[n] != c}
+    assert added == {"flash_wide_general": 1}
+    assert torch.equal(got, torch.zeros_like(q))
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -1052,7 +1149,7 @@ def test_flash_realign_matches_plain(d, dtype):
         n = _build.launches["flash_realign"]
         p = flash_ops.pad8(x)
         assert _build.launches["flash_realign"] == n + 1
-        assert p.data_ptr() % 16 == 0 and p.shape == (3, 700, _padded(d))
+        assert p.data_ptr() % 16 == 0 and p.shape == (3, 700, flash_ops.padded(d))
         assert torch.equal(_bits(p), _bits(flash_ref.pad8_ref(x)))
         back = flash_ops.unpad8(p, d)
         assert _build.launches["flash_realign"] == n + 2

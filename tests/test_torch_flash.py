@@ -37,7 +37,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import FLASH_CASES, FLASH_REL_L2, FLASH_TOL, WIDE_DIMS, qkv
+from _torch_parity import (CLUSTER_SHARE, FLASH_CASES, FLASH_REL_L2, FLASH_TOL,
+                           WIDE_DIMS, cluster_shares, qkv)
 from repro.kernels.flash import ops as jax_flash
 from repro.kernels.flash.ref import attention_ref as jax_attention_ref
 from repro.models import layers as jax_layers
@@ -84,7 +85,12 @@ WIDE_CASES = [(1, 70, 70, 2, d, True, 0, 0.0) for d in WIDE_DIMS] + [
     (1, 80, 80, 2, 576, True, 0, 50.0),
     (1, 37, 53, 2, 257, False, 0, 0.0),
     (2, 45, 130, 1, 576, False, 0, 30.0),
+    (1, 96, 96, 1, 640, True, 24, 0.0),
+    (1, 80, 80, 2, 1024, True, 0, 50.0),
+    (2, 45, 130, 1, 1030, False, 0, 30.0),
 ]
+#: the cluster route's cases (d > 576)
+CLUSTER_CASES = [c for c in WIDE_CASES if c[4] > flash_ops.WIDE_MAXD]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap", WIDE_CASES)
@@ -254,16 +260,20 @@ def test_launch_passes_floats_as_c_float(monkeypatch):
     (torch.bfloat16, -3, "flash_wide_general"),
     (torch.float16, -3, "flash_wide_general"),
     (torch.float32, -2, "flash_wide_general"),
-    (torch.bfloat16, -4, None), (torch.float16, -4, None),
-    (torch.float32, -3, None)])
+    (torch.bfloat16, -4, "flash_wide_cluster"),
+    (torch.float16, -4, "flash_wide_cluster"),
+    (torch.float32, -3, "flash_wide_cluster"),
+    (torch.bfloat16, -5, None), (torch.float16, -5, None),
+    (torch.float32, -4, None)])
 def test_launch_counts_under_the_route_the_library_picks(monkeypatch, dtype,
                                                          ret, key):
     """The wrapper counts a CUDA launch under the key of the kernel the C
     entry point reports: the 16-bit entry points return 0 after the Hopper
-    kernel, -1 after the general one, -2 after the wide Hopper kernel and
-    -3 after the general wide one, float32's 0 after its kernel, -1 after
-    its wide kernel and -2 after the general wide one.  A CUDA error
-    (positive) or a code no kernel has raises and counts nothing.  The
+    kernel, -1 after the general one, -2 after the wide Hopper kernel, -3
+    after the general wide one and -4 after the cluster kernel, float32's
+    0 after its kernel, -1 after its wide kernel, -2 after the general wide
+    one and -3 after its cluster kernel.  A CUDA error (positive) or a
+    code no kernel has raises and counts nothing.  The
     library here is ctypes callbacks with the real signatures; ``on_cpu``
     is told the tensors lie on the card."""
     calls = {}
@@ -339,11 +349,39 @@ def _mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return (al @ bh + ah @ bl) + ah @ bh
 
 
+def _partials(q, kt, blocks, mm):
+    """q kt^T as flash_wide_cluster sums it: each block's partial over
+    its column ranges (``blocks``: a list of ranges a block, added in
+    order), the blocks' partials added in ascending rank."""
+    total = None
+    for ranges in blocks:
+        part = None
+        for c0, c1 in ranges:
+            x = mm(q[..., c0:c1], kt[..., c0:c1].transpose(1, 2))
+            part = x if part is None else part + x
+        total = part if total is None else total + part
+    return total
+
+
+def _cluster_columns(d, elem_bytes):
+    """flash_wide_cluster's column ranges by block at head dim d (run on
+    d padded to a multiple of 8): ``cluster_shares``'s chunks; at 16
+    bits each block's chunks split between its two warpgroups as
+    ``hw::Split`` does (the first ceil(n / 2), then the rest)."""
+    out = []
+    for c0, c1 in cluster_shares(flash_ops.padded(d), elem_bytes):
+        sa = c0 + (c1 - c0 + 1) // 2
+        ranges = [(c0, sa), (sa, c1)] if elem_bytes == 2 else [(c0, c1)]
+        out.append([(64 * a, min(64 * b, d)) for a, b in ranges])
+    return out
+
+
 def _attention_tf32(q, k, v, *, causal, window, softcap, passes=3,
-                    BK=None):
+                    BK=None, blocks=None):
     """(BH, S, d) float32 attention with the kernel's products and online
     softmax over its key tiles (``BK`` keys, by default flash_f32_kernel's
-    and the general wide kernel's)."""
+    and the general wide kernel's); with ``blocks``, S summed as the
+    cluster kernel sums it (:func:`_partials`)."""
     BH, Sq, d = q.shape
     Skv = k.shape[1]
     BK = BK or (64 if d <= 64 else 32)
@@ -352,9 +390,14 @@ def _attention_tf32(q, k, v, *, causal, window, softcap, passes=3,
     l = torch.zeros((BH, Sq, 1))
     acc = torch.zeros((BH, Sq, d))
     i = torch.arange(Sq)[:, None]
+
+    def mm(a, b):
+        return _mm(a, b, passes)
     for k0 in range(0, Skv, BK):
         j = torch.arange(k0, min(k0 + BK, Skv))[None, :]
-        s = _mm(q, k[:, k0:k0 + BK].transpose(1, 2), passes) * scale
+        kt = k[:, k0:k0 + BK]
+        s = (mm(q, kt.transpose(1, 2)) if blocks is None
+             else _partials(q, kt, blocks, mm)) * scale
         if softcap > 0:
             s = softcap * torch.tanh(s / softcap)
         ok = torch.ones_like(s[0], dtype=torch.bool)
@@ -449,9 +492,11 @@ def test_one_tf32_pass_misses_the_float32_contract(d):
 # tiles change only the order of the float32 sums.
 
 
-def _attention_16(q, k, v, *, causal, window, softcap, BK=64):
+def _attention_16(q, k, v, *, causal, window, softcap, BK=64, blocks=None):
     """(BH, S, d) attention of 16-bit q, k, v with the kernels' rounding
-    of p, in float32 otherwise; returns the input's type."""
+    of p, in float32 otherwise; returns the input's type.  With
+    ``blocks``, S summed as the cluster kernel sums it
+    (:func:`_partials`)."""
     dt = q.dtype
     q, k, v = q.float(), k.float(), v.float()
     BH, Sq, d = q.shape
@@ -463,7 +508,9 @@ def _attention_16(q, k, v, *, causal, window, softcap, BK=64):
     i = torch.arange(Sq)[:, None]
     for k0 in range(0, Skv, BK):
         j = torch.arange(k0, min(k0 + BK, Skv))[None, :]
-        s = q @ k[:, k0:k0 + BK].transpose(1, 2) * scale
+        kt = k[:, k0:k0 + BK]
+        s = (q @ kt.transpose(1, 2) if blocks is None
+             else _partials(q, kt, blocks, torch.matmul)) * scale
         if softcap > 0:
             s = softcap * torch.tanh(s / softcap)
         ok = torch.ones_like(s[0], dtype=torch.bool)
@@ -498,3 +545,91 @@ def test_16_bit_design_matches_plain(B, Sq, Skv, H, d, causal, window,
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert _rel_l2(got, want) <= FLASH_REL_L2[dtype]
+
+
+# ---------------------------------------------------------------------------
+# The cluster kernels' fixed sum order, emulated on the CPU.  Past d = 576
+# flash_wide_cluster splits d's 64-column chunks between the blocks of a
+# cluster (cluster_shares, checked against the kernel's own rule on the
+# card); each block's partial S over its chunks (at
+# 16 bits the sum of its two warpgroups' halves) is added to the others in
+# ascending rank, once, by the block that owns each score, so every block
+# holds the same S.
+
+
+@pytest.mark.parametrize("d", [577, 584, 640, 1024, 1030, 1152, 2048, 2560,
+                               2624, 3072, 3584, 4096])
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+def test_cluster_shares_cover_the_head(d, elem_bytes):
+    """The fewest blocks whose shares hold ``CLUSTER_SHARE`` chunks (at 16
+    bits 6 and 7 taken as 8), 2 to 8 of them (a portable cluster),
+    balanced, covering d's chunks in rank order."""
+    shares = cluster_shares(d, elem_bytes)
+    ch, most = -(-d // 64), CLUSTER_SHARE
+    fewest = -(-ch // most)
+    assert len(shares) == (8 if elem_bytes == 2 and fewest in (6, 7)
+                           else fewest)
+    assert 2 <= len(shares) <= 8
+    assert shares[0][0] == 0 and shares[-1][1] == ch
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    sizes = [c1 - c0 for c0, c1 in shares]
+    assert max(sizes) <= most and max(sizes) - min(sizes) <= 1
+    assert flash_ops.CLUSTER_MAXD == 8 * most * 64
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap",
+                         CLUSTER_CASES)
+def test_3xtf32_design_in_cluster_shares_matches_plain(B, Sq, Skv, H, d,
+                                                       causal, window,
+                                                       softcap):
+    """flash_wide_cluster_f32_kernel: 3xTF32 products in tiles of 96 keys,
+    S summed block by block in ascending rank, keeps the float32
+    contract."""
+    q, k, v = _fold_case(B, Sq, Skv, H, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _attention_tf32(q, k, v, BK=96, blocks=_cluster_columns(d, 4),
+                          **kw)
+    want = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert _rel_l2(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,d,causal,window,softcap",
+                         CLUSTER_CASES)
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_16_bit_design_in_cluster_shares_matches_plain(B, Sq, Skv, H, d,
+                                                       causal, window,
+                                                       softcap, dtype):
+    """flash_wide_cluster_kernel: each block's partial S (its warpgroups'
+    halves added), the blocks' partials in ascending rank, p rounded to
+    the input's type before P V: each dtype's contract against the plain
+    version."""
+    tdt = DTYPES[dtype][1]
+    q, k, v = (x.to(tdt) for x in _fold_case(B, Sq, Skv, H, d))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = _attention_16(q, k, v, blocks=_cluster_columns(d, 2), **kw).float()
+    want = attention_ref(q, k, v, **kw).float()
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert _rel_l2(got, want) <= FLASH_REL_L2[dtype]
+
+
+def test_cluster_sum_order_is_what_the_emulation_adds():
+    """The emulation adds as the kernel does, ((P0 + P1) + P2) with each
+    block's P its warpgroups' halves added, and the order shows: partials
+    of different magnitudes added in reverse rank give other bits, so the
+    tests above hold the stated order and not any sum."""
+    rng = np.random.default_rng(7)
+    q, k = (torch.from_numpy(rng.standard_normal((1, 8, 1152))
+                             .astype(np.float32)) for _ in range(2))
+    q[..., :64] *= 1e4
+    blocks = _cluster_columns(1152, 2)
+    assert blocks == [[(0, 192), (192, 384)], [(384, 576), (576, 768)],
+                      [(768, 960), (960, 1152)]]
+
+    def mm(a, b):
+        return q[..., a:b] @ k[..., a:b].transpose(1, 2)
+    want = ((mm(0, 192) + mm(192, 384)) + (mm(384, 576) + mm(576, 768))) \
+        + (mm(768, 960) + mm(960, 1152))
+    assert torch.equal(_partials(q, k, blocks, torch.matmul), want)
+    assert not torch.equal(_partials(q, k, blocks[::-1], torch.matmul), want)

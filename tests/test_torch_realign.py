@@ -35,8 +35,10 @@ EB = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 #: head dims of the route's cases: odd, d % 8 != 0, the widest that pads to
-#: 576, DeepSeek-V2's absorbed width, and the general kernel's past it
-ROUTE_DIMS = [257, 300, 575, 576, 577, 584, 640]
+#: 576, DeepSeek-V2's absorbed width, the cluster kernel's past it (577
+#: pads to 584), its widest (4096) and the general kernel's past that
+ROUTE_DIMS = [257, 300, 575, 576, 577, 584, 640, 1030, 4089, 4096, 4097,
+              4104]
 
 
 # ---------------------------------------------------------------------------
@@ -48,12 +50,13 @@ ROUTE_DIMS = [257, 300, 575, 576, 577, 584, 640]
 @pytest.mark.parametrize("offset", [0, 1, 3, 7])
 def test_realign_plan_by_shape(d, dtype, offset):
     """Bases ``offset`` elements past a 16-byte boundary, on q alone and on
-    all three: flash_wide's rule (aligned, d % 8 == 0, Skv > 0, d <= 576)
-    takes the tensors as they are; below 576 after padding every other
-    shape copies each tensor that breaks it, and the output where d % 8 !=
-    0; past 576 nothing is copied (the general wide kernel)."""
+    all three: the rule of flash_wide and flash_wide_cluster (aligned, d %
+    8 == 0, Skv > 0, d <= ``ops.CLUSTER_MAXD``) takes the tensors as they
+    are; up to ``CLUSTER_MAXD`` after padding every other shape copies
+    each tensor that breaks it, and the output where d % 8 != 0; past it
+    nothing is copied (the general wide kernel)."""
     r = offset * EB[DTYPES[dtype]] % 16
-    fits = d + -d % 8 <= 576
+    fits = flash_ops.padded(d) <= flash_ops.CLUSTER_MAXD
     for res, bad in (((r, 0, 0), (r != 0, False, False)),
                      ((r, r, r), (r != 0,) * 3)):
         want_copy = tuple(b or d % 8 != 0 for b in bad)
@@ -149,7 +152,8 @@ class FakeLibrary:
     """K5's C entry points as ctypes callbacks: the copy runs its plain
     version on the memory it is given, bit for bit; attention computes the
     plain version on the memory it is given and returns the code of the
-    kernel flash.cu's rule would take (tma_shape, d <= 576)."""
+    kernel flash.cu's rule would take (tma_shape, then d <= WIDE_MAXD or
+    d <= CLUSTER_MAXD)."""
 
     def __init__(self):
         self.calls = []
@@ -192,9 +196,10 @@ class FakeLibrary:
                 qt, kt, vt, causal=bool(causal), window=window,
                 softcap=softcap, scale=scale))
             tma = d % 8 == 0 and Skv > 0 and (q | k | v | o) % 16 == 0
-            one_s = tma and d <= 576
-            return (-1 if one_s else -2) if dtype == torch.float32 else \
-                (-2 if one_s else -3)
+            key = ("flash_wide" if tma and d <= flash_ops.WIDE_MAXD else
+                   "flash_wide_cluster" if tma and d <= flash_ops.CLUSTER_MAXD
+                   else "flash_wide_general")
+            return -flash_ops._KEYS[dtype].index(key)
         return body
 
 
@@ -219,10 +224,12 @@ def fake_card(monkeypatch):
 
 
 #: (d, offset, k is v): the route's shapes on the realigned route and on
-#: either side of it
+#: either side of it, on flash_wide and on flash_wide_cluster
 ROUTE_CASES = [(300, 0, False), (300, 3, True), (575, 1, False),
                (576, 1, False), (576, 7, True), (577, 1, False),
-               (584, 0, False), (576, 0, False)]
+               (584, 0, False), (576, 0, False), (640, 3, True),
+               (1030, 1, False), (1024, 0, False), (4096, 1, False),
+               (4097, 1, False), (4104, 0, False)]
 
 
 @pytest.mark.parametrize("d,offset,same_kv", ROUTE_CASES)
@@ -250,10 +257,11 @@ def test_flash_attention_route_on_realigned_scratch(fake_card, d, offset,
                                   d, Skv)
     dp = d + -d % 8
     if plan is None:
-        assert added == {("flash_wide" if dp <= 576 and offset == 0
+        assert added == {(flash_ops.wide_key(d) if offset == 0
                           else "flash_wide_general"): 1}
     else:
-        assert added == {"flash_realign": sum(plan), "flash_wide": 1}
+        assert added == {"flash_realign": sum(plan),
+                         flash_ops.wide_key(d): 1}
     (name, args), = [c for c in fake_card.calls if c[0] != "repro_flash_realign"]
     assert args[4:11] == (BH, Sq, Skv, dp if plan else d, 1, 9, 30.0)
     assert args[11] == pytest.approx(d ** -0.5, rel=1e-7)   # the real d's
